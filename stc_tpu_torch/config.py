@@ -1,0 +1,177 @@
+"""Typed configuration of the PyTorch port.
+
+A copy of the fields of ``stc_tpu/config.py`` that the single-stream
+LLaVA-OneVision + ReKV session reads.  The port keeps its own copy (it
+imports nothing of the JAX package) and drops ``decode_attn_backend``:
+attention on a CUDA tensor always runs the hand-written kernel, on a CPU
+tensor always its plain version.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ReKVConfig:
+    """Streaming retrieval KV-cache hyperparameters (static capacities)."""
+
+    n_init: int = 14              # init-prompt tokens kept resident forever
+    n_local: int = 15000          # sliding local attention window
+    block_size: int = 60          # tokens per KV block (== kept tokens/frame)
+    exc_block_size: int = 60      # tokens per encode attention call
+    topk: int = 64                # retrieved blocks per question
+    chunk_size: int = 1           # retrieval scoring chunk grouping
+    max_blocks: int = 1024        # capacity of the device page store (frames)
+    max_rep_blocks: int = 0       # rep-key capacity (0 => 4 * max_blocks)
+    max_new_tokens: int = 128     # decode budget per question
+    max_prompt_tokens: int = 512  # static prompt-prefill capacity for QA
+    # fields the main path does not implement yet; kept so the port's
+    # config takes every setting the JAX one does, and checked below
+    retrieval_scorer: str = "mean_dot"
+    retrieved_kv_compression: str = "none"
+    window_kv_compression: str = "none"
+    kv_quant: str = "none"
+    host_kv_quant: str = "int8"
+    spec_decode_draft: int = 0
+    spec_decode_ngram: int = 3
+    spec_history_tokens: int = 0
+
+    def __post_init__(self):
+        assert self.exc_block_size <= self.n_local
+        assert self.topk % self.chunk_size == 0
+        assert self.retrieval_scorer in ("mean_dot", "aks", "dpc_knn",
+                                         "l2norm"), self.retrieval_scorer
+        assert self.host_kv_quant in ("none", "int8", "int4"), \
+            self.host_kv_quant
+        assert self.kv_quant in ("none", "int8", "int4"), self.kv_quant
+        assert self.window_kv_compression in ("none", "select_top_half"), \
+            self.window_kv_compression
+        assert self.spec_decode_draft >= 0 and self.spec_decode_ngram >= 1
+        assert self.spec_history_tokens >= 0
+
+    def check_main_path(self) -> None:
+        """Raise on settings whose code the port does not have yet
+        (ROADMAP.md queue 1 lists where each one lands)."""
+        unported = {
+            "retrieval_scorer": (self.retrieval_scorer, "mean_dot"),
+            "retrieved_kv_compression": (self.retrieved_kv_compression,
+                                         "none"),
+            "window_kv_compression": (self.window_kv_compression, "none"),
+            "kv_quant": (self.kv_quant, "none"),
+            "spec_decode_draft": (self.spec_decode_draft, 0),
+        }
+        for name, (value, main) in unported.items():
+            if value != main:
+                raise NotImplementedError(
+                    f"ReKVConfig.{name}={value!r} is not ported yet "
+                    f"(the port runs {name}={main!r}; see ROADMAP.md)")
+
+    @property
+    def rep_cap(self) -> int:
+        """Retrievable-history capacity in blocks."""
+        return self.max_rep_blocks or 4 * self.max_blocks
+
+    @property
+    def local_cap(self) -> int:
+        return _round_up(self.n_local + max(self.exc_block_size, self.n_init),
+                         128)
+
+    @property
+    def retrieve_len(self) -> int:
+        """Length of the retrieval buffer: init tokens + topk blocks."""
+        return self.n_init + self.topk * self.block_size
+
+    @property
+    def decode_cap(self) -> int:
+        """Static capacity of the per-question decode KV cache."""
+        return _round_up(
+            self.retrieve_len + self.max_prompt_tokens + self.max_new_tokens
+            + (self.spec_decode_draft + 1 if self.spec_decode_draft else 0),
+            128)
+
+    @property
+    def rope_max_pos(self) -> int:
+        """Largest relative position any attention call can see."""
+        return max(self.n_local + self.exc_block_size, self.decode_cap) + 2
+
+
+@dataclasses.dataclass(frozen=True)
+class CacherConfig:
+    """STC-Cacher (ViT selective recompute) knobs."""
+
+    strategy: str = "cacher"          # 'none' | 'cacher'
+    update_token_ratio: float = 0.25  # share of ViT tokens recomputed
+    cache_interval: int = 2           # full recompute every Nth chunk
+    sim_source: str = "key"           # the port runs 'key' only
+    gather_impl: str = "auto"         # the port always gathers by index
+    k_proxy_rank: int = 0             # the port runs 0 only
+
+    @property
+    def enabled(self) -> bool:
+        return self.strategy == "cacher"
+
+    def check_main_path(self) -> None:
+        if self.sim_source != "key" or self.k_proxy_rank != 0:
+            raise NotImplementedError(
+                "the port's cacher runs sim_source='key' with "
+                "k_proxy_rank=0 only (ROADMAP.md queue 1, ablations)")
+
+
+@dataclasses.dataclass(frozen=True)
+class PrunerConfig:
+    """STC-Pruner (post-projector token pruning) knobs."""
+
+    strategy: str = "stc"        # 'stc' | 'none'
+    token_per_frame: int = 60    # tokens kept per frame after pruning
+    channel_keep_ratio: float = 0.5
+    model_spec: str = "llava_ov"
+
+    @property
+    def enabled(self) -> bool:
+        return self.strategy == "stc"
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    """Per-backbone visual token layout."""
+
+    tokens_per_frame: int
+    index_mapper_type: str  # 'flat' | 'grid_13x13'
+
+
+MODEL_SPECS = {
+    "llava_ov": ModelSpec(tokens_per_frame=196, index_mapper_type="flat"),
+    "llava_vid": ModelSpec(tokens_per_frame=169,
+                           index_mapper_type="grid_13x13"),
+    "clip": ModelSpec(tokens_per_frame=144, index_mapper_type="flat"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SessionConfig:
+    """Top-level streaming-session configuration."""
+
+    rekv: ReKVConfig = dataclasses.field(default_factory=ReKVConfig)
+    cacher: CacherConfig = dataclasses.field(default_factory=CacherConfig)
+    pruner: PrunerConfig = dataclasses.field(default_factory=PrunerConfig)
+    encode_chunk_frames: int = 1
+    weights_quant: str = "none"
+    ingest_format: str = "rgb"
+
+    def __post_init__(self):
+        assert self.weights_quant in ("none", "int8") or \
+            self.weights_quant.startswith("int8_g"), self.weights_quant
+        assert self.ingest_format in ("rgb", "yuv420"), self.ingest_format
+
+    def check_main_path(self) -> None:
+        self.rekv.check_main_path()
+        self.cacher.check_main_path()
+        if self.weights_quant != "none" or self.ingest_format != "rgb":
+            raise NotImplementedError(
+                "weight quantization and yuv420 ingest are not ported yet "
+                "(ROADMAP.md queue 1)")

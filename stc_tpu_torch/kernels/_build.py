@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
+with a plain C interface (no PyTorch headers, so a build takes seconds),
+loaded with ``ctypes``.  Builds happen at first use, into
+``build/stc_tpu_torch/`` at the root of the checkout, keyed by a hash of the
+sources and flags; all sources compile in parallel, one ``nvcc`` each.
+Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parents[1]
+CSRC = PKG / "csrc"
+BUILD = PKG.parent / "build" / "stc_tpu_torch"
+SOURCES = ("stream_attention", "decode_attention")
+FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict = {}
+build_log: dict = {}  # name -> compiler output of the last build
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all() -> dict:
+    """Compile every kernel source that is not built yet, all in parallel.
+    Returns {name: path}.  Raises with the compiler output on a failure."""
+    with _lock:
+        BUILD.mkdir(parents=True, exist_ok=True)
+        todo = {n: _lib_path(n) for n in SOURCES}
+        procs = {}
+        for name, out in todo.items():
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            procs[name] = (subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True), tmp, out)
+        failed = []
+        for name, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            build_log[name] = log
+            if proc.returncode != 0:
+                failed.append(f"--- {name} ---\n{log}")
+                continue
+            os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        return todo
+
+
+def n_splits(row_blocks: int, n_tiles: int, device) -> int:
+    """How many blocks share one row tile's KV walk: enough blocks for two
+    waves over the card's SMs, at most one tile per block."""
+    import torch
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = -(-2 * sms // max(row_blocks, 1))
+    return max(1, min(n_tiles, want))
+
+
+def check_launch(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel `name`, built on first use."""
+    lib = _libs.get(name)
+    if lib is None:
+        path = build_all()[name]
+        lib = ctypes.CDLL(str(path))
+        _libs[name] = lib
+    return lib

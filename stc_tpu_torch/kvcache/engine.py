@@ -1,0 +1,388 @@
+"""Streaming KV-cache engine, main-path subset (port of
+``stc_tpu/kvcache/engine.py``).
+
+Plain functions on tensors.  Unlike the JAX engine, which returns new
+arrays, page and decode-cache writes land IN PLACE in the tensors the state
+holds (the page store is gigabytes at llava-ov-0.5b shapes); counters are
+updated in place too.  Every function returns the state it was given, so
+call sites read like the JAX ones.
+
+Attention: every video append goes through ``ops.stream_attention`` and
+every QA forward through ``ops.decode_attention``.  Their wrappers launch
+the CUDA kernel on a CUDA tensor and run the plain PyTorch version on a CPU
+tensor; there is no other route.  The JAX session's window-size buckets and
+backend switches are not ported: the kernel skips the empty tiles of the
+full window, so it always reads the whole window cover.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from stc_tpu_torch.config import ReKVConfig
+from stc_tpu_torch.kvcache.state import DecodeKV, StreamKV
+from stc_tpu_torch.ops.attention import AttnStage, multi_stage_attention
+from stc_tpu_torch.ops.decode_attention import decode_attention
+from stc_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rotate
+from stc_tpu_torch.ops.stream_attention import pages_per_tile, stream_attention
+
+I32 = torch.int32
+
+
+def n_window_pages(cfg: ReKVConfig) -> int:
+    """ceil(n_local/S) + the pages of one append, rounded up to 8 (a
+    multiple of pages_per_tile)."""
+    S = cfg.block_size
+    w0 = -(-cfg.n_local // S) + cfg.exc_block_size // S
+    return -(-w0 // 8) * 8
+
+
+def init_stream_kv(cfg: ReKVConfig, batch: int, n_kv_heads: int,
+                   head_dim: int, dtype=torch.bfloat16, *, device,
+                   layers: Optional[int] = None) -> StreamKV:
+    """Zeroed stream state; with `layers` every leaf gets a leading layer
+    axis (the session's stacked state)."""
+    B, H, D, S, Nb = batch, n_kv_heads, head_dim, cfg.block_size, \
+        cfg.max_blocks
+    if Nb < n_window_pages(cfg):
+        raise ValueError(f"max_blocks={Nb} must cover the local window "
+                         f"({n_window_pages(cfg)} pages)")
+    cfg.check_main_path()
+    lead = () if layers is None else (layers,)
+
+    def z(shape, dt=dtype):
+        return torch.zeros(lead + shape, dtype=dt, device=device)
+
+    return StreamKV(
+        init_k=z((B, H, cfg.n_init, D)),
+        init_v=z((B, H, cfg.n_init, D)),
+        block_k=z((B, H, Nb, S, D)),
+        block_v=z((B, H, Nb, S, D)),
+        block_k_scale=z((B, H, 0, D), torch.float32),
+        block_v_scale=z((B, H, 0, D), torch.float32),
+        block_rep=z((B, cfg.rep_cap, H, D)),
+        page_keep=torch.ones(lead + (B, Nb, S), dtype=torch.bool,
+                             device=device),
+        num_blocks=z((B,), I32),
+        page_offset=z((B,), I32),
+        length=z((B,), I32),
+    )
+
+
+def init_decode_kv(cfg: ReKVConfig, batch: int, n_kv_heads: int,
+                   head_dim: int, dtype=torch.bfloat16, *, device,
+                   layers: Optional[int] = None) -> DecodeKV:
+    lead = () if layers is None else (layers,)
+    shape = lead + (batch, n_kv_heads, cfg.decode_cap, head_dim)
+    return DecodeKV(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        cursor=torch.zeros(lead + (batch,), dtype=I32, device=device))
+
+
+# ---------------------------------------------------------------------------
+# RoPE tables and kernel scalars (shared by every layer of one append)
+# ---------------------------------------------------------------------------
+
+class RopeCache(NamedTuple):
+    cos_q: torch.Tensor      # (T, D) queries at window-relative positions
+    sin_q: torch.Tensor
+    cos_one: torch.Tensor    # (D,) one angle for the init-far group
+    sin_one: torch.Tensor
+    cos_init: torch.Tensor   # (B, n_init, D) init keys, window-relative
+    sin_init: torch.Tensor
+    cos_cover: torch.Tensor  # (B, Lc, D) keys of the tile-aligned cover
+    sin_cover: torch.Tensor
+    start_tile: torch.Tensor  # (B,) first store tile of the cover
+    scalars: torch.Tensor    # (B, 5) int32 kernel scalars: L, start_tile,
+                             # total pages, init_active, page_offset
+
+
+def make_rope_cache(length: torch.Tensor, num_blocks: torch.Tensor, T: int,
+                    cfg: ReKVConfig, head_dim: int, rope_base: float,
+                    page_offset: Optional[torch.Tensor] = None) -> RopeCache:
+    """Everything position-dependent for one append of T tokens.
+    length/num_blocks/page_offset: (B,) state BEFORE the append."""
+    dev = length.device
+    S, Nb, W = cfg.block_size, cfg.max_blocks, n_window_pages(cfg)
+    L = length.to(torch.int64)
+    offset = (torch.zeros_like(L) if page_offset is None
+              else page_offset.to(torch.int64))
+    ar = torch.arange(T, device=dev)
+
+    cos_q, sin_q = rope_cos_sin(cfg.n_local + ar, head_dim, rope_base)
+    cos_one, sin_one = rope_cos_sin(
+        torch.full((), cfg.n_local - 1, device=dev), head_dim, rope_base)
+    init_pos = torch.arange(cfg.n_init, device=dev)[None, :]
+    rel_init = (init_pos - L[:, None] + cfg.n_local).clamp(
+        0, cfg.rope_max_pos - 1)
+    cos_init, sin_init = rope_cos_sin(rel_init, head_dim, rope_base)
+
+    n_new = T // S
+    total = num_blocks.to(torch.int64) + n_new
+    win_start = (total - offset - W).clamp(0, Nb - W)
+    ppt = pages_per_tile(S)
+    n_read = W // ppt + 1
+    start_tile = win_start // ppt
+    cover_pages = (offset + start_tile * ppt)[:, None] + torch.arange(
+        n_read * ppt, device=dev)[None, :]
+    cover_pos = (cfg.n_init + cover_pages[:, :, None] * S
+                 + torch.arange(S, device=dev)[None, None, :])
+    rel_cover = (cover_pos - L[:, None, None] + cfg.n_local).clamp(
+        0, cfg.rope_max_pos - 1)
+    cos_cover, sin_cover = rope_cos_sin(rel_cover, head_dim, rope_base)
+    B, Lc = L.shape[0], n_read * ppt * S
+    cos_cover = cos_cover.reshape(B, Lc, head_dim)
+    sin_cover = sin_cover.reshape(B, Lc, head_dim)
+
+    init_active = (L + T) > cfg.n_local
+    scalars = torch.stack([L, start_tile, total, init_active.to(torch.int64),
+                           offset], dim=1).to(I32)
+    return RopeCache(cos_q, sin_q, cos_one, sin_one, cos_init, sin_init,
+                     cos_cover, sin_cover, start_tile.to(I32), scalars)
+
+
+# ---------------------------------------------------------------------------
+# Streaming append (encode path)
+# ---------------------------------------------------------------------------
+
+def append_stream(kv: StreamKV, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor, cfg: ReKVConfig, *, is_init: bool,
+                  rope_base: float = 10000.0,
+                  rope_cache: Optional[RopeCache] = None
+                  ) -> Tuple[torch.Tensor, StreamKV]:
+    """One streaming append of T tokens; returns (attn_out, kv) with kv's
+    tensors updated in place.
+
+    q: (B, Hq, T, D), k/v: (B, Hkv, T, D), all unrotated.  If is_init the T
+    == n_init tokens become the init tokens and attend each other causally.
+    Otherwise T is a whole number of pages: they are written to the store
+    with one mean key per page, then the queries attend [init tokens |
+    window pages | init tokens at the one angle] through stream_attention.
+    """
+    B, Hq, T, D = q.shape
+    Hkv = k.shape[1]
+    S = cfg.block_size
+
+    if is_init:
+        if T != cfg.n_init:
+            raise ValueError((T, cfg.n_init))
+        rel = cfg.n_local + torch.arange(T, device=q.device)
+        q_rot = apply_rope(q, rel, rope_base)
+        k_rot = apply_rope(k, rel, rope_base)
+        dist = torch.arange(T, device=q.device)[:, None] - torch.arange(
+            T, device=q.device)[None, :]
+        mask = (dist >= 0) & (dist < cfg.n_local)
+        o = multi_stage_attention(q_rot, [AttnStage(k_rot, v,
+                                                    mask[None, None])])
+        kv.init_k.copy_(k)
+        kv.init_v.copy_(v)
+        kv.length.add_(T)
+        return o, kv
+
+    if T % S:
+        raise ValueError(f"append of {T} tokens is not whole {S}-token pages")
+    n_new = T // S
+    if n_new > cfg.exc_block_size // S:
+        raise ValueError(f"append of {n_new} pages exceeds exc_block_size="
+                         f"{cfg.exc_block_size} (the window cover is sized "
+                         "for it)")
+    rc = rope_cache if rope_cache is not None else make_rope_cache(
+        kv.length, kv.num_blocks, T, cfg, D, rope_base, kv.page_offset)
+
+    # page + rep-key write, before attention (queries see themselves)
+    bidx = torch.arange(B, device=q.device)[:, None]
+    ar = torch.arange(n_new, device=q.device)[None, :]
+    slot = (kv.num_blocks - kv.page_offset).clamp(0, cfg.max_blocks - n_new)
+    pages = slot.to(torch.int64)[:, None] + ar                  # (B, n_new)
+    k_pages = k.reshape(B, Hkv, n_new, S, D)
+    v_pages = v.reshape(B, Hkv, n_new, S, D)
+    kv.block_k[bidx, :, pages] = k_pages.transpose(1, 2).to(kv.block_k.dtype)
+    kv.block_v[bidx, :, pages] = v_pages.transpose(1, 2).to(kv.block_v.dtype)
+    rep = k_pages.to(torch.float32).mean(dim=3).transpose(1, 2)  # (B,n,H,D)
+    rep_slot = kv.num_blocks.clamp(0, cfg.rep_cap - n_new).to(torch.int64)
+    kv.block_rep[bidx, rep_slot[:, None] + ar] = rep.to(kv.block_rep.dtype)
+
+    # the kernel takes queries in the store's dtype (a body computing in
+    # f32 over a bf16 store narrows here, as the Pallas kernel does)
+    dt = kv.block_k.dtype
+    q_rot = rotate(q, rc.cos_q, rc.sin_q).to(dt)
+    q_one = rotate(q, rc.cos_one, rc.sin_one).to(dt)
+    k_init_rot = rotate(kv.init_k, rc.cos_init[:, None], rc.sin_init[:, None])
+    o = stream_attention(
+        q_rot.contiguous(), q_one.contiguous(), kv.block_k, kv.block_v,
+        rc.cos_cover, rc.sin_cover, k_init_rot.contiguous(), kv.init_v,
+        kv.init_k, rc.scalars, n_local=cfg.n_local).to(q.dtype)
+
+    kv.num_blocks.add_(n_new)
+    kv.length.add_(T)
+    return o, kv
+
+
+# ---------------------------------------------------------------------------
+# Retrieval (question time)
+# ---------------------------------------------------------------------------
+
+def score_block_logits(kv: StreamKV, q: torch.Tensor, cfg: ReKVConfig,
+                       q_valid: Optional[torch.Tensor] = None):
+    """Mean question query . each block's rep key (GQA-grouped).
+    Returns (logits (B, Rc), blk_valid (B, Rc), q_mean (B, Hq, D))."""
+    B, Hq, Lq, D = q.shape
+    Hkv = kv.block_rep.shape[2]
+    Rc = kv.block_rep.shape[1]
+    qf = q.to(torch.float32)
+    if q_valid is None:
+        q_mean = qf.mean(dim=2)
+    else:
+        w = q_valid.to(torch.float32)[:, None, :, None]
+        q_mean = (qf * w).sum(dim=2) / w.sum(dim=2).clamp(min=1.0)
+    q_grp = q_mean.reshape(B, Hkv, Hq // Hkv, D).sum(dim=2)
+    logits = torch.einsum("bnhd,bhd->bn", kv.block_rep.to(torch.float32),
+                          q_grp)
+    slot_ids = torch.arange(Rc, device=q.device)[None, :]
+    blk_valid = slot_ids < kv.num_blocks[:, None]
+    return logits, blk_valid, q_mean
+
+
+def score_blocks(kv: StreamKV, q: torch.Tensor, cfg: ReKVConfig,
+                 q_valid: Optional[torch.Tensor] = None):
+    """Top-k blocks over the full rep history: (abs_idx (B, topk) int32
+    ascending, exists (B, topk) bool marking selections of real blocks)."""
+    B = q.shape[0]
+    Rc = kv.block_rep.shape[1]
+    cs = cfg.chunk_size
+    logits, blk_valid, _ = score_block_logits(kv, q, cfg, q_valid)
+    lg = torch.where(blk_valid, logits, 0.0).reshape(B, Rc // cs, cs)
+    cnt = blk_valid.reshape(B, Rc // cs, cs).sum(dim=-1)
+    chunk_score = torch.where(cnt > 0, lg.sum(dim=-1) / cnt.clamp(min=1),
+                              float("-inf"))
+    _, chunk_idx = torch.topk(chunk_score, cfg.topk // cs, dim=1)
+    chunk_valid = torch.gather(cnt > 0, 1, chunk_idx)
+    sort_key = torch.where(chunk_valid, chunk_idx, Rc // cs + 1)
+    chunk_idx = torch.sort(sort_key, dim=1).values
+    abs_idx = (chunk_idx[:, :, None] * cs + torch.arange(
+        cs, device=q.device)[None, None, :]).reshape(B, cfg.topk).to(I32)
+    exists = abs_idx < kv.num_blocks[:, None]
+    return abs_idx, exists
+
+
+def retrieve_scored(kv: StreamKV, cfg: ReKVConfig, abs_idx: torch.Tensor,
+                    exists: torch.Tensor):
+    """Gather the selected device-resident blocks behind the init tokens,
+    valid blocks first in ascending order.  Returns (ret_k, ret_v
+    (B, Hkv, R, D) unrotated, token_valid (B, R), valid_len (B,) int32)."""
+    resident = exists & (abs_idx >= kv.page_offset[:, None])
+    order_key = torch.where(resident, abs_idx.to(torch.int64),
+                            torch.iinfo(torch.int32).max)
+    order = torch.argsort(order_key, dim=1, stable=True)
+    abs_sorted = torch.gather(abs_idx, 1, order)
+    sel_valid = torch.gather(resident, 1, order)
+    slot = (abs_sorted - kv.page_offset[:, None]).clamp(0, cfg.max_blocks - 1)
+    return _gather_retrieved(kv, cfg, slot, sel_valid)
+
+
+def retrieve_blocks(kv: StreamKV, q: torch.Tensor, cfg: ReKVConfig,
+                    q_valid: Optional[torch.Tensor] = None):
+    """Query-conditioned top-k block retrieval (score_blocks, then
+    retrieve_scored); returns retrieve_scored's 4-tuple."""
+    abs_idx, exists = score_blocks(kv, q, cfg, q_valid)
+    return retrieve_scored(kv, cfg, abs_idx, exists)
+
+
+def _gather_retrieved(kv: StreamKV, cfg: ReKVConfig, block_slot, sel_valid):
+    B = block_slot.shape[0]
+    bidx = torch.arange(B, device=block_slot.device)[:, None]
+    gk = kv.block_k[bidx, :, block_slot.to(torch.int64)]  # (B,topk,Hkv,S,D)
+    gv = kv.block_v[bidx, :, block_slot.to(torch.int64)]
+    return _pack_retrieved(kv, cfg, gk, gv, sel_valid)
+
+
+def _pack_retrieved(kv: StreamKV, cfg: ReKVConfig, gk, gv, sel_valid):
+    """Pack gathered (B, topk, Hkv, S, D) pages behind the init tokens."""
+    B, _, Hkv, S, D = gk.shape
+    gk = gk.transpose(1, 2).reshape(B, Hkv, cfg.topk * S, D)
+    gv = gv.transpose(1, 2).reshape(B, Hkv, cfg.topk * S, D)
+    ret_k = torch.cat([kv.init_k, gk], dim=2)
+    ret_v = torch.cat([kv.init_v, gv], dim=2)
+    tok_valid = torch.cat(
+        [torch.ones((B, cfg.n_init), dtype=torch.bool, device=gk.device),
+         sel_valid.repeat_interleave(S, dim=1)], dim=1)
+    valid_len = (cfg.n_init + sel_valid.sum(dim=1) * S).to(I32)
+    return ret_k, ret_v, tok_valid, valid_len
+
+
+# ---------------------------------------------------------------------------
+# QA decode cache (retrieved prefix + prompt + generated tokens)
+# ---------------------------------------------------------------------------
+
+def decode_write(dkv: DecodeKV, k: torch.Tensor, v: torch.Tensor, n_tokens,
+                 *, rope_base: float = 10000.0, at_start: bool = False,
+                 raw_rows: int = 0) -> DecodeKV:
+    """Write T tokens at the cursor (slot 0 if at_start), keys rotated at
+    their slot; rows below raw_rows stay unrotated.  k/v: (B, Hkv, T, D).
+    Writes land in dkv.k / dkv.v in place; returns DecodeKV with the
+    advanced cursor (a new tensor)."""
+    B, Hkv, T, D = k.shape
+    C = dkv.k.shape[2]
+    dev = k.device
+    start = (torch.zeros((B,), dtype=torch.int64, device=dev) if at_start
+             else dkv.cursor.to(torch.int64))
+    slot = (start[:, None] + torch.arange(T, device=dev)[None, :]).clamp(
+        max=C - 1)
+    k_rot = apply_rope(k, slot[:, None, :], rope_base)
+    if raw_rows:
+        k_rot = torch.where((slot < raw_rows)[:, None, :, None], k, k_rot)
+    bidx = torch.arange(B, device=dev)[:, None]
+    dkv.k[bidx, :, slot] = k_rot.transpose(1, 2).to(dkv.k.dtype)
+    dkv.v[bidx, :, slot] = v.transpose(1, 2).to(dkv.v.dtype)
+    # a Python count stays on the host: a tensor made from it would be a
+    # host-to-device copy that waits for the device
+    n = n_tokens.to(torch.int64) if torch.is_tensor(n_tokens) else n_tokens
+    return DecodeKV(k=dkv.k, v=dkv.v, cursor=(start + n).to(I32))
+
+
+def decode_attend(q: torch.Tensor, q_slots: torch.Tensor, dkv: DecodeKV,
+                  cfg: ReKVConfig, *, rope_base: float = 10000.0):
+    """Sliding-window attention of fresh queries over the decode cache.
+
+    q: (B, Hq, T, D) unrotated; q_slots: (B, T) AFFINE slots (q_slots[:, t]
+    == q_slots[:, 0] + t at every call site) whose keys are already
+    written.  Runs decode_attention.  When decode_cap > n_local the JAX
+    engine adds the complement-window init stage (rekv_attention.py:401-426);
+    the port computes that stage with the plain multi-stage attention on the
+    CPU and raises on CUDA (ROADMAP.md queue 2: the decode init stage).
+    """
+    B, Hq, T, D = q.shape
+    q_rot = apply_rope(q, q_slots[:, None, :], rope_base)
+    if cfg.decode_cap <= cfg.n_local:
+        o = decode_attention(q_rot.to(dkv.k.dtype).contiguous(), dkv.k,
+                             dkv.v, q_slots[:, 0].to(I32).contiguous(),
+                             dkv.cursor.contiguous(), n_local=cfg.n_local)
+        return o.to(q.dtype)
+    if q.is_cuda:
+        raise NotImplementedError(
+            f"decode_cap={cfg.decode_cap} > n_local={cfg.n_local} needs the "
+            "complement-window init stage, which decode_attention has not "
+            "got yet (ROADMAP.md queue 2, 'decode_attention init stage')")
+    C = dkv.k.shape[2]
+    nI = cfg.n_init
+    dev = q.device
+    slot_pos = torch.arange(C, device=dev)[None, :]
+    dist = q_slots[:, :, None].to(torch.int64) - slot_pos[:, None, :]
+    mask = (dist >= 0) & (dist < cfg.n_local) & (
+        slot_pos < dkv.cursor[:, None])[:, None, :]
+    init_pos = torch.arange(nI, device=dev)
+    cos_i, sin_i = rope_cos_sin(init_pos, D, rope_base)
+    k_win = torch.cat([rotate(dkv.k[:, :, :nI], cos_i, sin_i),
+                       dkv.k[:, :, nI:]], dim=2)
+    cos1, sin1 = rope_cos_sin(torch.tensor(cfg.n_local - 1, device=dev), D,
+                              rope_base)
+    q_one = rotate(q, cos1, sin1)
+    d_init = q_slots[:, :, None].to(torch.int64) - init_pos[None, None, :]
+    m2 = (d_init >= cfg.n_local) & (
+        init_pos[None, None, :] < dkv.cursor[:, None, None])
+    return multi_stage_attention(q_rot, [
+        AttnStage(k_win, dkv.v, mask[:, None]),
+        AttnStage(dkv.k[:, :, :nI], dkv.v[:, :, :nI], m2[:, None], q=q_one)])

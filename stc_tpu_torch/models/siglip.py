@@ -1,0 +1,250 @@
+"""SigLIP vision tower with the STC-Cacher (port of
+``stc_tpu/models/siglip.py``, main-path subset).
+
+  full chunk  (chunk_idx % cache_interval == 0): standard ViT layers; the
+      chunk's last frame's K, V, attention output and MLP output become the
+      cacher references.
+  cached chunk: fresh K for every token; per-frame the update_ratio tokens
+      least cosine-similar to the reference K are recomputed (q/v, attention
+      against the scattered V, attention and MLP outputs); every other token
+      takes the reference outputs.
+
+The port runs sim_source='key', k_proxy_rank=0 and gathers rows by index
+(the JAX package's one-hot gather exists only for TPU costs).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from stc_tpu_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class SiglipConfig:
+    hidden_size: int = 1152
+    num_layers: int = 26
+    num_heads: int = 16
+    intermediate_size: int = 4304
+    image_size: int = 384
+    patch_size: int = 14
+    layer_norm_eps: float = 1e-6
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def grid(self) -> int:
+        return self.image_size // self.patch_size
+
+    @property
+    def num_tokens(self) -> int:
+        return self.grid * self.grid
+
+    @classmethod
+    def tiny(cls):
+        return cls(hidden_size=32, num_layers=2, num_heads=4,
+                   intermediate_size=64, image_size=56, patch_size=14)
+
+
+class CacherState(NamedTuple):
+    """Per-layer references of the last full chunk's last frame, each
+    (L, B, T, C)."""
+    ref_k: torch.Tensor
+    ref_v: torch.Tensor
+    ref_attn: torch.Tensor
+    ref_mlp: torch.Tensor
+
+
+def init_cacher_state(cfg: SiglipConfig, batch: int, dtype=torch.float32,
+                      *, device) -> CacherState:
+    def z():
+        return torch.zeros((cfg.num_layers, batch, cfg.num_tokens,
+                            cfg.hidden_size), dtype=dtype, device=device)
+    return CacherState(z(), z(), z(), z())
+
+
+def layer_norm(x, w, b, eps):
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
+
+
+def _attn_full(q, k, v, num_heads):
+    """Plain bidirectional softmax attention; q/k/v: (B, Tq|Tk, C)."""
+    B, Tq, C = q.shape
+    Tk = k.shape[1]
+    H, D = num_heads, C // num_heads
+    qh = q.reshape(B, Tq, H, D).transpose(1, 2)
+    kh = k.reshape(B, Tk, H, D).transpose(1, 2)
+    vh = v.reshape(B, Tk, H, D).transpose(1, 2)
+    logits = (qh @ kh.transpose(-1, -2)).to(torch.float32) * (D ** -0.5)
+    p = torch.softmax(logits, dim=-1).to(q.dtype)
+    o = p @ vh
+    return o.transpose(1, 2).reshape(B, Tq, C)
+
+
+def _scatter_tokens(base, idx, vals):
+    """base (F, T, C) with rows idx (F, U) set to vals (F, U, C)."""
+    f = torch.arange(base.shape[0], device=base.device)[:, None]
+    out = base.clone()
+    out[f, idx] = vals
+    return out
+
+
+class SiglipLayer(nn.Module):
+    def __init__(self, cfg: SiglipConfig, dtype, device):
+        super().__init__()
+        C, F_ = cfg.hidden_size, cfg.intermediate_size
+
+        def p(*shape):
+            return nn.Parameter(torch.zeros(shape, dtype=dtype,
+                                            device=device),
+                                requires_grad=False)
+
+        self.ln1_w, self.ln1_b = p(C), p(C)
+        self.wq, self.bq = p(C, C), p(C)
+        self.wk, self.bk = p(C, C), p(C)
+        self.wv, self.bv = p(C, C), p(C)
+        self.wo, self.bo = p(C, C), p(C)
+        self.ln2_w, self.ln2_b = p(C), p(C)
+        self.fc1, self.fc1_b = p(C, F_), p(F_)
+        self.fc2, self.fc2_b = p(F_, C), p(C)
+
+    def _mlp(self, x):
+        x = F.gelu(x @ self.fc1 + self.fc1_b, approximate="tanh")
+        return x @ self.fc2 + self.fc2_b
+
+    def full(self, h, cfg: SiglipConfig):
+        """Standard layer; returns (h, (k, v, attn_out, mlp_out))."""
+        eps = cfg.layer_norm_eps
+        hn = layer_norm(h, self.ln1_w, self.ln1_b, eps)
+        k = hn @ self.wk + self.bk
+        q = hn @ self.wq + self.bq
+        v = hn @ self.wv + self.bv
+        attn = _attn_full(q, k, v, cfg.num_heads) @ self.wo + self.bo
+        h = h + attn
+        mlp = self._mlp(layer_norm(h, self.ln2_w, self.ln2_b, eps))
+        return h + mlp, (k, v, attn, mlp)
+
+    def cached(self, h, refs, num_update: int, cfg: SiglipConfig):
+        """Selective recompute of the num_update least key-similar tokens
+        per frame; h (F, T, C), refs (1, T, C) each.  Returns
+        (h, selected token indices (F, U) ascending)."""
+        eps = cfg.layer_norm_eps
+        ref_k, ref_v, ref_attn, ref_mlp = refs
+        F_, T, C = h.shape
+        H = cfg.num_heads
+        D = C // H
+        hn = layer_norm(h, self.ln1_w, self.ln1_b, eps)
+        k_full = hn @ self.wk + self.bk
+        kf, rf = k_full.to(torch.float32), ref_k.to(torch.float32)
+        sim = (kf * rf).sum(-1) / (kf.norm(dim=-1) * rf.norm(dim=-1) + 1e-8)
+        upd = torch.topk(-sim, num_update, dim=-1).indices
+        upd = torch.sort(upd, dim=-1).values                    # (F, U)
+        frow = torch.arange(F_, device=h.device)[:, None]
+
+        def merge(h, ref, vals):
+            return _scatter_tokens(h + ref, upd, h[frow, upd] + vals)
+
+        toks = hn[frow, upd]                                    # (F, U, C)
+        q_sel = toks @ self.wq + self.bq
+        v_sel = toks @ self.wv + self.bv
+        qh = q_sel.reshape(F_, num_update, H, D).transpose(1, 2)
+        kh = k_full.reshape(F_, T, H, D).transpose(1, 2)
+        logits = (qh @ kh.transpose(-1, -2)).to(torch.float32) * (D ** -0.5)
+        p = torch.softmax(logits, dim=-1).to(q_sel.dtype)       # (F,H,U,T)
+        # attention against the scattered V without forming it:
+        #   p @ V = p @ ref_V + p[:, :, :, upd] @ (V_sel - ref_V[upd])
+        rvh = ref_v[0].reshape(T, H, D).transpose(0, 1)         # (H, T, D)
+        o = p @ rvh
+        p_sel = torch.gather(p, 3, upd[:, None, None, :].expand(
+            F_, H, num_update, num_update))
+        dv = (v_sel - ref_v[0][upd]).reshape(F_, num_update, H, D)
+        o = o + p_sel @ dv.transpose(1, 2).to(p_sel.dtype)
+        attn_sel = o.transpose(1, 2).reshape(F_, num_update, C).to(h.dtype)
+        attn_sel = attn_sel @ self.wo + self.bo
+        h = merge(h, ref_attn, attn_sel)
+        hn2 = layer_norm(h, self.ln2_w, self.ln2_b, eps)
+        h = merge(h, ref_mlp, self._mlp(hn2[frow, upd]))
+        return h, upd
+
+
+class Siglip(nn.Module):
+    """The vision tower; weights start zeroed (init_random_params or
+    weights.siglip_from_jax fill them)."""
+
+    def __init__(self, cfg: SiglipConfig, dtype=torch.float32,
+                 device="cuda"):
+        super().__init__()
+        device = resolve_device(device)
+        self.cfg = cfg
+        C, P = cfg.hidden_size, cfg.patch_size
+
+        def p(*shape):
+            return nn.Parameter(torch.zeros(shape, dtype=dtype,
+                                            device=device),
+                                requires_grad=False)
+
+        self.patch_w, self.patch_b = p(3 * P * P, C), p(C)
+        self.pos_embed = p(cfg.num_tokens, C)
+        self.layers = nn.ModuleList(SiglipLayer(cfg, dtype, device)
+                                    for _ in range(cfg.num_layers))
+        self.post_ln_w, self.post_ln_b = p(C), p(C)
+
+    @torch.no_grad()
+    def init_random_params(self, generator: torch.Generator,
+                           scale: float = 0.02) -> "Siglip":
+        for name, prm in self.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("ln1_w", "ln2_w", "post_ln_w"):
+                prm.fill_(1.0)
+            elif prm.dim() == 2:  # matrices and the position embedding
+                prm.copy_(torch.randn(prm.shape, generator=generator,
+                                      device=generator.device) * scale)
+            else:
+                prm.zero_()
+        return self
+
+    def patch_embed(self, pixels: torch.Tensor) -> torch.Tensor:
+        """(B, 3, H, W) -> (B, T, C): the stride-P conv as reshape +
+        matmul; pixels past grid * P are dropped (valid padding)."""
+        B = pixels.shape[0]
+        P, g = self.cfg.patch_size, self.cfg.grid
+        x = pixels[:, :, :g * P, :g * P].reshape(B, 3, g, P, g, P)
+        x = x.permute(0, 2, 4, 1, 3, 5).reshape(B, g * g, 3 * P * P)
+        return x @ self.patch_w + self.patch_b + self.pos_embed
+
+    @torch.no_grad()
+    def encode_full(self, pixels: torch.Tensor):
+        """Full chunk: returns (features (F, T, C) of the last layer, the
+        refreshed CacherState from the chunk's last frame)."""
+        h = self.patch_embed(pixels)
+        refs = []
+        for lp in self.layers:
+            h, saved = lp.full(h, self.cfg)
+            refs.append([x[-1:] for x in saved])
+        return h, CacherState(*(torch.stack([r[j] for r in refs])
+                                for j in range(4)))
+
+    @torch.no_grad()
+    def encode_cached(self, pixels: torch.Tensor, cacher: CacherState,
+                      update_ratio: float):
+        """Selective-recompute chunk: returns (features, selected token
+        indices (L, F, U)); the cacher state is unchanged."""
+        T = self.cfg.num_tokens
+        num_update = max(1, min(int(T * update_ratio), T))
+        h = self.patch_embed(pixels)
+        sel = []
+        for i, lp in enumerate(self.layers):
+            h, upd = lp.cached(h, tuple(x[i] for x in cacher), num_update,
+                               self.cfg)
+            sel.append(upd)
+        return h, torch.stack(sel)

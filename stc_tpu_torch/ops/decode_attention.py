@@ -1,0 +1,121 @@
+"""Sliding-window attention over the QA decode cache: the CUDA kernel's
+wrapper and its plain PyTorch version.
+
+Replaces the Pallas kernel ``stc_tpu/ops/decode_attention.py::_attn_kernel``
+(wrapper ``decode_attention``): T fresh queries at affine slots
+``start + t`` attend the decode cache (B, Hkv, C, D), whose keys are stored
+already rotated, under the mask ``0 <= q_slot - slot < n_local`` and
+``slot < cursor``; GQA is folded into the query rows.  With ``return_m`` the
+row maxima of the scaled, masked scores come back too.  The kernel is
+``csrc/decode_attention.cu``.
+
+Bound on the H100: a token step at llava-ov-0.5b shapes reads ~2 MB of
+live cache (0.6 us at 3.35 TB/s), below the cost of a launch; the
+256-token prompt prefill is bound by its bf16 operations (~3.8 us).  The
+first design splits the live slot range over blocks (flash-decoding, with
+a combine kernel) so one kv head's 7 query rows still spread over the
+card, and runs the tile products as FP32 FMA; it does not use tensor cores
+(PERF.md has its distance from the bound).
+
+On a CPU tensor the wrapper runs ``decode_attention_ref``; on a CUDA tensor
+it launches the kernel or raises.  ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from stc_tpu_torch.kernels import _build
+
+launches = 0
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check(q_rot, k, v, start, cursor):
+    if q_rot.dtype not in _DTYPES or k.dtype != q_rot.dtype \
+            or v.dtype != q_rot.dtype:
+        raise ValueError("decode_attention wants q, k and v in one dtype "
+                         "(bfloat16 or float32)")
+    B = q_rot.shape[0]
+    for t in (start, cursor):
+        if t.dtype != torch.int32 or tuple(t.shape) != (B,):
+            raise ValueError("start and cursor must be (B,) int32")
+    allt = (q_rot, k, v, start, cursor)
+    if any(not t.is_contiguous() for t in allt):
+        raise ValueError("decode_attention wants contiguous tensors")
+    if any(t.device != q_rot.device for t in allt):
+        raise ValueError("decode_attention inputs lie on several devices")
+
+
+def decode_attention(q_rot, k, v, start, cursor, *, n_local: int,
+                     return_m: bool = False):
+    """q_rot: (B, Hq, T, D) queries rotated at slots start..start+T-1;
+    k/v: (B, Hkv, C, D) rotated decode cache; start/cursor: (B,) int32.
+    Returns (B, Hq, T, D), plus row maxima (B, Hq, T) f32 with return_m
+    (-inf on a row that sees no key)."""
+    _check(q_rot, k, v, start, cursor)
+    if q_rot.device.type == "cpu":
+        return decode_attention_ref(q_rot, k, v, start, cursor,
+                                    n_local=n_local, return_m=return_m)
+    if q_rot.device.type != "cuda":
+        raise RuntimeError(f"no decode_attention for {q_rot.device}")
+    return _launch(q_rot, k, v, start, cursor, n_local, return_m)
+
+
+def _launch(q_rot, k, v, start, cursor, n_local, return_m):
+    global launches
+    lib = _build.load("decode_attention")
+    fn = lib.stc_decode_attention
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    B, Hq, T, D = q_rot.shape
+    Hkv, C = k.shape[1], k.shape[2]
+    dev = q_rot.device
+    row_blocks = -(-(Hq // Hkv) * T // 64) * Hkv * B
+    n_split = _build.n_splits(row_blocks, -(-C // 64), dev)
+    rows = B * Hq * T
+    part_acc = torch.empty((n_split, rows, D), dtype=torch.float32,
+                           device=dev)
+    part_ml = torch.empty((n_split, rows, 2), dtype=torch.float32, device=dev)
+    out = torch.empty_like(q_rot)
+    m = (torch.empty((B, Hq, T), dtype=torch.float32, device=dev)
+         if return_m else None)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = fn(q_rot.data_ptr(), k.data_ptr(), v.data_ptr(), start.data_ptr(),
+            cursor.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            out.data_ptr(), None if m is None else m.data_ptr(), B, Hq, Hkv,
+            T, D, C, n_local, n_split, _DTYPES[q_rot.dtype], stream)
+    _build.check_launch(rc, "decode_attention")
+    launches += 1
+    return (out, m) if return_m else out
+
+
+def decode_attention_ref(q_rot, k, v, start, cursor, *, n_local: int,
+                         return_m: bool = False):
+    """Plain PyTorch version of the kernel: one masked softmax in float32,
+    probabilities rounded to the value dtype before P @ V, output normalised
+    by the unrounded sum (0 where no key is visible)."""
+    B, Hq, T, D = q_rot.shape
+    Hkv, C = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    dev, f32 = q_rot.device, torch.float32
+    qg = q_rot.reshape(B, Hkv, G, T, D).to(f32)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(f32)) * (1.0 / D ** 0.5)
+    slot = torch.arange(C, device=dev)
+    q_slot = start.to(torch.int64)[:, None] + torch.arange(T, device=dev)
+    dist = q_slot[:, :, None] - slot
+    mask = (dist >= 0) & (dist < n_local) & (
+        slot < cursor.to(torch.int64)[:, None, None])
+    s = torch.where(mask[:, None, None], s, float("-inf"))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)[..., None])
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.einsum("bhgqk,bhkd->bhgqd", p.to(v.dtype).to(f32), v.to(f32))
+    o = (acc / torch.where(l == 0, 1.0, l)).reshape(B, Hq, T, D)
+    o = o.to(q_rot.dtype)
+    return (o, m.reshape(B, Hq, T)) if return_m else o

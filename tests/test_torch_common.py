@@ -1,0 +1,101 @@
+"""Shared helpers of the PyTorch-port tests (stc_tpu_torch against stc_tpu on
+the CPU), and tests of the port's configuration and device rules.
+
+Tolerances used across the port tests:
+- F32_TOL (1e-5 abs/rel): both packages run the same float32 arithmetic;
+  only summation order differs (XLA vs PyTorch CPU kernels).
+- KERNEL_TOL (2e-2 abs/rel): against the Pallas kernels in interpret mode,
+  which round their matmul operands to bfloat16 (the bound the JAX
+  package's own kernel tests use, tests/test_stream_attention.py).
+- DEEP_TOL (1e-4 abs/rel): through several layers of a model, where f32
+  summation-order differences compound.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from stc_tpu import config as jcfg
+from stc_tpu_torch import config as tcfg
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+KERNEL_TOL = dict(rtol=2e-2, atol=2e-2)
+DEEP_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def port_cfg(jax_cfg):
+    """The port's copy of a JAX config dataclass (same field values; the
+    port's ReKVConfig has no decode_attn_backend)."""
+    cls = getattr(tcfg, type(jax_cfg).__name__)
+    kw = {}
+    for f in dataclasses.fields(cls):
+        v = getattr(jax_cfg, f.name)
+        kw[f.name] = port_cfg(v) if dataclasses.is_dataclass(v) else v
+    return cls(**kw)
+
+
+def port_model_cfg(jax_cfg):
+    """The port's Qwen2Config / SiglipConfig / LlavaOVConfig of a JAX one."""
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.models import qwen2 as qw
+    from stc_tpu_torch.models import siglip as sg
+    name = type(jax_cfg).__name__
+    if name == "LlavaOVConfig":
+        return lo.LlavaOVConfig(vision=port_model_cfg(jax_cfg.vision),
+                                text=port_model_cfg(jax_cfg.text))
+    cls = {"Qwen2Config": qw.Qwen2Config, "SiglipConfig": sg.SiglipConfig}
+    return cls[name](**dataclasses.asdict(jax_cfg))
+
+
+def np_tree(tree):
+    """A JAX parameter tree as numpy arrays."""
+    import jax
+    return jax.tree.map(np.asarray, tree)
+
+
+def np32(x):
+    return np.asarray(x, dtype=np.float32)
+
+
+def tt(x, dtype=torch.float32):
+    return torch.from_numpy(np.array(x, dtype=np.float32)).to(dtype)
+
+
+def test_port_configs_match_jax_derived_sizes():
+    rk = jcfg.ReKVConfig(n_init=14, n_local=15000, block_size=60,
+                         exc_block_size=480, topk=64, max_prompt_tokens=256)
+    pk = port_cfg(rk)
+    for name in ("rep_cap", "local_cap", "retrieve_len", "decode_cap",
+                 "rope_max_pos"):
+        assert getattr(pk, name) == getattr(rk, name), name
+    assert not hasattr(pk, "decode_attn_backend")
+    s = port_cfg(jcfg.SessionConfig(rekv=rk, encode_chunk_frames=8))
+    assert s.rekv == pk and s.encode_chunk_frames == 8
+    assert tcfg.MODEL_SPECS["llava_ov"].tokens_per_frame == 196
+
+
+@pytest.mark.parametrize("kw", [dict(kv_quant="int8"),
+                                dict(retrieval_scorer="aks"),
+                                dict(spec_decode_draft=2)])
+def test_unported_settings_raise(kw):
+    with pytest.raises(NotImplementedError):
+        tcfg.ReKVConfig(**kw).check_main_path()
+
+
+def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
+    """Every public constructor runs on the card unless the caller asks for
+    the CPU; with no card it raises instead of carrying on quietly."""
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.models import qwen2 as qw
+    from stc_tpu_torch.models import siglip as sg
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (lambda: qw.Qwen2(qw.Qwen2Config.tiny()),
+                 lambda: sg.Siglip(sg.SiglipConfig.tiny()),
+                 lambda: lo.LlavaOV(lo.LlavaOVConfig.tiny())):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    model = lo.LlavaOV(lo.LlavaOVConfig.tiny(), device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        lo.build_session(model, tcfg.SessionConfig())

@@ -1,0 +1,73 @@
+"""The port stands alone: stc_tpu_torch (and chip_smoke.py) import neither
+JAX nor any module of the JAX package stc_tpu."""
+
+import pathlib
+import re
+import subprocess
+import sys
+import textwrap
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "stc_tpu_torch"
+# word match: `stc_tpu` must not be followed by a word character, so the
+# port's own `stc_tpu_torch` passes
+FORBIDDEN = re.compile(
+    r"^\s*(?:import\s+[\w., ]*\b(?:jax|stc_tpu)\b(?!\w)"
+    r"|from\s+(?:jax|stc_tpu)\b(?![\w]))", re.M)
+
+
+def test_sources_import_no_jax_and_no_stc_tpu():
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
+           for f in files for m in FORBIDDEN.finditer(f.read_text())]
+    assert not bad, bad
+    assert FORBIDDEN.search("from stc_tpu.config import ReKVConfig")
+    assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert not FORBIDDEN.search("from stc_tpu_torch.ops import rope")
+
+
+def test_importing_and_running_the_port_loads_no_jax():
+    """A fresh interpreter imports every module of the port and runs a tiny
+    session on the CPU; neither jax nor stc_tpu ends up in sys.modules."""
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import numpy as np, torch
+        import stc_tpu_torch
+        mods = [m.name for m in pkgutil.walk_packages(
+            stc_tpu_torch.__path__, "stc_tpu_torch.")]
+        for m in mods:
+            importlib.import_module(m)
+        from stc_tpu_torch.config import (ReKVConfig, SessionConfig,
+                                          PrunerConfig, CacherConfig)
+        from stc_tpu_torch.models import llava_onevision as lo
+        cfg = lo.LlavaOVConfig.tiny()
+        gen = torch.Generator().manual_seed(0)
+        model = lo.LlavaOV(cfg, dtype=torch.float32,
+                           device="cpu").init_random_params(gen)
+        scfg = SessionConfig(
+            rekv=ReKVConfig(n_init=4, n_local=128, block_size=3,
+                            exc_block_size=3, topk=4, max_blocks=64,
+                            max_prompt_tokens=32, max_new_tokens=8),
+            cacher=CacherConfig(update_token_ratio=0.5),
+            pruner=PrunerConfig(token_per_frame=3))
+        sess = lo.build_session(model, scfg, state_dtype=torch.float32,
+                                device="cpu")
+        sess.encode_init_prompt([1, 2, 3, 4])
+        frames = np.random.default_rng(0).integers(
+            0, 256, (3, 56, 56, 3), dtype=np.uint8)
+        sess.encode_video(frames)
+        out = sess.question_answering([5, 6], [5, 6, 7], [0],
+                                      max_new_tokens=4)
+        assert 1 <= len(out) <= 4, out
+        leaked = [m for m in sys.modules
+                  if m == "jax" or m.startswith("jax.")
+                  or m == "stc_tpu" or m.startswith("stc_tpu.")]
+        assert not leaked, leaked
+        print("OK", len(mods))
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    n_mods = int(res.stdout.split()[-1])
+    assert n_mods >= 15, res.stdout

@@ -1,0 +1,270 @@
+"""stc_tpu_torch.ops against stc_tpu.ops on the CPU: RoPE, the multi-stage
+attention, and the plain versions of the two CUDA kernels
+(stream_attention_ref, decode_attention_ref) against the Pallas kernels in
+interpret mode and against the JAX engine's plain math.  The CUDA kernels
+themselves run only on a card: tests/test_torch_cuda.py and
+chip_smoke.py."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+
+from stc_tpu.config import ReKVConfig
+from stc_tpu.kvcache import engine as je
+from stc_tpu.ops import attention as jatt
+from stc_tpu.ops import rope as jrope
+from stc_tpu.ops.decode_attention import decode_attention as j_decode
+from stc_tpu.ops.stream_attention import stream_attention as j_stream
+from stc_tpu_torch.kernels.agreement import disagreement
+from stc_tpu_torch.kvcache import engine as te
+from stc_tpu_torch.ops import attention as tatt
+from stc_tpu_torch.ops import decode_attention as tda
+from stc_tpu_torch.ops import rope as trope
+from stc_tpu_torch.ops import stream_attention as tsa
+from test_torch_common import F32_TOL, KERNEL_TOL, port_cfg, tt
+
+HQ, HKV, D = 4, 2, 32
+BASE = dict(n_init=4, n_local=64, block_size=8, exc_block_size=8, topk=4,
+            chunk_size=1, max_blocks=64, max_prompt_tokens=16,
+            max_new_tokens=8)
+
+
+# ---------------------------------------------------------------------------
+# RoPE and multi-stage attention
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("pos_shape", ["T", "BT"])
+def test_apply_rope_matches_jax(pos_shape):
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(2, 3, 5, 16)).astype(np.float32)
+    pos = rng.integers(0, 20000, size=(5,) if pos_shape == "T" else (2, 5))
+    want = jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos, jnp.int32), 1e6)
+    got = trope.apply_rope(tt(x), torch.tensor(pos), 1e6)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    want1 = jrope.apply_rope_one_angle(jnp.asarray(x), 15000)
+    got1 = trope.apply_rope_one_angle(tt(x), 15000)
+    np.testing.assert_allclose(got1.numpy(), np.asarray(want1), **F32_TOL)
+
+
+def test_multi_stage_attention_matches_jax():
+    """Two stages with their own masks and a per-stage query, as the
+    complement-window init stage uses them."""
+    rng = np.random.default_rng(1)
+    B, Lq, L1, L2 = 2, 6, 9, 4
+    q = rng.normal(size=(B, HQ, Lq, D)).astype(np.float32)
+    q2 = rng.normal(size=(B, HQ, Lq, D)).astype(np.float32)
+    k1, v1 = (rng.normal(size=(B, HKV, L1, D)).astype(np.float32)
+              for _ in range(2))
+    k2, v2 = (rng.normal(size=(B, HKV, L2, D)).astype(np.float32)
+              for _ in range(2))
+    m1 = rng.random((B, 1, Lq, L1)) < 0.6
+    m1[:, :, :, 0] = True
+    m2 = rng.random((B, 1, Lq, L2)) < 0.5
+    want = jatt.multi_stage_attention(jnp.asarray(q), [
+        jatt.AttnStage(jnp.asarray(k1), jnp.asarray(v1), jnp.asarray(m1)),
+        jatt.AttnStage(jnp.asarray(k2), jnp.asarray(v2), jnp.asarray(m2),
+                       q=jnp.asarray(q2))])
+    got = tatt.multi_stage_attention(tt(q), [
+        tatt.AttnStage(tt(k1), tt(v1), torch.tensor(m1)),
+        tatt.AttnStage(tt(k2), tt(v2), torch.tensor(m2), q=tt(q2))])
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+    pos = np.arange(6)
+    np.testing.assert_array_equal(
+        tatt.sliding_window_mask(torch.tensor(pos), torch.tensor(pos), 3,
+                                 complement=True).numpy(),
+        np.asarray(jatt.sliding_window_mask(jnp.asarray(pos),
+                                            jnp.asarray(pos), 3,
+                                            complement=True)))
+
+
+# ---------------------------------------------------------------------------
+# stream_attention: the plain version against the Pallas kernel (interpret)
+# and against the JAX engine's three-group softmax
+# ---------------------------------------------------------------------------
+
+def _jax_stream_inputs(cfg, n_appends, T, seed):
+    """Drive the JAX engine to a phase, then build the exact operands its
+    Pallas kernel gets for the next append (engine.py:456-480)."""
+    rng = np.random.default_rng(seed)
+
+    def r(*s):
+        return jnp.asarray(rng.normal(size=s).astype(np.float32))
+
+    kv = je.init_stream_kv(cfg, 1, HKV, D, dtype=jnp.float32)
+    _, kv = je.append_stream(kv, r(1, HQ, 4, D), r(1, HKV, 4, D),
+                             r(1, HKV, 4, D), cfg, is_init=True)
+    for _ in range(n_appends):
+        _, kv = je.append_stream(kv, r(1, HQ, T, D), r(1, HKV, T, D),
+                                 r(1, HKV, T, D), cfg, is_init=False)
+    q, k, v = r(1, HQ, T, D), r(1, HKV, T, D), r(1, HKV, T, D)
+    o_jnp, kv_new = je.append_stream(kv, q, k, v, cfg, is_init=False,
+                                     backend="jnp")
+    rc = je.make_rope_cache(kv.length, kv.num_blocks, T, cfg, D, 10000.0,
+                            page_offset=kv.page_offset)
+    ops = dict(
+        q_rot=je._rot(q, rc.cos_q, rc.sin_q),
+        q_one=je._rot(q, rc.cos_one, rc.sin_one),
+        block_k=kv_new.block_k, block_v=kv_new.block_v,
+        cos_cover=rc.cos_cover, sin_cover=rc.sin_cover,
+        k_init_rot=je._rot(kv.init_k, rc.cos_init[:, None],
+                           rc.sin_init[:, None]),
+        v_init=kv.init_v, k_init_raw=kv.init_k,
+        scalars=jnp.stack([kv.length, rc.start_tile, kv_new.num_blocks,
+                           rc.init_active.astype(jnp.int32),
+                           kv.page_offset], axis=1).astype(jnp.int32))
+    o_pl = j_stream(*ops.values(), T=T, n_local=cfg.n_local,
+                    n_init=cfg.n_init, interpret=True)
+    return ops, np.asarray(o_jnp), np.asarray(o_pl), kv
+
+
+STREAM_PHASES = [  # (exc_block_size, T, appends before): empty store,
+    (8, 8, 0), (8, 8, 3), (8, 8, 12),   # pre-trigger, post-trigger
+    (32, 32, 0), (32, 32, 1), (32, 32, 2)]  # 4-page appends across it
+
+
+@pytest.mark.parametrize("exc,T,n", STREAM_PHASES)
+def test_stream_attention_ref_matches_pallas_and_engine(exc, T, n):
+    cfg = ReKVConfig(**dict(BASE, exc_block_size=exc))
+    ops, o_jnp, o_pl, kv = _jax_stream_inputs(cfg, n, T, seed=n + exc)
+    args = [torch.from_numpy(np.array(a)) for a in ops.values()]
+    before = tsa.launches
+    got = tsa.stream_attention(*args, n_local=cfg.n_local)
+    assert tsa.launches == before  # the CPU path launches nothing
+    np.testing.assert_allclose(got.numpy(), o_jnp, **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), o_pl, **KERNEL_TOL)
+    # the port builds the same kernel operands from the same counters
+    rc = te.make_rope_cache(torch.from_numpy(np.array(kv.length)),
+                            torch.from_numpy(np.array(kv.num_blocks)), T,
+                            port_cfg(cfg), D, 10000.0,
+                            torch.from_numpy(np.array(kv.page_offset)))
+    np.testing.assert_array_equal(rc.scalars.numpy(),
+                                  np.asarray(ops["scalars"]))
+    np.testing.assert_allclose(rc.cos_cover.numpy(),
+                               np.asarray(ops["cos_cover"]), **F32_TOL)
+
+
+def test_stream_attention_wrapper_rejects_what_the_kernel_does_not_take():
+    cfg = ReKVConfig(**BASE)
+    ops, _, _, _ = _jax_stream_inputs(cfg, 2, 8, seed=0)
+    args = [torch.from_numpy(np.array(a)) for a in ops.values()]
+    kw = dict(n_local=cfg.n_local)
+    half = list(args)
+    half[0], half[1] = (a[:, :, :4].contiguous() for a in args[:2])
+    with pytest.raises(ValueError, match="whole number"):
+        tsa.stream_attention(*half, **kw)
+    quant = list(args)
+    quant[2] = args[2].to(torch.int8)
+    with pytest.raises(NotImplementedError, match="quantized"):
+        tsa.stream_attention(*quant, **kw)
+    strided = list(args)
+    strided[0] = args[0].transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        tsa.stream_attention(*strided, **kw)
+
+
+# ---------------------------------------------------------------------------
+# decode_attention: the plain version against the Pallas kernel (interpret)
+# ---------------------------------------------------------------------------
+
+DECODE_CASES = [(1, 128, 96, [40, 128]), (8, 256, 200, [30, 250]),
+                (24, 640, 512, [100, 640])]
+
+
+def _jnp_decode_math(q, k, v, start, cursor, n_local):
+    """decode_attend's jnp math (one stage, affine slots)."""
+    B, _, T, _ = q.shape
+    C = k.shape[2]
+    q_slots = start[:, None] + jnp.arange(T)[None, :]
+    dist = q_slots[:, :, None] - jnp.arange(C)[None, None, :]
+    mask = ((dist >= 0) & (dist < n_local)
+            & (jnp.arange(C)[None, None, :] < cursor[:, None, None]))
+    return jatt.multi_stage_attention(
+        q, [jatt.AttnStage(k, v, mask[:, None])])
+
+
+@pytest.mark.parametrize("T,C,n_local,cursors", DECODE_CASES)
+def test_decode_attention_ref_matches_pallas(T, C, n_local, cursors):
+    B, Hq, Hkv, Dh = 2, 4, 2, 16
+    rng = np.random.default_rng(C)
+    for cur in cursors:
+        cursor = np.asarray([cur, max(1, cur - 13)], np.int32)
+        start = np.maximum(cursor - T, 0).astype(np.int32)
+        q = rng.normal(size=(B, Hq, T, Dh)).astype(np.float32)
+        k = rng.normal(size=(B, Hkv, C, Dh)).astype(np.float32)
+        v = rng.normal(size=(B, Hkv, C, Dh)).astype(np.float32)
+        jargs = [jnp.asarray(x) for x in (q, k, v, start, cursor)]
+        o_pl, m_pl = j_decode(*jargs, n_local=n_local, interpret=True,
+                              return_m=True)
+        o_jnp = _jnp_decode_math(*jargs, n_local)
+        before = tda.launches
+        o, m = tda.decode_attention(tt(q), tt(k), tt(v),
+                                    torch.from_numpy(start),
+                                    torch.from_numpy(cursor),
+                                    n_local=n_local, return_m=True)
+        assert tda.launches == before
+        np.testing.assert_allclose(o.numpy(), np.asarray(o_jnp), **F32_TOL)
+        np.testing.assert_allclose(o.numpy(), np.asarray(o_pl), **KERNEL_TOL)
+        np.testing.assert_allclose(m.numpy(), np.asarray(m_pl), **KERNEL_TOL)
+
+
+def test_decode_attention_wrapper_checks_operands():
+    q = torch.zeros((1, 4, 2, 16))
+    k = torch.zeros((1, 2, 32, 16))
+    with pytest.raises(ValueError, match="int32"):
+        tda.decode_attention(q, k, k, torch.zeros(1), torch.zeros(1),
+                             n_local=8)
+    with pytest.raises(ValueError, match="one dtype"):
+        tda.decode_attention(q, k.bfloat16(), k,
+                             torch.zeros(1, dtype=torch.int32),
+                             torch.ones(1, dtype=torch.int32), n_local=8)
+
+
+# ---------------------------------------------------------------------------
+# the limits a kernel is held to (kernels/agreement.py): the Pallas kernel's
+# output passes them, and outputs with a planted fault do not
+# ---------------------------------------------------------------------------
+
+STREAM_FAULTS = {"third group dropped": (3, -1),   # init_active 1 -> 0
+                 "pages one page late": (4, 1)}    # page_offset + 1
+
+
+@pytest.mark.parametrize("fault", sorted(STREAM_FAULTS))
+def test_agreement_limits_reject_stream_faults(fault):
+    cfg = ReKVConfig(**BASE)
+    ops, _, o_pl, _ = _jax_stream_inputs(cfg, 12, 8, seed=20)
+    args = [torch.from_numpy(np.array(a)) for a in ops.values()]
+    assert int(args[9][0, 3]) == 1  # past the init-fill trigger
+    ref = tsa.stream_attention(*args, n_local=cfg.n_local)
+    assert disagreement(torch.tensor(o_pl), ref)["agrees"]
+    col, delta = STREAM_FAULTS[fault]
+    scalars = args[9].clone()
+    scalars[:, col] += delta
+    bad = tsa.stream_attention(*args[:9], scalars, n_local=cfg.n_local)
+    assert not disagreement(bad, ref)["agrees"]
+
+
+@pytest.mark.parametrize("fault", ["newest slot dropped",
+                                   "window one slot longer"])
+def test_agreement_limits_reject_decode_faults(fault):
+    T, C, n_local = 8, 256, 200
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(1, 4, T, 16)).astype(np.float32)
+    k, v = (rng.normal(size=(1, 2, C, 16)).astype(np.float32)
+            for _ in range(2))
+    cursor = np.asarray([250], np.int32)
+    start = cursor - T
+    o_pl = j_decode(*(jnp.asarray(x) for x in (q, k, v, start, cursor)),
+                    n_local=n_local, interpret=True)
+    args = (tt(q), tt(k), tt(v), torch.from_numpy(start))
+    ref = tda.decode_attention(*args, torch.from_numpy(cursor),
+                               n_local=n_local)
+    assert disagreement(torch.tensor(np.asarray(o_pl)), ref)["agrees"]
+    if fault == "newest slot dropped":
+        bad = tda.decode_attention(*args, torch.from_numpy(cursor - 1),
+                                   n_local=n_local)
+    else:
+        bad = tda.decode_attention(*args, torch.from_numpy(cursor),
+                                   n_local=n_local + 1)
+    assert not disagreement(bad, ref)["agrees"]

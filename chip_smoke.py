@@ -10,9 +10,13 @@ each of which makes the script exit non-zero when it fails:
   2. every hand-written kernel, through its public wrapper, against its
      plain PyTorch version on the card at main-path shapes, with kernel,
      plain and library (SDPA) times, held to the scaled limits of
-     stc_tpu_torch/kernels/agreement.py; then planted faults (a key group
-     dropped, a mask one page or one slot off) that those limits must
-     reject;
+     stc_tpu_torch/kernels/agreement.py: stream_attention on bf16, int8
+     and int4 pages (the quantized ones also timed against the bf16-page
+     kernel on the same cover), decode_attention (at 0.5b and 7B heads)
+     and decode_score; then
+     planted faults (a key group dropped, a mask one page or one slot off,
+     the neighbouring page's scales, the int4 nibble planes swapped) that
+     those limits must reject;
   3. the main path: the LLaVA-OV + ReKV session at llava-ov-0.5b width and
      depth (SigLIP 1152 x 27 layers at 384 px in float32, Qwen2 896 x 24
      layers in bf16, random weights from a seeded torch.Generator): init
@@ -23,11 +27,19 @@ each of which makes the script exit non-zero when it fails:
      with its own launch counts;
   5. where the time goes: device time per part of a chunk and a question,
      and the device's busy share of each, measured by issuing the same
-     call behind a sleep kernel.
+     call behind a sleep kernel;
+  6. the session at llava-ov-7b width (Qwen2 3584 x 28 layers, 28/4 heads
+     of 128, the same SigLIP) on an int8 page store: 40 eight-frame chunks,
+     past the full 264-page window (the last 8 chunks stream at it) and the
+     init-fill crossing (asserted where each happens), two questions; its
+     launch counts (every append launches the int8 kernel), then
+     stream_attention, decode_attention and decode_score against their
+     plain versions on the session's own state;
+  7. the same model and stream on an int4 page store, one question.
 
 Prints JSON lines; the line before the last holds one entry per kernel
-(route, source, the TPU kernel it replaces, launches on the main path,
-error, kernel / plain / bound / library times), the last line is
+(route, source, the TPU kernel it replaces, launches on its path, error,
+kernel / plain / bound / library times), the last line is
 {"ok": true, "device": {...}}.  A fuller record goes to
 build/chip_smoke.json.  TF32 is off for matmuls and convolutions, so
 every float32 product runs in full float32.
@@ -106,12 +118,19 @@ def held(name, got, want) -> dict:
     return disagreement(got, want)
 
 
+PAGE_BYTES = {None: 2.0, "int8": 1.0, "int4": 0.5}  # per page element
+
+
 def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
-                Nb=1024, n_init=14, exc=480):
+                Nb=1024, n_init=14, exc=480, quant=None):
     """One stream_attention call of the main path's configuration
     (exc_block_size 480: a 264-page window cover), T new tokens with
-    `pages` pages in the store after their write.  Returns the record, the
-    wrapper's arguments and the plain version's output."""
+    `pages` pages in the store after their write.  With quant ('int8' or
+    'int4') the store is quantized by the engine's own quantizer from
+    float pages whose magnitudes differ from page to page (gain
+    4 ** (page % 3 - 1)), so a page read with another page's scales
+    shows.  Returns the record, the wrapper's arguments and keywords, and
+    the plain version's output."""
     from stc_tpu_torch.config import ReKVConfig
     from stc_tpu_torch.kvcache import engine
     from stc_tpu_torch.ops import stream_attention as sa
@@ -128,77 +147,119 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
     L = torch.tensor([n_init + before * S], dtype=torch.int32, device=dev)
     nb = torch.tensor([before], dtype=torch.int32, device=dev)
     rc = engine.make_rope_cache(L, nb, T, cfg, D, 1e6)
-    args = (rnd(1, Hq, T, D), rnd(1, Hq, T, D), rnd(1, Hkv, Nb, S, D),
-            rnd(1, Hkv, Nb, S, D), rc.cos_cover, rc.sin_cover,
-            rnd(1, Hkv, n_init, D), rnd(1, Hkv, n_init, D),
+    kw = dict(n_local=n_local)
+    if quant is None:
+        bk, bv = rnd(1, Hkv, Nb, S, D), rnd(1, Hkv, Nb, S, D)
+    else:
+        gain = 4.0 ** (torch.arange(Nb, device=dev) % 3 - 1)
+        qfn = (engine._quantize_page_int4 if quant == "int4"
+               else engine._quantize_page)
+        (bk, ks), (bv, vs) = (
+            qfn(torch.randn((1, Hkv, Nb, S, D), generator=gen, device=dev)
+                * gain[:, None, None]) for _ in range(2))
+        kw.update(k_scales=ks, v_scales=vs)
+    args = (rnd(1, Hq, T, D), rnd(1, Hq, T, D), bk, bv, rc.cos_cover,
+            rc.sin_cover, rnd(1, Hkv, n_init, D), rnd(1, Hkv, n_init, D),
             rnd(1, Hkv, n_init, D), rc.scalars)
-    out = sa.stream_attention(*args, n_local=n_local)
-    ref = sa.stream_attention_ref(*args, n_local=n_local)
+    out = sa.stream_attention(*args, **kw)
+    ref = sa.stream_attention_ref(*args, **kw)
     torch.cuda.synchronize()
     agree = held(name, out, ref)
 
-    # live keys: stored positions that some query of the call can see
+    # what this run's data needs: the (query, key) pairs the masks let
+    # through, and the live window keys (seen by some query) and their pages
     Lv = int(L.item())
-    lo = max(n_init, Lv - n_local + 1)
-    hi = min(n_init + pages * S - 1, Lv + T - 1)
-    live = max(0, hi - lo + 1)
+    page, _, _, mask = stream_mask(args, n_local, Nb, S, Lv)
+    m_win = mask[:, n_init:n_init + page.numel()]
+    pairs = int(mask.sum())
+    seen = m_win.any(dim=0)
+    live = int(seen.sum())
+    live_pages = int(page[seen].unique().numel())
     init_active = int(rc.scalars[0, 3].item())
-    keys = live + n_init + n_init * init_active
-    # what the function needs: queries, live pages, init keys/values,
-    # output (RoPE angles follow from the affine key positions)
-    need = (2 * Hq * T * D * 2 + 2 * Hkv * live * D * 2
+    # queries, live pages (and their scales), init keys/values, output
+    # (RoPE angles follow from the affine key positions)
+    need = (2 * Hq * T * D * 2 + 2 * Hkv * live * D * PAGE_BYTES[quant]
+            + (2 * Hkv * live_pages * D * 4 if quant else 0)
             + 3 * Hkv * n_init * D * 2 + Hq * T * D * 2)
-    flops = 4 * Hq * T * D * keys
+    flops = 4 * Hq * D * pairs
     b_ms, b_by = bound(need, flops, H100_BF16_FLOPS)
     # what this design reads besides: f32 cos and sin rows per live key
     bt_ms, bt_by = bound(need + 2 * live * D * 4, flops, H100_BF16_FLOPS)
 
-    # library yardstick: one SDPA call over the concatenated (rotated) keys,
-    # the two query angles packed side by side in a 2D head
-    q_rot, q_one, bk, bv, cc, sc, kir, vi, kiw, _ = args
-    Lc = cc.shape[1]
-    ppt = sa.pages_per_tile(S)
-    page = int(rc.start_tile[0]) * ppt + torch.arange(Lc, device=dev) // S
-    pg = page.clamp(max=Nb - 1)
+    ms = cuda_ms(lambda: sa.stream_attention(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: sa.stream_attention_ref(*args, **kw), 3, 1)
+    rec = dict(case=name, kernel="stream_attention" + (
+        f"_{quant}" if quant else ""), Hq=Hq, Hkv=Hkv, D=D, T=T, pages=pages,
+        window_pages=engine.n_window_pages(cfg), init_active=init_active,
+        **agree, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, bound_ms_with_tables=bt_ms,
+        bound_by_with_tables=bt_by, live_keys=live,
+        visible_pairs=pairs)
+    if quant is None:
+        lib = sdpa_stream(args, n_local, Nb, S, Lv)
+        rec.update(library_ms=cuda_ms(lib, 10),
+                   library_max_rel_err=held(name, lib(), ref)["max_rel_err"])
+    else:
+        # no PyTorch call computes it: time the 1a kernel instead on the
+        # same cover dequantized to bf16 pages, in turns with this one
+        fargs = list(args)
+        fargs[2:4] = (engine._dequant_pages(x, s, bf) for x, s in (
+            (bk, kw["k_scales"]), (bv, kw["v_scales"])))
+        f_ms = cuda_ms(lambda: sa.stream_attention(*fargs, n_local=n_local),
+                       20)
+        q_ms = cuda_ms(lambda: sa.stream_attention(*args, **kw), 20)
+        rec.update(library_ms=None, kernel_ms=(ms + q_ms) / 2,
+                   kernel_ms_runs=[ms, q_ms], bf16_pages_ms=f_ms)
+    return rec, args, kw, ref
+
+
+def stream_mask(args, n_local, Nb, S, Lv):
+    """The visible keys of a batch-1 stream_attention call, as the plain
+    version masks them: the cover's local pages, their slot offsets, and
+    the (T, n_init + Lc + n_init) mask over [init-local | cover |
+    init-far]."""
+    from stc_tpu_torch.ops import stream_attention as sa
+    q_rot, cc, kir, scalars = args[0], args[4], args[6], args[9]
+    dev, T, n_init, Lc = q_rot.device, q_rot.shape[2], kir.shape[2], \
+        cc.shape[1]
+    _, start_tile, total, init_active, offset = (int(x) for x in scalars[0])
+    page = start_tile * sa.pages_per_tile(S) + torch.arange(
+        Lc, device=dev) // S
     off = torch.arange(Lc, device=dev) % S
-    kw_ = bk[0][:, pg, off]
+    pos = n_init + (page + offset) * S + off
+    qp = Lv + torch.arange(T, device=dev)
+    d = qp[:, None] - pos[None, :]
+    m_win = (d >= 0) & (d < n_local) & (page < Nb)[None] & (
+        (page + offset) < total)[None]
+    di = qp[:, None] - torch.arange(n_init, device=dev)[None]
+    m_init = (di >= 0) & (di < n_local)
+    m_far = torch.full((T, n_init), bool(init_active), device=dev)
+    return page, page.clamp(max=Nb - 1), off, torch.cat(
+        [m_init, m_win, m_far], dim=1)
+
+
+def sdpa_stream(args, n_local, Nb, S, Lv):
+    """Library yardstick of a 1a call: one SDPA over the concatenated
+    (rotated) keys, the two query angles packed side by side in a 2D
+    head."""
     from stc_tpu_torch.ops.rope import rotate
-    kw_ = rotate(kw_[None], cc[:, None], sc[:, None])
+    q_rot, q_one, bk, bv, cc, sc, kir, vi, kiw, scalars = args
+    D = q_rot.shape[-1]
+    _, pg, off, mask = stream_mask(args, n_local, Nb, S, Lv)
+    kw_ = rotate(bk[0][:, pg, off][None], cc[:, None], sc[:, None])
     z = torch.zeros_like
     k_all = torch.cat([torch.cat([kir, z(kir)], -1),
                        torch.cat([kw_, z(kw_)], -1),
                        torch.cat([z(kiw), kiw], -1)], dim=2)
     v_all = torch.cat([vi, bv[0][:, pg, off][None], vi], dim=2)
     q2 = torch.cat([q_rot, q_one], -1)
-    pos = n_init + (page + int(rc.scalars[0, 4])) * S + off
-    qp = Lv + torch.arange(T, device=dev)
-    d = qp[:, None] - pos[None, :]
-    m_win = (d >= 0) & (d < n_local) & (page < Nb)[None] & (
-        (page + int(rc.scalars[0, 4])) < int(rc.scalars[0, 2]))[None]
-    di = qp[:, None] - torch.arange(n_init, device=dev)[None]
-    m_init = (di >= 0) & (di < n_local)
-    m_far = torch.full((T, n_init), bool(init_active), device=dev)
-    mask = torch.cat([m_init, m_win, m_far], dim=1)[None, None]
     F = torch.nn.functional
 
     def lib():
         return F.scaled_dot_product_attention(
-            q2, k_all, v_all, attn_mask=mask, scale=D ** -0.5,
+            q2, k_all, v_all, attn_mask=mask[None, None], scale=D ** -0.5,
             enable_gqa=True)
-
-    lib_err = held(name, lib(), ref)["max_rel_err"]
-    ms = cuda_ms(lambda: sa.stream_attention(*args, n_local=n_local), 20)
-    plain_ms = cuda_ms(lambda: sa.stream_attention_ref(*args,
-                                                       n_local=n_local), 3, 1)
-    lib_ms = cuda_ms(lib, 10)
-    rec = dict(case=name, kernel="stream_attention", Hq=Hq, Hkv=Hkv, D=D,
-               T=T, pages=pages, window_pages=engine.n_window_pages(cfg),
-               init_active=init_active, **agree, kernel_ms=ms,
-               plain_ms=plain_ms, library_ms=lib_ms,
-               library_max_rel_err=lib_err, bound_ms=b_ms, bound_by=b_by,
-               bound_ms_with_tables=bt_ms, bound_by_with_tables=bt_by,
-               live_keys=live)
-    return rec, args, dict(n_local=n_local), ref
+    return lib
 
 
 def decode_case(name, T, start, cursor, n_local, dev, gen, Hq=14, Hkv=2,
@@ -220,23 +281,17 @@ def decode_case(name, T, start, cursor, n_local, dev, gen, Hq=14, Hkv=2,
     want = da.decode_attention_ref(*args, **kw)
     torch.cuda.synchronize()
     agree = held(name, got, want)
-    lo = max(0, start - n_local + 1)
-    hi = min(start + T, cursor)
-    live = max(0, hi - lo)
+    mask = decode_mask(start, T, cursor, n_local, C, dev)
+    pairs, live = int(mask.sum()), int(mask.any(dim=0).sum())
     bytes_moved = (Hq * T * D * 2 + 2 * Hkv * live * D * 2 + Hq * T * D * 2
                    + (Hq * T * 4 if return_m else 0))
-    flops = 4 * Hq * T * D * live
+    flops = 4 * Hq * D * pairs
     b_ms, b_by = bound(bytes_moved, flops, H100_BF16_FLOPS)
-    slot = torch.arange(C, device=dev)
-    qs = start + torch.arange(T, device=dev)
-    dist = qs[:, None] - slot[None]
-    mask = ((dist >= 0) & (dist < n_local) & (slot < cursor)[None])[None,
-                                                                     None]
     F = torch.nn.functional
 
     def lib():
-        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
-                                              enable_gqa=True)
+        return F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask[None, None], enable_gqa=True)
 
     lib_err = held(name, lib(), want[0] if return_m else want)["max_rel_err"]
     ms = cuda_ms(lambda: da.decode_attention(*args, **kw), 20)
@@ -246,8 +301,56 @@ def decode_case(name, T, start, cursor, n_local, dev, gen, Hq=14, Hkv=2,
                cursor=cursor, n_local=n_local, C=C, return_m=return_m,
                **agree, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                library_max_rel_err=lib_err, bound_ms=b_ms, bound_by=b_by,
-               live_slots=live)
+               live_slots=live, visible_pairs=pairs)
     return rec, args, kw, want
+
+
+def decode_mask(start, T, cursor, n_local, C, dev):
+    """(T, C) visible slots of a batch-1 decode call: query slot start + t
+    sees slot j when 0 <= start + t - j < n_local and j < cursor."""
+    slot = torch.arange(C, device=dev)
+    dist = start + torch.arange(T, device=dev)[:, None] - slot[None]
+    return (dist >= 0) & (dist < n_local) & (slot < cursor)[None]
+
+
+def score_case(name, T, start, cursor, n_local, dev, gen, Hq=14, Hkv=2,
+               D=64, C=4352):
+    """One decode_score call, with the row maxima of decode_attention on
+    the same inputs; returns the record, the wrapper's arguments and the
+    plain version's output.  No single PyTorch call computes it."""
+    from stc_tpu_torch.ops import decode_attention as da
+    bf = torch.bfloat16
+    q = torch.randn((1, Hq, T, D), generator=gen, device=dev).to(bf)
+    k = torch.randn((1, Hkv, C, D), generator=gen, device=dev).to(bf)
+    v = torch.randn((1, Hkv, C, D), generator=gen, device=dev).to(bf)
+    st = torch.tensor([start], dtype=torch.int32, device=dev)
+    cu = torch.tensor([cursor], dtype=torch.int32, device=dev)
+    _, m = da.decode_attention(q, k, v, st, cu, n_local=n_local,
+                               return_m=True)
+    args = (q, k, m, st, cu)
+    kw = dict(n_local=n_local)
+    got = da.decode_score(*args, **kw)
+    want = da.decode_score_ref(*args, **kw)
+    torch.cuda.synchronize()
+    agree = held(name, got, want)
+    mask = decode_mask(start, T, cursor, n_local, C, dev)
+    pairs, live = int(mask.sum()), int(mask.any(dim=0).sum())
+    # queries, live keys, row maxima in; the (Hq, C) f32 masses out
+    bytes_moved = (Hq * T * D * 2 + Hkv * live * D * 2 + Hq * T * 4
+                   + Hq * C * 4)
+    flops = 2 * Hq * D * pairs
+    b_ms, b_by = bound(bytes_moved, flops, H100_BF16_FLOPS)
+    ms = cuda_ms(lambda: da.decode_score(*args, **kw), 20)
+    plain_ms = cuda_ms(lambda: da.decode_score_ref(*args, **kw), 3, 1)
+    rec = dict(case=name, kernel="decode_score", T=T, start=start,
+               cursor=cursor, n_local=n_local, C=C, **agree, kernel_ms=ms,
+               plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
+               bound_by=b_by, live_slots=live, visible_pairs=pairs)
+    return rec, args, kw, want
+
+
+def nibbles_swapped(p):
+    return ((p & 0x0F) << 4) | (p >> 4)
 
 
 def planted_faults(inputs) -> list:
@@ -261,6 +364,22 @@ def planted_faults(inputs) -> list:
         sc = args[9].clone()
         sc[:, col] += delta
         return sa.stream_attention(*args[:9], sc, **kw), ref
+
+    def neighbour_scales(case):
+        args, kw, ref = inputs[case]
+        kw = dict(kw, k_scales=kw["k_scales"].roll(1, dims=2).contiguous(),
+                  v_scales=kw["v_scales"].roll(1, dims=2).contiguous())
+        return sa.stream_attention(*args, **kw), ref
+
+    def swapped_planes(case):
+        args, kw, ref = inputs[case]
+        a = list(args)
+        a[2], a[3] = nibbles_swapped(a[2]), nibbles_swapped(a[3])
+        return sa.stream_attention(*a, **kw), ref
+
+    def score_window(case):
+        args, kw, ref = inputs[case]
+        return da.decode_score(*args, n_local=kw["n_local"] + 1), ref
 
     def decode(case, cursor_delta=0, n_local_delta=0):
         (q, k, v, st, cu), kw, want = inputs[case]
@@ -277,6 +396,12 @@ def planted_faults(inputs) -> list:
          lambda: decode("decode token T=1", cursor_delta=-1)),
         ("decode: window one slot longer (n_local + 1)",
          lambda: decode("decode expired window", n_local_delta=1)),
+        ("stream int8: the scale rows of the neighbouring page",
+         lambda: neighbour_scales("stream int8 300 pages init_active")),
+        ("stream int4: the nibble planes swapped",
+         lambda: swapped_planes("stream int4 300 pages init_active")),
+        ("decode_score: window one slot longer (n_local + 1)",
+         lambda: score_window("decode_score expired window (n_local 64)")),
     ]
     out = []
     for name, run in faults:
@@ -288,38 +413,222 @@ def planted_faults(inputs) -> list:
 
 
 # ---------------------------------------------------------------------------
-# phases 3-4: sessions at llava-ov-0.5b width
+# phases 3-4 (llava-ov-0.5b width) and 6-7 (llava-ov-7b width): sessions
 # ---------------------------------------------------------------------------
 
-def make_model(dev, seed):
+# Qwen2 widths of the public llava-onevision-qwen2-0.5b-ov and -7b-ov configs
+QWEN2_05B = dict(vocab_size=151936, hidden_size=896, num_layers=24,
+                 num_heads=14, num_kv_heads=2, head_dim=64,
+                 intermediate_size=4864, rope_base=1000000.0)
+QWEN2_7B = dict(vocab_size=152064, hidden_size=3584, num_layers=28,
+                num_heads=28, num_kv_heads=4, head_dim=128,
+                intermediate_size=18944, rope_base=1000000.0)
+
+
+def make_model(dev, seed, text=QWEN2_05B):
+    """SigLIP 1152 x 27 at 384 px in float32 and the Qwen2 of `text` in
+    bf16, random weights from a seeded torch.Generator."""
     from stc_tpu_torch.models import llava_onevision as lo
     from stc_tpu_torch.models import qwen2 as qw
     from stc_tpu_torch.models import siglip as sg
     vision = sg.SiglipConfig(hidden_size=1152, num_layers=27, num_heads=16,
                              intermediate_size=4304, image_size=384,
                              patch_size=14)
-    text = qw.Qwen2Config(vocab_size=151936, hidden_size=896, num_layers=24,
-                          num_heads=14, num_kv_heads=2, head_dim=64,
-                          intermediate_size=4864, rope_base=1000000.0)
-    cfg = lo.LlavaOVConfig(vision=vision, text=text)
+    cfg = lo.LlavaOVConfig(vision=vision, text=qw.Qwen2Config(**text))
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = lo.LlavaOV(cfg, dtype=torch.bfloat16, vision_dtype=torch.float32,
                        device=dev).init_random_params(gen)
     return model, cfg
 
 
-def session_cfg(n_local, topk, max_prompt, max_new, exc_frames, max_blocks):
+def session_cfg(n_local, topk, max_prompt, max_new, exc_frames, max_blocks,
+                kv_quant="none"):
     from stc_tpu_torch.config import (CacherConfig, PrunerConfig, ReKVConfig,
                                       SessionConfig)
     return SessionConfig(
         rekv=ReKVConfig(n_init=14, n_local=n_local, block_size=60,
                         exc_block_size=60 * exc_frames, topk=topk,
                         max_blocks=max_blocks, max_prompt_tokens=max_prompt,
-                        max_new_tokens=max_new),
+                        max_new_tokens=max_new, kv_quant=kv_quant),
         cacher=CacherConfig(strategy="cacher", update_token_ratio=0.25,
                             cache_interval=2),
         pruner=PrunerConfig(token_per_frame=60),
         encode_chunk_frames=exc_frames)
+
+
+def reset_counts() -> None:
+    """Every kernel launch count to 0."""
+    from stc_tpu_torch.ops import decode_attention as da
+    from stc_tpu_torch.ops import stream_attention as sa
+    torch.cuda.synchronize()
+    da.launches = da.score_launches = 0
+    for k in sa.launches:
+        sa.launches[k] = 0
+
+
+def read_counts() -> dict:
+    from stc_tpu_torch.ops import decode_attention as da
+    from stc_tpu_torch.ops import stream_attention as sa
+    torch.cuda.synchronize()
+    return {"stream_attention": dict(sa.launches),
+            "decode_attention": da.launches,
+            "decode_score": da.score_launches}
+
+
+def quant_phase(model, cfg, quant, n_chunks, questions, card, dev,
+                gen) -> dict:
+    """Phases 6-7: the pixel session at the model's width on a `quant`
+    page store, n_chunks 8-frame chunks (past the full window and the
+    init-fill crossing, asserted where each happens), then the questions.
+    Checks the launch counts, then holds stream_attention, decode_attention
+    and decode_score against their plain versions on the session's own
+    state."""
+    from stc_tpu_torch.kvcache import engine
+    from stc_tpu_torch.kvcache.state import layer
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.ops import decode_attention as da
+    from stc_tpu_torch.ops import stream_attention as sa
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    scfg = session_cfg(15000, 64, 256, 16, 8, 1024, kv_quant=quant)
+    rekv, tc = scfg.rekv, cfg.text
+    sess = lo.build_session(model, scfg, state_dtype=torch.bfloat16,
+                            device=dev)
+    W, T = engine.n_window_pages(rekv), rekv.exc_block_size
+    n_layers = tc.num_layers
+    rng = np.random.default_rng(6)
+    reset_counts()
+    sess.encode_init_prompt(list(range(100, 114)))
+    chunk_s, init_active, window = [], [], []
+    for _ in range(n_chunks):
+        frames = rng.integers(0, 256, size=(8, 384, 384, 3), dtype=np.uint8)
+        L = int(sess.kvs.length[0, 0].item())
+        init_active.append(L + T > rekv.n_local)
+        _, dt = timed(lambda: sess.encode_video(frames))
+        chunk_s.append(dt)
+        window.append(min(int(sess.kvs.num_blocks[0, 0].item()), W))
+    # where each turns on, from the config alone: the init-fill crossing
+    # L + T > n_local, and the window's W pages all written
+    k_init = next(k for k in range(n_chunks)
+                  if rekv.n_init + k * T + T > rekv.n_local)
+    k_full = next(k for k in range(n_chunks) if 8 * (k + 1) >= W)
+    if init_active != [k >= k_init for k in range(n_chunks)] or \
+            window[k_full] != W or window[k_full - 1] >= W or \
+            k_full >= n_chunks - 1:
+        raise RuntimeError(f"{quant}: init_active {init_active}, window "
+                           f"pages {window}; expected init_active from "
+                           f"chunk {k_init}, {W} pages from chunk {k_full}")
+    stop = [151645]
+    qa_s, answers, lm_forwards = [], [], 0
+    captured = {}
+
+    def capture(f):
+        def g(*a, **k):
+            captured["dkvs"] = f(*a, **k)
+            return captured["dkvs"]
+        return g
+
+    for q_ids, p_ids in questions:
+        with patched([(sess.lm, "init_decode_state", capture)]):
+            out, dt = timed(lambda: sess.question_answering(
+                q_ids, p_ids, stop, max_new_tokens=16))
+        qa_s.append(dt)
+        answers.append(out)
+        lm_forwards += 2 + len(out)
+    counts = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_app = n_chunks
+    want = {"stream_attention": {k: (n_layers * n_app if k == quant else 0)
+                                 for k in sa.launches},
+            "decode_attention": n_layers * lm_forwards, "decode_score": 0}
+    if counts != want:
+        raise RuntimeError(f"{quant} session launch counts {counts} != "
+                           f"expected {want}")
+    for a in answers:
+        if not a or not all(0 <= t < tc.vocab_size for t in a):
+            raise RuntimeError(f"bad answer {a}")
+
+    # the kernels on the session's own state, a middle layer: the next
+    # append over the full window, and the decode cache of the last question
+    li = n_layers // 2
+    kv = layer(sess.kvs, li)
+    rc = engine.make_rope_cache(kv.length, kv.num_blocks, T, rekv,
+                                tc.head_dim, tc.rope_base, kv.page_offset)
+    q = torch.randn((1, tc.num_heads, T, tc.head_dim), generator=gen,
+                    device=dev).bfloat16()
+    args = (q, q.flip(2).contiguous(), kv.block_k, kv.block_v, rc.cos_cover,
+            rc.sin_cover, kv.init_k, kv.init_v, kv.init_k, rc.scalars)
+    kw = dict(n_local=rekv.n_local, k_scales=kv.block_k_scale,
+              v_scales=kv.block_v_scale)
+    stream_check = held(f"{quant} session state",
+                        sa.stream_attention(*args, **kw),
+                        sa.stream_attention_ref(*args, **kw))
+    dkv = layer(captured["dkvs"], li)
+    Tq = 16
+    qd = torch.randn((1, tc.num_heads, Tq, tc.head_dim), generator=gen,
+                     device=dev).bfloat16()
+    start = (dkv.cursor - Tq).to(torch.int32)
+    dargs = (qd, dkv.k, dkv.v, start, dkv.cursor)
+    got = da.decode_attention(*dargs, n_local=rekv.n_local, return_m=True)
+    decode_check = held(f"{quant} decode cache attention", got,
+                        da.decode_attention_ref(*dargs, n_local=rekv.n_local,
+                                                return_m=True))
+    sargs = (qd, dkv.k, got[1], start, dkv.cursor)
+    score_check = held(f"{quant} decode cache",
+                       da.decode_score(*sargs, n_local=rekv.n_local),
+                       da.decode_score_ref(*sargs, n_local=rekv.n_local))
+    # where the time of a full-window chunk goes (after the counted run):
+    # one chunk on each vision path
+    targets = [
+        (sess.vision, "full", "vision_full"),
+        (sess.vision, "cached", "vision_cached"),
+        (sess.lm, "encode_step", "lm_append"),
+        (sa, "_launch", "stream_attention_kernel")]
+    split = [segments(lambda: sess.encode_video(rng.integers(
+        0, 256, size=(8, 384, 384, 3), dtype=np.uint8)), targets)
+        for _ in range(2)]
+    for sp in split:
+        sp["path"] = "cached" if "vision_cached_ms" in sp else "full"
+        sp["stream_attention_share"] = (sp["stream_attention_kernel_ms"]
+                                        / sp["span_ms"])
+    store = sum(x.numel() * x.element_size() for x in (
+        sess.kvs.block_k, sess.kvs.block_v, sess.kvs.block_k_scale,
+        sess.kvs.block_v_scale))
+    bf16_store = 2 * n_layers * tc.num_kv_heads * rekv.max_blocks * \
+        rekv.block_size * tc.head_dim * 2
+    steady = chunk_s[2:]
+    full = [dt for k, dt in enumerate(chunk_s) if window[k] == W]
+    full_fps = [8 / dt for dt in full]
+    rec = {"phase": f"session llava-ov-7b {quant} pages", "card": card,
+           "frames": 8 * n_chunks, "chunks": n_chunks,
+           "first_init_active_chunk": k_init, "first_full_window_chunk":
+           k_full, "window_pages": W, "answers": answers,
+           "lm_forwards": lm_forwards, "launches": counts,
+           "expected": want,
+           "ingest_fps_8frame_chunks": 8 * len(steady) / sum(steady),
+           "ingest_fps_full_window": 8 * len(full) / sum(full),
+           "full_window_chunks": len(full),
+           "ingest_fps_full_window_chunks_min_p50_max": [
+               min(full_fps), float(np.median(full_fps)), max(full_fps)],
+           "chunk_s": chunk_s,
+           "qa_latency_s_p50": float(np.median(qa_s)), "qa_latency_s": qa_s,
+           "answer_tokens": [len(a) for a in answers],
+           "peak_mem_gb": peak_gb, "store_gb": store / 2 ** 30,
+           "bf16_store_gb": bf16_store / 2 ** 30,
+           "store_over_bf16": store / bf16_store,
+           "kernel_vs_plain_on_session_state": stream_check,
+           "init_active_on_state": int(rc.scalars[0, 3]),
+           "decode_attention_vs_plain_on_decode_cache": decode_check,
+           "decode_score_vs_plain_on_decode_cache": score_check,
+           "time_split_full_window_chunk": split}
+    del sess, captured, args, kw, dargs, got, sargs
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    if not all(c["agrees"] for c in (stream_check, decode_check,
+                                      score_check)) or \
+            rec["init_active_on_state"] != 1:
+        raise RuntimeError(f"{quant} session state checks failed {rec}")
+    return rec
 
 
 def timed(fn):
@@ -489,11 +798,12 @@ def main() -> int:
                 if "registers" in ln or "spill" in ln]
             for n, log in _build.build_log.items()}
     emit({"phase": "build", "card": card, "build_s": build_s,
-          "tf32": False})
+          "tf32": False, "seconds": build_s})
     RECORD["phases"]["build"] = {"build_s": build_s, "ptxas": regs,
                                  "card": card}
 
     # ---- phase 2: kernels vs plain, then planted faults ----
+    t_phase = time.perf_counter()
     gen = torch.Generator(device=dev).manual_seed(1)
     runs = [
         stream_case("stream empty window", 14, 2, 64, 60, 1, dev, gen),
@@ -502,10 +812,29 @@ def main() -> int:
                     gen),
         stream_case("stream 8-page append", 14, 2, 64, 480, 200, dev, gen),
         stream_case("stream 7B heads", 28, 4, 128, 60, 150, dev, gen),
+        stream_case("stream int8 300 pages init_active", 14, 2, 64, 60, 300,
+                    dev, gen, quant="int8"),
+        stream_case("stream int4 300 pages init_active", 14, 2, 64, 60, 300,
+                    dev, gen, quant="int4"),
+        stream_case("stream int8 8-page append (T 480), 264 pages", 14, 2,
+                    64, 480, 264, dev, gen, quant="int8"),
+        stream_case("stream int8 7B heads (28/4/128), 264 pages", 28, 4, 128,
+                    480, 264, dev, gen, quant="int8"),
+        stream_case("stream int4 7B heads (28/4/128), 264 pages", 28, 4, 128,
+                    480, 264, dev, gen, quant="int4"),
         decode_case("decode prefill T=256", 256, 3854, 3854 + 256, 15000,
                     dev, gen, return_m=True),
         decode_case("decode token T=1", 1, 4200, 4201, 15000, dev, gen),
         decode_case("decode expired window", 16, 2000, 4352, 64, dev, gen),
+        decode_case("decode prefill T=256 7B heads (28/4/128)", 256, 3854,
+                    3854 + 256, 15000, dev, gen, Hq=28, Hkv=4, D=128,
+                    return_m=True),
+        decode_case("decode token T=1 7B heads (28/4/128)", 1, 4200, 4201,
+                    15000, dev, gen, Hq=28, Hkv=4, D=128),
+        score_case("decode_score prefill T=256 at slot 3854", 256, 3854,
+                   3854 + 256, 15000, dev, gen),
+        score_case("decode_score expired window (n_local 64)", 16, 2000,
+                   4352, 64, dev, gen),
     ]
     cases = [r[0] for r in runs]
     for c in cases:
@@ -518,7 +847,7 @@ def main() -> int:
     del runs
     emit({"phase": "planted faults", "limits": {"max_rel": MAX_REL,
                                                 "rms_rel": RMS_REL},
-          "faults": faults})
+          "faults": faults, "seconds": time.perf_counter() - t_phase})
     missed = [f["fault"] for f in faults if not f["rejected"]]
     if missed:
         raise RuntimeError(f"the limits let these faults pass: {missed}")
@@ -526,6 +855,7 @@ def main() -> int:
     RECORD["phases"]["faults"] = faults
 
     # ---- phase 3: the main path at llava-ov-0.5b width ----
+    t_phase = time.perf_counter()
     model, cfg = make_model(dev, seed=0)
     scfg = session_cfg(15000, 64, 256, 16, 8, 1024)
     sess = lo.build_session(model, scfg, state_dtype=torch.bfloat16,
@@ -534,8 +864,7 @@ def main() -> int:
     frames = rng.integers(0, 256, size=(44, 384, 384, 3), dtype=np.uint8)
     n_append = 0
     lm_forwards = 0
-    torch.cuda.synchronize()
-    sa.launches = da.launches = 0
+    reset_counts()
     sess.encode_init_prompt(list(range(100, 114)))
     chunk_s = []
     for i in range(16):
@@ -563,11 +892,10 @@ def main() -> int:
         sess.encode_video(frames[i:i + 1])
         n_append += 1
     lm_forwards += 2 + ask(list(range(600, 616)), list(range(700, 710)))
-    torch.cuda.synchronize()
-    launches = {"stream_attention": sa.launches,
-                "decode_attention": da.launches}
-    want = {"stream_attention": 24 * n_append,
-            "decode_attention": 24 * lm_forwards}
+    launches = read_counts()
+    want = {"stream_attention": {"float": 24 * n_append, "int8": 0,
+                                 "int4": 0},
+            "decode_attention": 24 * lm_forwards, "decode_score": 0}
     if launches != want:
         raise RuntimeError(f"main path launch counts {launches} != "
                            f"expected {want}")
@@ -590,18 +918,19 @@ def main() -> int:
           "qa_latency_s_p50": float(np.median(qa_s)),
           "qa_latency_s": qa_s,
           "answer_tokens": [len(a) for a in answers],
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "seconds": time.perf_counter() - t_phase}
     emit(p3)
     RECORD["phases"]["session"] = p3
 
     # ---- phase 4: crossing the init-fill trigger ----
+    t_phase = time.perf_counter()
     scfg2 = session_cfg(1200, 8, 128, 32, 1, 64)
     sess2 = lo.build_session(model, scfg2, state_dtype=torch.bfloat16,
                              device=dev)
     if scfg2.rekv.decode_cap > scfg2.rekv.n_local:
         raise RuntimeError("phase 4 must keep decode_cap <= n_local")
-    torch.cuda.synchronize()
-    sa.launches = da.launches = 0
+    reset_counts()
     sess2.encode_init_prompt(list(range(100, 114)))
     active = []
     for i in range(24):
@@ -613,11 +942,9 @@ def main() -> int:
     out = sess2.question_answering(list(range(200, 210)),
                                    list(range(300, 315)), stop,
                                    max_new_tokens=32)
-    torch.cuda.synchronize()
-    launches2 = {"stream_attention": sa.launches,
-                 "decode_attention": da.launches}
-    want2 = {"stream_attention": 24 * 24,
-             "decode_attention": 24 * (2 + len(out))}
+    launches2 = read_counts()
+    want2 = {"stream_attention": {"float": 24 * 24, "int8": 0, "int4": 0},
+             "decode_attention": 24 * (2 + len(out)), "decode_score": 0}
     if launches2 != want2:
         raise RuntimeError(f"init-fill launch counts {launches2} != "
                            f"expected {want2}")
@@ -637,13 +964,15 @@ def main() -> int:
     p4 = {"phase": "session init-fill", "card": card,
           "init_active": active, "answer": out,
           "kernel_vs_plain_on_session_state": state_check,
-          "launches": launches2, "expected": want2}
+          "launches": launches2, "expected": want2,
+          "seconds": time.perf_counter() - t_phase}
     emit(p4)
     RECORD["phases"]["init_fill"] = p4
     if not state_check["agrees"] or int(rc.scalars[0, 3]) != 1:
         raise RuntimeError(f"init-fill state check failed {state_check}")
 
     # ---- phase 5: where the time goes (not the main path's counts) ----
+    t_phase = time.perf_counter()
     vis, lm = sess.vision, sess.lm
     kern = [(sa, "_launch", "stream_attention_kernel"),
             (da, "_launch", "decode_attention_kernel")]
@@ -697,28 +1026,65 @@ def main() -> int:
             pairs[name].append((probe(fn, *lm_layer, nth),
                                 probe(fn, *lm_layer, nth, sleep=True)))
     p5["busy"] = {k: busy_over(v) for k, v in pairs.items()}
+    p5["seconds"] = time.perf_counter() - t_phase
     emit(p5)
     RECORD["phases"]["time_split"] = p5
+    # free the 0.5b model before the 7B one (closures above hold it too)
+    del sess, sess2, model, vis, lm, kv0, args, kern, chunk_targets, \
+        lm_layer, vl, vf, vc
+    torch.cuda.empty_cache()
+
+    # ---- phases 6-7: llava-ov-7b width on int8 and int4 page stores ----
+    model7, cfg7 = make_model(dev, seed=7, text=QWEN2_7B)
+    p6 = quant_phase(model7, cfg7, "int8", 40,
+                     [(list(range(200, 212)), list(range(300, 316))),
+                      (list(range(400, 409)), list(range(500, 516)))],
+                     card, dev, gen)
+    emit(p6)
+    RECORD["phases"]["session_7b_int8"] = p6
+    p7 = quant_phase(model7, cfg7, "int4", 40,
+                     [(list(range(200, 212)), list(range(300, 316)))],
+                     card, dev, gen)
+    emit(p7)
+    RECORD["phases"]["session_7b_int4"] = p7
 
     # ---- the kernels line, then the device line ----
-    def entry(name, source, replaces, main_case):
+    def entry(name, source, replaces, main_case, n_launches, path):
         rows = [c for c in cases if c["kernel"] == name]
         m = next(c for c in rows if c["case"] == main_case)
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches[name],
-                "max_abs_err": max(c["max_abs_err"] for c in rows),
-                "max_rel_err": max(c["max_rel_err"] for c in rows),
-                "rms_rel_err": max(c["rms_rel_err"] for c in rows),
-                "ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
-                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                "library_ms": m["library_ms"], "case": main_case}
+        e = {"name": name, "route": "cuda", "source": source,
+             "replaces": replaces, "launches": n_launches,
+             "launches_on": path,
+             "max_abs_err": max(c["max_abs_err"] for c in rows),
+             "max_rel_err": max(c["max_rel_err"] for c in rows),
+             "rms_rel_err": max(c["rms_rel_err"] for c in rows),
+             "ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
+             "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+             "library_ms": m["library_ms"], "case": main_case}
+        if "bf16_pages_ms" in m:
+            e["bf16_pages_ms"] = m["bf16_pages_ms"]
+        return e
 
+    sa_src, sa_tpu = ("stc_tpu_torch/csrc/stream_attention.cu",
+                      "stc_tpu/ops/stream_attention.py:307")
+    da_src = "stc_tpu_torch/csrc/decode_attention.cu"
     kernels = [
-        entry("stream_attention", "stc_tpu_torch/csrc/stream_attention.cu",
-              "stc_tpu/ops/stream_attention.py:307",
-              "stream 300 pages init_active"),
-        entry("decode_attention", "stc_tpu_torch/csrc/decode_attention.cu",
-              "stc_tpu/ops/decode_attention.py:143", "decode token T=1"),
+        entry("stream_attention", sa_src, sa_tpu,
+              "stream 300 pages init_active",
+              launches["stream_attention"]["float"], "phase 3"),
+        entry("stream_attention_int8", sa_src, sa_tpu,
+              "stream int8 7B heads (28/4/128), 264 pages",
+              p6["launches"]["stream_attention"]["int8"], "phase 6"),
+        entry("stream_attention_int4", sa_src, sa_tpu,
+              "stream int4 7B heads (28/4/128), 264 pages",
+              p7["launches"]["stream_attention"]["int4"], "phase 7"),
+        entry("decode_attention", da_src,
+              "stc_tpu/ops/decode_attention.py:143", "decode token T=1",
+              launches["decode_attention"], "phase 3"),
+        entry("decode_score", "stc_tpu_torch/csrc/decode_score.cu",
+              "stc_tpu/ops/decode_attention.py:244",
+              "decode_score prefill T=256 at slot 3854", 0,
+              "no session path calls it"),
     ]
     RECORD["kernels"] = kernels
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),

@@ -30,13 +30,13 @@ class ReKVConfig:
     max_rep_blocks: int = 0       # rep-key capacity (0 => 4 * max_blocks)
     max_new_tokens: int = 128     # decode budget per question
     max_prompt_tokens: int = 512  # static prompt-prefill capacity for QA
-    # fields the main path does not implement yet; kept so the port's
-    # config takes every setting the JAX one does, and checked below
+    kv_quant: str = "none"        # device pages: 'none' | 'int8' | 'int4'
+    host_kv_quant: str = "int8"   # inert: the port has no host tier yet
+    # fields the port does not implement yet; kept so the port's config
+    # takes every setting the JAX one does, and checked below
     retrieval_scorer: str = "mean_dot"
     retrieved_kv_compression: str = "none"
     window_kv_compression: str = "none"
-    kv_quant: str = "none"
-    host_kv_quant: str = "int8"
     spec_decode_draft: int = 0
     spec_decode_ngram: int = 3
     spec_history_tokens: int = 0
@@ -62,7 +62,6 @@ class ReKVConfig:
             "retrieved_kv_compression": (self.retrieved_kv_compression,
                                          "none"),
             "window_kv_compression": (self.window_kv_compression, "none"),
-            "kv_quant": (self.kv_quant, "none"),
             "spec_decode_draft": (self.spec_decode_draft, 0),
         }
         for name, (value, main) in unported.items():

@@ -1,5 +1,5 @@
-// Shared tile machinery of the two hand-written attention kernels
-// (stream_attention.cu, decode_attention.cu).
+// Shared tile machinery of the hand-written attention kernels
+// (stream_attention.cu, decode_attention.cu, decode_score.cu).
 //
 // One CUDA block owns BR folded query rows (GQA: the G query heads of one
 // kv head times T tokens, row = g * T + t) and walks KV tiles of BC keys.
@@ -84,13 +84,13 @@ __device__ __forceinline__ void stats_init(TileSmem<D>& sm) {
 // One online-softmax update with the tile in sm.k / sm.v against the rows
 // in sm.q.  keep(r, c) says whether row r may attend key c.  Ends with a
 // barrier, so the caller may refill sm.k / sm.v / sm.q right after.
-template <typename TV, int D, typename Keep>
-__device__ void tile_update(TileSmem<D>& sm, Acc<D>& acc, float scale,
-                            Keep keep) {
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-
-  float s[4][4];
+// Thread (ty, tx)'s 4 x 4 block of the (BR, BC) dot products q . k: rows
+// ty*4 + i, keys tx + 16*j, accumulated in f32.
+template <int D>
+__device__ __forceinline__ void tile_scores(const float (*q)[D + 1],
+                                            const float (*k)[D + 1],
+                                            float s[4][4]) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -99,14 +99,24 @@ __device__ void tile_update(TileSmem<D>& sm, Acc<D>& acc, float scale,
   for (int d = 0; d < D; ++d) {
     float a[4], b[4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = sm.q[ty * 4 + i][d];
+    for (int i = 0; i < 4; ++i) a[i] = q[ty * 4 + i][d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) b[j] = sm.k[tx + 16 * j][d];
+    for (int j = 0; j < 4; ++j) b[j] = k[tx + 16 * j][d];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
   }
+}
+
+template <typename TV, int D, typename Keep>
+__device__ void tile_update(TileSmem<D>& sm, Acc<D>& acc, float scale,
+                            Keep keep) {
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+
+  float s[4][4];
+  tile_scores<D>(sm.q, sm.k, s);
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll

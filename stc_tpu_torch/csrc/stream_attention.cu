@@ -1,15 +1,18 @@
 // Paged streaming encode attention for Hopper (sm_90a), plain C interface.
 //
 // Replaces the Pallas kernel stc_tpu/ops/stream_attention.py::_kernel
-// (wrapper stream_attention).  One joint online softmax over three key
+// (wrapper stream_attention), all three page kinds: 1a pages in the input
+// dtype, 1b int8 pages and 1c packed int4 pages, each quantized kind with
+// f32 scales per (page, dim).  One joint online softmax over three key
 // groups of a video append:
 //   1. the init tokens under window RoPE (k_init_rot), mask
 //      0 <= q_pos - j < n_local;
 //   2. the window pages, read in place from the append-only page store
-//      (B, Hkv, Nb, S, D) starting at page start_tile * ppt, RoPE applied to
-//      each key from the cover tables (f32, rounded to the input dtype), mask
-//      0 <= q_pos - pos < n_local and abs_page < total, where the key at
-//      cover index c has pos = n_init + (start_page + offset) * S + c;
+//      (B, Hkv, Nb, S, D) starting at page start_tile * ppt, dequantized in
+//      f32 where quantized, RoPE applied to each key from the cover tables
+//      (f32, rounded to the input dtype), mask 0 <= q_pos - pos < n_local
+//      and abs_page < total, where the key at cover index c has
+//      pos = n_init + (start_page + offset) * S + c;
 //   3. the unrotated init keys against the one-angle queries, gated by
 //      init_active.
 // GQA is folded into the query rows; tiles holding no live key are skipped;
@@ -17,22 +20,92 @@
 //
 // Bound on the H100 at llava-ov-0.5b shapes, full window: one 1-frame
 // append does 4*14*60*15028*64 ~ 3.2 GFLOP (3.3 us at the dense bf16 rate)
-// and reads ~7.7 MB of window pages plus ~7.7 MB of f32 RoPE cover tables
-// (4.7 us at 3.35 TB/s): bytes bound it while the tables come from memory
-// (computing cos/sin in the kernel would halve the bytes).  This first
-// design runs the products as FP32 FMA (67 TFLOP/s peak) and splits the KV
-// walk over blocks so a 60-token append still fills the card; tensor cores
-// (mma/wgmma), TMA page loads and in-kernel RoPE tables are the next steps.
+// and reads ~7.7 MB of bf16 window pages (3.9 MB int8, 1.9 MB int4) plus
+// ~7.7 MB of f32 RoPE cover tables (4.7 us at 3.35 TB/s): bytes bound it
+// while the tables come from memory (computing cos/sin in the kernel would
+// halve the bytes).  This first design runs the products as FP32 FMA
+// (67 TFLOP/s peak) and splits the KV walk over blocks so a 60-token append
+// still fills the card; tensor cores (mma/wgmma), TMA page loads and
+// in-kernel RoPE tables are the next steps.  Dequantizing costs a few
+// integer and float operations per loaded element, beside the D FMAs each
+// loaded key feeds.
+
+#include <stdint.h>
+
+#include <type_traits>
 
 #include "attn_common.cuh"
 
 namespace stc {
 
+// One page row's element d and its rotate-half partner (negated for
+// d < D/2), dequantized in f32.  `sc` is the page's scale row (D floats);
+// pages in the input dtype have none.
+template <int D>
+__device__ __forceinline__ void page_pair(const float* row, const float*,
+                                          int d, float& x, float& xr) {
+  x = row[d];
+  xr = (d < D / 2) ? -row[d + D / 2] : row[d - D / 2];
+}
+template <int D>
+__device__ __forceinline__ void page_pair(const __nv_bfloat16* row,
+                                          const float*, int d, float& x,
+                                          float& xr) {
+  x = to_f(row[d]);
+  xr = (d < D / 2) ? -to_f(row[d + D / 2]) : to_f(row[d - D / 2]);
+}
+template <int D>
+__device__ __forceinline__ void page_pair(const int8_t* row, const float* sc,
+                                          int d, float& x, float& xr) {
+  const int p = (d < D / 2) ? d + D / 2 : d - D / 2;
+  x = (float)row[d] * sc[d];
+  const float y = (float)row[p] * sc[p];
+  xr = (d < D / 2) ? -y : y;
+}
+// split-plane int4: byte j holds dim j (low nibble) and dim j + D/2 (high
+// nibble), so d and its partner come from one byte
+__device__ __forceinline__ float nibble(int v) {
+  return (float)(v > 7 ? v - 16 : v);
+}
+template <int D>
+__device__ __forceinline__ void page_pair(const uint8_t* row, const float* sc,
+                                          int d, float& x, float& xr) {
+  const int byte = row[d % (D / 2)];
+  const float lo = nibble(byte & 0x0F), hi = nibble(byte >> 4);
+  if (d < D / 2) {
+    x = lo * sc[d];
+    xr = -(hi * sc[d + D / 2]);
+  } else {
+    x = hi * sc[d];
+    xr = lo * sc[d - D / 2];
+  }
+}
+
+// One page row's element d, dequantized in f32 and rounded to T.
+template <typename T, int D>
+__device__ __forceinline__ float page_val(const T* row, const float*, int d) {
+  return to_f(row[d]);
+}
+template <typename T, int D>
+__device__ __forceinline__ float page_val(const int8_t* row, const float* sc,
+                                          int d) {
+  return round_to<T>((float)row[d] * sc[d]);
+}
+template <typename T, int D>
+__device__ __forceinline__ float page_val(const uint8_t* row, const float* sc,
+                                          int d) {
+  const int byte = row[d % (D / 2)];
+  const float q = nibble(d < D / 2 ? (byte & 0x0F) : (byte >> 4));
+  return round_to<T>(q * sc[d]);
+}
+
 struct StreamArgs {
   const void* q_rot;       // (B, Hq, T, D)
   const void* q_one;       // (B, Hq, T, D)
   const void* block_k;     // (B, Hkv, Nb, S, D) unrotated
-  const void* block_v;     // (B, Hkv, Nb, S, D)
+  const void* block_v;     // (B, Hkv, Nb, S, D); D/2 bytes a row for int4
+  const float* k_scales;   // (B, Hkv, Nb, D), quantized pages only
+  const float* v_scales;
   const float* cos_cover;  // (B, Lc, D)
   const float* sin_cover;  // (B, Lc, D)
   const void* k_init_rot;  // (B, Hkv, n_init, D)
@@ -44,9 +117,12 @@ struct StreamArgs {
   int B, Hq, Hkv, T, Nb, S, Lc, ppt, n_init, n_local, n_split;
 };
 
-template <typename T, int D>
+// T: queries, init keys and output; P: page elements (T, int8_t or packed
+// uint8_t)
+template <typename T, typename P, int D>
 __global__ void __launch_bounds__(NTH)
 stream_attention_kernel(StreamArgs a) {
+  constexpr int DP = std::is_same<P, uint8_t>::value ? D / 2 : D;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   TileSmem<D>& sm = *reinterpret_cast<TileSmem<D>*>(smem_raw);
 
@@ -73,8 +149,8 @@ stream_attention_kernel(StreamArgs a) {
 
   const T* q_rot = static_cast<const T*>(a.q_rot);
   const T* q_one = static_cast<const T*>(a.q_one);
-  const T* bk = static_cast<const T*>(a.block_k);
-  const T* bv = static_cast<const T*>(a.block_v);
+  const P* bk = static_cast<const P*>(a.block_k);
+  const P* bv = static_cast<const P*>(a.block_v);
 
   // folded row r -> (head, t); rows past G*T stay masked
   auto q_row_ptr = [&](const T* q, int r) -> const T* {
@@ -116,13 +192,13 @@ stream_attention_kernel(StreamArgs a) {
       float kr = 0.f, vf = 0.f;
       if (cc < c_lim && pos_base + cc < pos_end) {
         const int page = start_page + cc / a.S, o = cc % a.S;
-        const T* krow = bk + ((hk + page) * a.S + o) * D;
-        const float x = to_f(krow[d]);
-        const float xr = (d < D / 2) ? -to_f(krow[d + D / 2])
-                                     : to_f(krow[d - D / 2]);
+        const long long row = ((hk + page) * a.S + o) * DP;
+        const long long srow = (hk + page) * D;
+        float x, xr;
+        page_pair<D>(bk + row, a.k_scales + srow, d, x, xr);
         const long long ci = ((long long)b * a.Lc + cc) * D + d;
         kr = round_to<T>(x * a.cos_cover[ci] + xr * a.sin_cover[ci]);
-        vf = to_f(bv[((hk + page) * a.S + o) * D + d]);
+        vf = page_val<T, D>(bv + row, a.v_scales + srow, d);
       }
       sm.k[c][d] = kr;
       sm.v[c][d] = vf;
@@ -177,16 +253,16 @@ stream_attention_kernel(StreamArgs a) {
                    });
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 cudaError_t launch(const StreamArgs& a, void* out, cudaStream_t stream) {
   const size_t smem = sizeof(TileSmem<D>);
   cudaError_t err = cudaFuncSetAttribute(
-      stream_attention_kernel<T, D>,
+      stream_attention_kernel<T, P, D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int G = a.Hq / a.Hkv;
   dim3 grid((G * a.T + BR - 1) / BR, a.Hkv, a.B * a.n_split);
-  stream_attention_kernel<T, D><<<grid, NTH, smem, stream>>>(a);
+  stream_attention_kernel<T, P, D><<<grid, NTH, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_combine<T, D>(a.part_acc, a.part_ml, a.n_split,
@@ -194,34 +270,50 @@ cudaError_t launch(const StreamArgs& a, void* out, cudaStream_t stream) {
                               stream);
 }
 
-template <typename T>
+template <typename T, typename P>
 cudaError_t launch_d(const StreamArgs& a, int D, void* out,
                      cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16>(a, out, stream);
-    case 32: return launch<T, 32>(a, out, stream);
-    case 64: return launch<T, 64>(a, out, stream);
-    case 128: return launch<T, 128>(a, out, stream);
+    case 16: return launch<T, P, 16>(a, out, stream);
+    case 32: return launch<T, P, 32>(a, out, stream);
+    case 64: return launch<T, P, 64>(a, out, stream);
+    case 128: return launch<T, P, 128>(a, out, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t launch_p(const StreamArgs& a, int pages, int D, void* out,
+                     cudaStream_t stream) {
+  switch (pages) {
+    case 0: return launch_d<T, T>(a, D, out, stream);
+    case 1: return launch_d<T, int8_t>(a, D, out, stream);
+    case 2: return launch_d<T, uint8_t>(a, D, out, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace stc
 
-// dtype: 0 = float32, 1 = bfloat16 (every tensor input but the f32 tables
-// and the int32 scalars).  Returns cudaGetLastError() after the launches.
+// dtype: 0 = float32, 1 = bfloat16 (queries, init keys and values, output).
+// pages: 0 = pages in that dtype (k_scales, v_scales unused), 1 = int8,
+// 2 = packed int4 (uint8, D/2 bytes a row), each with f32 scales
+// (B, Hkv, Nb, D).  Returns cudaGetLastError() after the launches.
 extern "C" int stc_stream_attention(
     const void* q_rot, const void* q_one, const void* block_k,
-    const void* block_v, const void* cos_cover, const void* sin_cover,
-    const void* k_init_rot, const void* v_init, const void* k_init_raw,
-    const void* scalars, void* part_acc, void* part_ml, void* out, int B,
-    int Hq, int Hkv, int T, int D, int Nb, int S, int Lc, int ppt, int n_init,
-    int n_local, int n_split, int dtype, void* stream) {
+    const void* block_v, const void* k_scales, const void* v_scales,
+    const void* cos_cover, const void* sin_cover, const void* k_init_rot,
+    const void* v_init, const void* k_init_raw, const void* scalars,
+    void* part_acc, void* part_ml, void* out, int B, int Hq, int Hkv, int T,
+    int D, int Nb, int S, int Lc, int ppt, int n_init, int n_local,
+    int n_split, int dtype, int pages, void* stream) {
   stc::StreamArgs a;
   a.q_rot = q_rot;
   a.q_one = q_one;
   a.block_k = block_k;
   a.block_v = block_v;
+  a.k_scales = static_cast<const float*>(k_scales);
+  a.v_scales = static_cast<const float*>(v_scales);
   a.cos_cover = static_cast<const float*>(cos_cover);
   a.sin_cover = static_cast<const float*>(sin_cover);
   a.k_init_rot = k_init_rot;
@@ -242,9 +334,11 @@ extern "C" int stc_stream_attention(
   a.n_local = n_local;
   a.n_split = n_split;
   if (n_init > stc::BC || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  if (pages != 0 && (k_scales == nullptr || v_scales == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      dtype == 1 ? stc::launch_d<__nv_bfloat16>(a, D, out, st)
-                 : stc::launch_d<float>(a, D, out, st);
+      dtype == 1 ? stc::launch_p<__nv_bfloat16>(a, pages, D, out, st)
+                 : stc::launch_p<float>(a, pages, D, out, st);
   return (int)err;
 }

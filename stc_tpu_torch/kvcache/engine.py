@@ -12,7 +12,17 @@ every QA forward through ``ops.decode_attention``.  Their wrappers launch
 the CUDA kernel on a CUDA tensor and run the plain PyTorch version on a CPU
 tensor; there is no other route.  The JAX session's window-size buckets and
 backend switches are not ported: the kernel skips the empty tiles of the
-full window, so it always reads the whole window cover.
+full window, so it always reads the whole window cover.  The one exception
+is static: with decode_cap > n_local, ``decode_attend`` needs the
+complement-window init stage, which no kernel computes (in the JAX engine
+either), and runs the plain multi-stage attention on every device.
+
+Quantized pages (``ReKVConfig.kv_quant`` 'int8' or 'int4'): pages are
+quantized on write with per-(page, head, dim) absmax scales over the S
+token rows; ``stream_attention`` reads them as they are stored and
+dequantizes inside the kernel; retrieval dequantizes the gathered pages.
+Rep keys come from the exact keys, so retrieval scoring does not see the
+quantization.
 """
 
 from __future__ import annotations
@@ -26,7 +36,9 @@ from stc_tpu_torch.kvcache.state import DecodeKV, StreamKV
 from stc_tpu_torch.ops.attention import AttnStage, multi_stage_attention
 from stc_tpu_torch.ops.decode_attention import decode_attention
 from stc_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rotate
-from stc_tpu_torch.ops.stream_attention import pages_per_tile, stream_attention
+from stc_tpu_torch.ops.stream_attention import (dequant_rows, pages_per_tile,
+                                                stream_attention)
+from stc_tpu_torch.ops.stream_attention import unpack_int4 as _unpack_int4
 
 I32 = torch.int32
 
@@ -55,13 +67,22 @@ def init_stream_kv(cfg: ReKVConfig, batch: int, n_kv_heads: int,
     def z(shape, dt=dtype):
         return torch.zeros(lead + shape, dtype=dt, device=device)
 
+    if cfg.kv_quant == "int4":
+        if D % 2:
+            raise ValueError(f"int4 pages pack two dims a byte: head_dim={D}")
+        page_dt, Dp = torch.uint8, D // 2
+    elif cfg.kv_quant == "int8":
+        page_dt, Dp = torch.int8, D
+    else:
+        page_dt, Dp = dtype, D
+    n_scale = Nb if cfg.kv_quant != "none" else 0
     return StreamKV(
         init_k=z((B, H, cfg.n_init, D)),
         init_v=z((B, H, cfg.n_init, D)),
-        block_k=z((B, H, Nb, S, D)),
-        block_v=z((B, H, Nb, S, D)),
-        block_k_scale=z((B, H, 0, D), torch.float32),
-        block_v_scale=z((B, H, 0, D), torch.float32),
+        block_k=z((B, H, Nb, S, Dp), page_dt),
+        block_v=z((B, H, Nb, S, Dp), page_dt),
+        block_k_scale=z((B, H, n_scale, D), torch.float32),
+        block_v_scale=z((B, H, n_scale, D), torch.float32),
         block_rep=z((B, cfg.rep_cap, H, D)),
         page_keep=torch.ones(lead + (B, Nb, S), dtype=torch.bool,
                              device=device),
@@ -145,6 +166,44 @@ def make_rope_cache(length: torch.Tensor, num_blocks: torch.Tensor, T: int,
 
 
 # ---------------------------------------------------------------------------
+# Page quantization (kv_quant): the JAX engine's arithmetic, exactly
+# ---------------------------------------------------------------------------
+
+def _quantize_page(x: torch.Tensor):
+    """(B, Hkv, n, S, D) -> (int8 pages, f32 scales (B, Hkv, n, D)):
+    symmetric absmax over the S token rows, half-to-even rounding."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=3).clamp(min=1e-8) / 127.0
+    q = torch.round(xf / scale[:, :, :, None, :])
+    return q.clamp(-127, 127).to(torch.int8), scale
+
+
+def _quantize_page_int4(x: torch.Tensor):
+    """(B, Hkv, n, S, D) -> (uint8 packed nibbles (..., S, D//2), f32
+    scales (B, Hkv, n, D)): absmax over the S rows onto [-7, 7], packed
+    split-plane (byte j holds dim j low, dim j + D/2 high)."""
+    xf = x.to(torch.float32)
+    scale = xf.abs().amax(dim=3).clamp(min=1e-8) / 7.0
+    q = torch.round(xf / scale[:, :, :, None, :])
+    return _pack_int4(q.clamp(-7, 7).to(torch.int8)), scale
+
+
+def _pack_int4(q: torch.Tensor) -> torch.Tensor:
+    """int8 nibble values (..., D) in [-8, 7] -> uint8 packed (..., D//2):
+    byte j = (q[..., j] & 0xF) | (q[..., j + D/2] << 4)."""
+    Dh = q.shape[-1] // 2
+    u = q.to(torch.uint8)  # two's complement
+    return (u[..., :Dh] & 0x0F) | (u[..., Dh:] << 4)
+
+
+def _dequant_pages(pages: torch.Tensor, scales: torch.Tensor,
+                   dtype) -> torch.Tensor:
+    """(..., n, S, D or D//2 packed) int8/uint8 pages x (..., n, D) f32
+    scales -> dtype."""
+    return dequant_rows(pages, scales[..., :, None, :]).to(dtype)
+
+
+# ---------------------------------------------------------------------------
 # Streaming append (encode path)
 # ---------------------------------------------------------------------------
 
@@ -161,6 +220,8 @@ def append_stream(kv: StreamKV, q: torch.Tensor, k: torch.Tensor,
     Otherwise T is a whole number of pages: they are written to the store
     with one mean key per page, then the queries attend [init tokens |
     window pages | init tokens at the one angle] through stream_attention.
+    With kv_quant the pages are quantized on write (the rep keys come from
+    the exact keys) and the kernel reads the quantized store.
     """
     B, Hq, T, D = q.shape
     Hkv = k.shape[1]
@@ -199,22 +260,35 @@ def append_stream(kv: StreamKV, q: torch.Tensor, k: torch.Tensor,
     pages = slot.to(torch.int64)[:, None] + ar                  # (B, n_new)
     k_pages = k.reshape(B, Hkv, n_new, S, D)
     v_pages = v.reshape(B, Hkv, n_new, S, D)
-    kv.block_k[bidx, :, pages] = k_pages.transpose(1, 2).to(kv.block_k.dtype)
-    kv.block_v[bidx, :, pages] = v_pages.transpose(1, 2).to(kv.block_v.dtype)
+    quant = cfg.kv_quant != "none"
+    if quant:
+        qfn = _quantize_page_int4 if cfg.kv_quant == "int4" else \
+            _quantize_page
+        (k_w, k_sc), (v_w, v_sc) = qfn(k_pages), qfn(v_pages)
+        kv.block_k_scale[bidx, :, pages] = k_sc.transpose(1, 2)
+        kv.block_v_scale[bidx, :, pages] = v_sc.transpose(1, 2)
+    else:  # round into the store's dtype (the state dtype)
+        k_w = k_pages.to(kv.block_k.dtype)
+        v_w = v_pages.to(kv.block_v.dtype)
+    kv.block_k[bidx, :, pages] = k_w.transpose(1, 2)
+    kv.block_v[bidx, :, pages] = v_w.transpose(1, 2)
     rep = k_pages.to(torch.float32).mean(dim=3).transpose(1, 2)  # (B,n,H,D)
     rep_slot = kv.num_blocks.clamp(0, cfg.rep_cap - n_new).to(torch.int64)
     kv.block_rep[bidx, rep_slot[:, None] + ar] = rep.to(kv.block_rep.dtype)
 
-    # the kernel takes queries in the store's dtype (a body computing in
-    # f32 over a bf16 store narrows here, as the Pallas kernel does)
-    dt = kv.block_k.dtype
+    # the kernel takes queries in the state dtype (a body computing in f32
+    # over a bf16 state narrows here, as the Pallas kernel does); the page
+    # store's dtype is int8/uint8 when quantized
+    dt = kv.init_k.dtype
     q_rot = rotate(q, rc.cos_q, rc.sin_q).to(dt)
     q_one = rotate(q, rc.cos_one, rc.sin_one).to(dt)
     k_init_rot = rotate(kv.init_k, rc.cos_init[:, None], rc.sin_init[:, None])
     o = stream_attention(
         q_rot.contiguous(), q_one.contiguous(), kv.block_k, kv.block_v,
         rc.cos_cover, rc.sin_cover, k_init_rot.contiguous(), kv.init_v,
-        kv.init_k, rc.scalars, n_local=cfg.n_local).to(q.dtype)
+        kv.init_k, rc.scalars, n_local=cfg.n_local,
+        k_scales=kv.block_k_scale if quant else None,
+        v_scales=kv.block_v_scale if quant else None).to(q.dtype)
 
     kv.num_blocks.add_(n_new)
     kv.length.add_(T)
@@ -294,8 +368,13 @@ def retrieve_blocks(kv: StreamKV, q: torch.Tensor, cfg: ReKVConfig,
 def _gather_retrieved(kv: StreamKV, cfg: ReKVConfig, block_slot, sel_valid):
     B = block_slot.shape[0]
     bidx = torch.arange(B, device=block_slot.device)[:, None]
-    gk = kv.block_k[bidx, :, block_slot.to(torch.int64)]  # (B,topk,Hkv,S,D)
-    gv = kv.block_v[bidx, :, block_slot.to(torch.int64)]
+    slot = block_slot.to(torch.int64)
+    gk = kv.block_k[bidx, :, slot]                        # (B,topk,Hkv,S,D)
+    gv = kv.block_v[bidx, :, slot]
+    if cfg.kv_quant != "none":  # scales gathered at the same slots
+        dt = kv.init_k.dtype
+        gk = _dequant_pages(gk, kv.block_k_scale[bidx, :, slot], dt)
+        gv = _dequant_pages(gv, kv.block_v_scale[bidx, :, slot], dt)
     return _pack_retrieved(kv, cfg, gk, gv, sel_valid)
 
 
@@ -349,10 +428,11 @@ def decode_attend(q: torch.Tensor, q_slots: torch.Tensor, dkv: DecodeKV,
 
     q: (B, Hq, T, D) unrotated; q_slots: (B, T) AFFINE slots (q_slots[:, t]
     == q_slots[:, 0] + t at every call site) whose keys are already
-    written.  Runs decode_attention.  When decode_cap > n_local the JAX
-    engine adds the complement-window init stage (rekv_attention.py:401-426);
-    the port computes that stage with the plain multi-stage attention on the
-    CPU and raises on CUDA (ROADMAP.md queue 2: the decode init stage).
+    written.  Runs decode_attention.  When decode_cap > n_local (static,
+    from the config) the cache can outgrow the window and the JAX engine
+    adds the complement-window init stage (rekv_attention.py:401-426); no
+    kernel computes that stage, there or here, so both engines run the
+    plain multi-stage attention on every device in that case.
     """
     B, Hq, T, D = q.shape
     q_rot = apply_rope(q, q_slots[:, None, :], rope_base)
@@ -361,11 +441,6 @@ def decode_attend(q: torch.Tensor, q_slots: torch.Tensor, dkv: DecodeKV,
                              dkv.v, q_slots[:, 0].to(I32).contiguous(),
                              dkv.cursor.contiguous(), n_local=cfg.n_local)
         return o.to(q.dtype)
-    if q.is_cuda:
-        raise NotImplementedError(
-            f"decode_cap={cfg.decode_cap} > n_local={cfg.n_local} needs the "
-            "complement-window init stage, which decode_attention has not "
-            "got yet (ROADMAP.md queue 2, 'decode_attention init stage')")
     C = dkv.k.shape[2]
     nI = cfg.n_init
     dev = q.device

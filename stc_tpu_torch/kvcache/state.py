@@ -16,9 +16,11 @@ class StreamKV(NamedTuple):
 
     init_k: torch.Tensor      # (B, Hkv, n_init, D) unrotated
     init_v: torch.Tensor      # (B, Hkv, n_init, D)
-    block_k: torch.Tensor     # (B, Hkv, max_blocks, S, D) unrotated pages
+    block_k: torch.Tensor     # (B, Hkv, max_blocks, S, D) unrotated pages:
+                              # state dtype, int8, or uint8 (..., D/2) int4
     block_v: torch.Tensor     # (B, Hkv, max_blocks, S, D)
-    block_k_scale: torch.Tensor  # (B, Hkv, 0, D): no quantized pages yet
+    block_k_scale: torch.Tensor  # (B, Hkv, max_blocks, D) f32 page scales;
+                                 # (B, Hkv, 0, D) without kv_quant
     block_v_scale: torch.Tensor
     block_rep: torch.Tensor   # (B, rep_cap, Hkv, D) mean key per block
     page_keep: torch.Tensor   # (B, max_blocks, S) bool

@@ -1,24 +1,33 @@
-"""Sliding-window attention over the QA decode cache: the CUDA kernel's
-wrapper and its plain PyTorch version.
+"""Sliding-window attention over the QA decode cache and its per-key
+attention mass: the CUDA kernels' wrappers and their plain PyTorch versions.
 
-Replaces the Pallas kernel ``stc_tpu/ops/decode_attention.py::_attn_kernel``
-(wrapper ``decode_attention``): T fresh queries at affine slots
-``start + t`` attend the decode cache (B, Hkv, C, D), whose keys are stored
-already rotated, under the mask ``0 <= q_slot - slot < n_local`` and
-``slot < cursor``; GQA is folded into the query rows.  With ``return_m`` the
-row maxima of the scaled, masked scores come back too.  The kernel is
-``csrc/decode_attention.cu``.
+``decode_attention`` replaces the Pallas kernel
+``stc_tpu/ops/decode_attention.py::_attn_kernel``: T fresh queries at
+affine slots ``start + t`` attend the decode cache (B, Hkv, C, D), whose
+keys are stored already rotated, under the mask ``0 <= q_slot - slot <
+n_local`` and ``slot < cursor``; GQA is folded into the query rows.  With
+``return_m`` the row maxima of the scaled, masked scores come back too.
+The kernel is ``csrc/decode_attention.cu``.
+
+``decode_score`` replaces ``_score_kernel``: under the same mask, the mass
+``sum_t exp(s_tk * scale - m_t)`` each key receives from the queries of
+each query head, not normalised by the softmax sum (the reference's
+get_score), with m from ``decode_attention(return_m=True)``.  The kernel is
+``csrc/decode_score.cu``.  No session path calls it.
 
 Bound on the H100: a token step at llava-ov-0.5b shapes reads ~2 MB of
 live cache (0.6 us at 3.35 TB/s), below the cost of a launch; the
-256-token prompt prefill is bound by its bf16 operations (~3.8 us).  The
-first design splits the live slot range over blocks (flash-decoding, with
-a combine kernel) so one kv head's 7 query rows still spread over the
-card, and runs the tile products as FP32 FMA; it does not use tensor cores
-(PERF.md has its distance from the bound).
+256-token prompt prefill is bound by its bf16 operations (~3.8 us), and so
+is its decode_score (~1.9 us).  The first designs run the tile products as
+FP32 FMA; decode_attention splits the live slot range over blocks
+(flash-decoding, with a combine kernel) so one kv head's 7 query rows
+still spread over the card, and decode_score gives each block one key tile,
+so its sums need no second pass.  Neither uses tensor cores (PERF.md has
+their distance from the bound).
 
-On a CPU tensor the wrapper runs ``decode_attention_ref``; on a CUDA tensor
-it launches the kernel or raises.  ``launches`` counts kernel launches.
+On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises.  ``launches`` counts decode_attention's
+kernel launches, ``score_launches`` decode_score's.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import torch
 from stc_tpu_torch.kernels import _build
 
 launches = 0
+score_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -119,3 +129,74 @@ def decode_attention_ref(q_rot, k, v, start, cursor, *, n_local: int,
     o = (acc / torch.where(l == 0, 1.0, l)).reshape(B, Hq, T, D)
     o = o.to(q_rot.dtype)
     return (o, m.reshape(B, Hq, T)) if return_m else o
+
+
+def _check_score(q_rot, k, m, start, cursor):
+    if q_rot.dtype not in _DTYPES or k.dtype != q_rot.dtype:
+        raise ValueError("decode_score wants q and k in one dtype "
+                         "(bfloat16 or float32)")
+    B, Hq, T, _ = q_rot.shape
+    if m.dtype != torch.float32 or tuple(m.shape) != (B, Hq, T):
+        raise ValueError(f"m must be ({B}, {Hq}, {T}) float32")
+    for t in (start, cursor):
+        if t.dtype != torch.int32 or tuple(t.shape) != (B,):
+            raise ValueError("start and cursor must be (B,) int32")
+    allt = (q_rot, k, m, start, cursor)
+    if any(not t.is_contiguous() for t in allt):
+        raise ValueError("decode_score wants contiguous tensors")
+    if any(t.device != q_rot.device for t in allt):
+        raise ValueError("decode_score inputs lie on several devices")
+
+
+def decode_score(q_rot, k, m, start, cursor, *, n_local: int):
+    """Per-key attention mass over the decode cache.
+    q_rot: (B, Hq, T, D) queries rotated at slots start..start+T-1;
+    k: (B, Hkv, C, D) rotated decode keys; m: (B, Hq, T) f32 row maxima from
+    decode_attention(return_m=True); start/cursor: (B,) int32.
+    Returns (B, Hq, C) f32."""
+    _check_score(q_rot, k, m, start, cursor)
+    if q_rot.device.type == "cpu":
+        return decode_score_ref(q_rot, k, m, start, cursor, n_local=n_local)
+    if q_rot.device.type != "cuda":
+        raise RuntimeError(f"no decode_score for {q_rot.device}")
+    return _launch_score(q_rot, k, m, start, cursor, n_local)
+
+
+def _launch_score(q_rot, k, m, start, cursor, n_local):
+    global score_launches
+    lib = _build.load("decode_score")
+    fn = lib.stc_decode_score
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    B, Hq, T, D = q_rot.shape
+    Hkv, C = k.shape[1], k.shape[2]
+    out = torch.empty((B, Hq, C), dtype=torch.float32, device=q_rot.device)
+    stream = torch.cuda.current_stream(q_rot.device).cuda_stream
+    rc = fn(q_rot.data_ptr(), k.data_ptr(), m.data_ptr(), start.data_ptr(),
+            cursor.data_ptr(), out.data_ptr(), B, Hq, Hkv, T, D, C, n_local,
+            _DTYPES[q_rot.dtype], stream)
+    _build.check_launch(rc, "decode_score")
+    score_launches += 1
+    return out
+
+
+def decode_score_ref(q_rot, k, m, start, cursor, *, n_local: int):
+    """Plain PyTorch version of the kernel (the JAX package's
+    decode_score_jnp): f32 scores of the input-dtype operands, masked
+    terms selected to 0."""
+    B, Hq, T, D = q_rot.shape
+    Hkv, C = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    dev, f32 = q_rot.device, torch.float32
+    qg = q_rot.reshape(B, Hkv, G, T, D).to(f32)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.to(f32))
+    s = s.reshape(B, Hq, T, C) * (1.0 / D ** 0.5)
+    slot = torch.arange(C, device=dev)
+    q_slot = start.to(torch.int64)[:, None] + torch.arange(T, device=dev)
+    dist = q_slot[:, :, None] - slot
+    mask = (dist >= 0) & (dist < n_local) & (
+        slot < cursor.to(torch.int64)[:, None, None])
+    p = torch.where(mask[:, None], torch.exp(s - m[..., None]), 0.0)
+    return p.sum(dim=2)

@@ -12,18 +12,29 @@ with the window pages read in place from the append-only page store
 keys from the cover tables, affine position masks, and GQA folded into the
 query rows.  The kernel is ``csrc/stream_attention.cu``.
 
+Pages come in three kinds, as in the Pallas kernel:
+- 1a: the queries' dtype (bfloat16 or float32);
+- 1b: int8, with f32 scales (B, Hkv, Nb, D) per page and dim;
+- 1c: packed int4 (uint8 (B, Hkv, Nb, S, D/2), split-plane: byte j holds
+  dim j in its low nibble and dim j + D/2 in its high one) with f32 scales.
+Quantized pages are dequantized in f32 inside the kernel, rotated, and
+rounded to the input dtype; values are dequantized and rounded the same way.
+
 Bound on the H100: a 1-frame append over the full llava-ov-0.5b window
 needs ~3.2 GFLOP (3.3 us at the bf16 tensor-core rate) and ~7.7 MB of page
-reads (2.3 us at 3.35 TB/s), so operations bound the function.  This
-design also reads the f32 RoPE cover tables (another ~7.7 MB, 4.7 us in
-all), which computing the angles from the affine key positions in the
-kernel would save.  It runs the tile products as FP32 FMA out of shared
-memory and splits each row tile's KV walk over several blocks (merged by a
-combine kernel) so a 60-token append still fills the card; it does not use
-tensor cores or TMA (PERF.md has its distance from the bound).
+reads (2.3 us at 3.35 TB/s), so operations bound the function; int8 and
+int4 pages cut the page bytes to a half and a quarter and move it further
+from the byte bound.  This design also reads the f32 RoPE cover tables
+(another ~7.7 MB, 4.7 us in all), which computing the angles from the
+affine key positions in the kernel would save.  It runs the tile products
+as FP32 FMA out of shared memory and splits each row tile's KV walk over
+several blocks (merged by a combine kernel) so a 60-token append still
+fills the card; it does not use tensor cores or TMA (PERF.md has its
+distance from the bound).
 
 On a CPU tensor the wrapper runs ``stream_attention_ref``; on a CUDA tensor
-it launches the kernel or raises.  ``launches`` counts kernel launches.
+it launches the kernel or raises.  ``launches`` counts kernel launches by
+page kind.
 """
 
 from __future__ import annotations
@@ -35,9 +46,11 @@ import torch
 from stc_tpu_torch.kernels import _build
 from stc_tpu_torch.ops.rope import rotate
 
-launches = 0
+launches = {"float": 0, "int8": 0, "int4": 0}
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PAGE_KINDS = {torch.int8: "int8", torch.uint8: "int4"}
+_PAGE_CODES = {"float": 0, "int8": 1, "int4": 2}
 
 
 def pages_per_tile(S: int) -> int:
@@ -46,26 +59,69 @@ def pages_per_tile(S: int) -> int:
     return next((d for d in (8, 4, 2, 1) if d * S <= 512), 1)
 
 
+def page_kind(block_k: torch.Tensor) -> str:
+    """'float' (the queries' dtype), 'int8' or 'int4' (packed uint8)."""
+    return _PAGE_KINDS.get(block_k.dtype, "float")
+
+
+def unpack_int4(p: torch.Tensor) -> torch.Tensor:
+    """uint8 packed (..., Dp) -> f32 nibble values (..., 2*Dp), split-plane
+    order (low nibbles are dims [0, Dp), high nibbles dims [Dp, 2*Dp)),
+    each a two's-complement value in [-8, 7]."""
+    p32 = p.to(torch.int32)
+    lo = p32 & 0x0F
+    hi = (p32 >> 4) & 0x0F
+    lo = torch.where(lo > 7, lo - 16, lo)
+    hi = torch.where(hi > 7, hi - 16, hi)
+    return torch.cat([lo, hi], dim=-1).to(torch.float32)
+
+
+def dequant_rows(x: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """int8 rows (..., D) or packed int4 rows (..., D/2) times their f32
+    scales (..., D), in f32."""
+    if x.dtype == torch.uint8:
+        x = unpack_int4(x)
+    return x.to(torch.float32) * scales
+
+
 def _check(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
-           k_init_rot, v_init, k_init_raw, scalars):
-    T, S = q_rot.shape[2], block_k.shape[3]
+           k_init_rot, v_init, k_init_raw, scalars, k_scales, v_scales):
+    B, _, T, D = q_rot.shape
+    Hkv, Nb, S = block_k.shape[1], block_k.shape[2], block_k.shape[3]
     if T % S:
         raise ValueError(f"append of T={T} tokens is not a whole number of "
                          f"{S}-token pages")
-    if block_k.dtype not in _DTYPES:
-        raise NotImplementedError(
-            f"pages of dtype {block_k.dtype}: quantized pages are not ported "
-            "yet (ROADMAP.md queue 2, stream_attention 1b/1c)")
-    tensors = (q_rot, q_one, block_k, block_v, k_init_rot, v_init, k_init_raw)
-    if any(t.dtype != q_rot.dtype for t in tensors):
-        raise ValueError("stream_attention wants q, pages and init keys in "
-                         "one dtype (bfloat16 or float32)")
+    tensors = (q_rot, q_one, k_init_rot, v_init, k_init_raw)
+    if q_rot.dtype not in _DTYPES or any(t.dtype != q_rot.dtype
+                                         for t in tensors):
+        raise ValueError("stream_attention wants q and the init keys in one "
+                         "dtype (bfloat16 or float32)")
+    kind = page_kind(block_k)
+    if block_v.dtype != block_k.dtype or block_v.shape != block_k.shape:
+        raise ValueError("block_k and block_v differ in dtype or shape")
+    scales = (k_scales, v_scales)
+    if kind == "float":
+        if block_k.dtype != q_rot.dtype:
+            raise ValueError("stream_attention wants float pages in the "
+                             "queries' dtype")
+        if any(s is not None for s in scales):
+            raise ValueError(f"pages of dtype {block_k.dtype} take no scales")
+    else:
+        Dp = D // 2 if kind == "int4" else D
+        if block_k.shape[-1] != Dp:
+            raise ValueError(f"{kind} pages want a last dimension of {Dp}, "
+                             f"got {block_k.shape[-1]}")
+        for s in scales:
+            if s is None or s.dtype != torch.float32 or tuple(s.shape) != (
+                    B, Hkv, Nb, D):
+                raise ValueError(f"{kind} pages want k_scales and v_scales, "
+                                 f"each ({B}, {Hkv}, {Nb}, {D}) float32")
     if cos_cover.dtype != torch.float32 or sin_cover.dtype != torch.float32:
         raise ValueError("rope cover tables must be float32")
-    if scalars.dtype != torch.int32 or tuple(scalars.shape) != (
-            q_rot.shape[0], 5):
+    if scalars.dtype != torch.int32 or tuple(scalars.shape) != (B, 5):
         raise ValueError("scalars must be (B, 5) int32")
-    allt = tensors + (cos_cover, sin_cover, scalars)
+    allt = tensors + (block_k, block_v, cos_cover, sin_cover, scalars) + \
+        tuple(s for s in scales if s is not None)
     if any(not t.is_contiguous() for t in allt):
         raise ValueError("stream_attention wants contiguous tensors")
     if any(t.device != q_rot.device for t in allt):
@@ -74,11 +130,14 @@ def _check(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
 
 def stream_attention(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
                      k_init_rot, v_init, k_init_raw, scalars, *,
-                     n_local: int) -> torch.Tensor:
+                     n_local: int, k_scales=None,
+                     v_scales=None) -> torch.Tensor:
     """Fused paged encode-path attention.
 
     q_rot/q_one: (B, Hq, T, D) queries at the window angle / the one angle.
-    block_k/block_v: (B, Hkv, Nb, S, D) unrotated page store.
+    block_k/block_v: (B, Hkv, Nb, S, D) unrotated page store in q's dtype,
+      or int8 (B, Hkv, Nb, S, D), or packed int4 uint8 (B, Hkv, Nb, S, D/2).
+    k_scales/v_scales: (B, Hkv, Nb, D) f32, with quantized pages only.
     cos_cover/sin_cover: (B, Lc, D) f32 tables of the page cover, Lc keys
       from local page start_tile * ppt on.
     k_init_rot/v_init/k_init_raw: (B, Hkv, n_init, D).
@@ -87,26 +146,28 @@ def stream_attention(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
     """
     args = (q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
             k_init_rot, v_init, k_init_raw, scalars)
-    _check(*args)
+    _check(*args, k_scales, v_scales)
+    kw = dict(n_local=n_local, k_scales=k_scales, v_scales=v_scales)
     if q_rot.device.type == "cpu":
-        return stream_attention_ref(*args, n_local=n_local)
+        return stream_attention_ref(*args, **kw)
     if q_rot.device.type != "cuda":
         raise RuntimeError(f"no stream_attention for {q_rot.device}")
-    return _launch(*args, n_local=n_local)
+    return _launch(*args, **kw)
 
 
 def _launch(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
-            k_init_rot, v_init, k_init_raw, scalars, *, n_local):
-    global launches
+            k_init_rot, v_init, k_init_raw, scalars, *, n_local, k_scales,
+            v_scales):
     lib = _build.load("stream_attention")
     fn = lib.stc_stream_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 13 + [
+        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 14 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     B, Hq, T, D = q_rot.shape
     Hkv, Nb, S = block_k.shape[1], block_k.shape[2], block_k.shape[3]
     Lc, n_init = cos_cover.shape[1], k_init_rot.shape[2]
+    kind = page_kind(block_k)
     row_blocks = -(-(Hq // Hkv) * T // 64) * Hkv * B
     n_split = _build.n_splits(row_blocks, -(-Lc // 64), q_rot.device)
     rows = B * Hq * T
@@ -117,25 +178,31 @@ def _launch(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
     out = torch.empty_like(q_rot)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(q_rot.data_ptr(), q_one.data_ptr(), block_k.data_ptr(),
-            block_v.data_ptr(), cos_cover.data_ptr(), sin_cover.data_ptr(),
+            block_v.data_ptr(),
+            None if k_scales is None else k_scales.data_ptr(),
+            None if v_scales is None else v_scales.data_ptr(),
+            cos_cover.data_ptr(), sin_cover.data_ptr(),
             k_init_rot.data_ptr(), v_init.data_ptr(), k_init_raw.data_ptr(),
             scalars.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
             out.data_ptr(), B, Hq, Hkv, T, D, Nb, S, Lc, pages_per_tile(S),
-            n_init, n_local, n_split, _DTYPES[q_rot.dtype], stream)
+            n_init, n_local, n_split, _DTYPES[q_rot.dtype],
+            _PAGE_CODES[kind], stream)
     _build.check_launch(rc, "stream_attention")
-    launches += 1
+    launches[kind] += 1
     return out
 
 
 def stream_attention_ref(q_rot, q_one, block_k, block_v, cos_cover,
                          sin_cover, k_init_rot, v_init, k_init_raw, scalars,
-                         *, n_local: int) -> torch.Tensor:
+                         *, n_local: int, k_scales=None,
+                         v_scales=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: one full softmax over
     [init-local | page cover | init-far] (the three-group joint softmax of
     the JAX engine's _stream_attention), with the kernel's rounding points:
-    rotated keys in the input dtype, probabilities rounded to the value
-    dtype before P @ V, output normalised by the unrounded sum (0 where no
-    key is visible)."""
+    quantized pages dequantized in f32, rotated keys (and dequantized
+    values) in the input dtype, probabilities rounded to the value dtype
+    before P @ V, output normalised by the unrounded sum (0 where no key is
+    visible)."""
     B, Hq, T, D = q_rot.shape
     Hkv, Nb, S = block_k.shape[1], block_k.shape[2], block_k.shape[3]
     G = Hq // Hkv
@@ -148,11 +215,17 @@ def stream_attention_ref(q_rot, q_one, block_k, block_v, cos_cover,
     page = (start_tile * pages_per_tile(S))[:, None] + c // S   # (B, Lc)
     in_store = page < Nb
     bidx = torch.arange(B, device=dev)[:, None]
-    k_win = block_k[bidx, :, page.clamp(max=Nb - 1), c % S]     # (B,Lc,H,D)
-    v_win = block_v[bidx, :, page.clamp(max=Nb - 1), c % S]
+    pg = page.clamp(max=Nb - 1)
+    k_win = block_k[bidx, :, pg, c % S]                   # (B, Lc, H, D|Dp)
+    v_win = block_v[bidx, :, pg, c % S]
+    if k_scales is None:
+        k_win, v_win = k_win.to(f32), v_win.to(f32)
+    else:
+        k_win = dequant_rows(k_win, k_scales[bidx, :, pg])
+        v_win = dequant_rows(v_win, v_scales[bidx, :, pg])
     k_win = rotate(k_win.transpose(1, 2), cos_cover[:, None],
-                   sin_cover[:, None])                          # (B,H,Lc,D)
-    v_win = v_win.transpose(1, 2)
+                   sin_cover[:, None]).to(dt)                   # (B,H,Lc,D)
+    v_win = v_win.transpose(1, 2).to(dt)
     abs_page = page + offset[:, None]
     pos = n_init + abs_page * S + c % S                         # (B, Lc)
     key_ok = in_store & (abs_page < total[:, None])

@@ -76,7 +76,7 @@ def test_port_configs_match_jax_derived_sizes():
     assert tcfg.MODEL_SPECS["llava_ov"].tokens_per_frame == 196
 
 
-@pytest.mark.parametrize("kw", [dict(kv_quant="int8"),
+@pytest.mark.parametrize("kw", [dict(window_kv_compression="select_top_half"),
                                 dict(retrieval_scorer="aks"),
                                 dict(spec_decode_draft=2)])
 def test_unported_settings_raise(kw):

@@ -36,8 +36,9 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _stream_operands(cfg, n_appends, T, seed):
-    """The kernel operands of the next append after n_appends appends."""
+def _stream_operands(cfg, n_appends, T, seed, scales=None):
+    """The kernel operands of the next append after n_appends appends; with
+    kv_quant, `scales` (a dict) receives the page scales."""
     gen = torch.Generator().manual_seed(seed)
 
     def r(*s):
@@ -54,6 +55,8 @@ def _stream_operands(cfg, n_appends, T, seed):
                              r(1, HKV, T, D), cfg, is_init=False)
     q = r(1, HQ, T, D)
     scalars = rc.scalars.clone()
+    if scales is not None:
+        scales.update(k_scales=kv.block_k_scale, v_scales=kv.block_v_scale)
     return [q, q.flip(2), kv.block_k, kv.block_v, rc.cos_cover,
             rc.sin_cover, kv.init_k, kv.init_v, kv.init_k, scalars]
 
@@ -68,10 +71,53 @@ def test_stream_attention_kernel_on_card(cuda_device, exc, T, n):
     for dt in (torch.float32, torch.bfloat16):
         a = [x.to(cuda_device, dt if i not in (4, 5, 9) else x.dtype)
              .contiguous() for i, x in enumerate(ops)]
-        before = sa.launches
+        before = sa.launches["float"]
         got = sa.stream_attention(*a, **kw)
-        assert sa.launches == before + 1
+        assert sa.launches["float"] == before + 1
         assert_agrees(got, sa.stream_attention_ref(*a, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("exc,T,n", [(8, 8, 3), (8, 8, 12), (32, 32, 2)])
+def test_quantized_stream_attention_kernel_on_card(cuda_device, quant, exc,
+                                                   T, n):
+    """Int8 and packed-int4 pages: the kernel against its plain version,
+    with float32 and bfloat16 queries."""
+    cfg = ReKVConfig(**dict(BASE, exc_block_size=exc, kv_quant=quant))
+    scales = {}
+    ops = _stream_operands(cfg, n, T, seed=n + exc, scales=scales)
+    kw = dict(n_local=cfg.n_local,
+              **{k: v.to(cuda_device) for k, v in scales.items()})
+    for dt in (torch.float32, torch.bfloat16):
+        a = [x.to(cuda_device, dt if i not in (2, 3, 4, 5, 9) else x.dtype)
+             .contiguous() for i, x in enumerate(ops)]
+        before = sa.launches[quant]
+        got = sa.stream_attention(*a, **kw)
+        assert sa.launches[quant] == before + 1
+        assert_agrees(got, sa.stream_attention_ref(*a, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,C,n_local,cursors", [
+    (1, 128, 96, [40, 128]), (8, 256, 200, [30, 250]),
+    (24, 640, 512, [100, 640])])
+def test_decode_score_kernel_on_card(cuda_device, T, C, n_local, cursors):
+    gen = torch.Generator(device=cuda_device).manual_seed(C + 1)
+    for cur in cursors:
+        q, k = (torch.randn(s, generator=gen, device=cuda_device)
+                for s in ((2, 4, T, 16), (2, 2, C, 16)))
+        cursor = torch.tensor([cur, max(1, cur - 13)], dtype=torch.int32,
+                              device=cuda_device)
+        start = (cursor - T).clamp(min=0).to(torch.int32)
+        _, m = da.decode_attention(q, k, k, start, cursor, n_local=n_local,
+                                   return_m=True)
+        before = (da.launches, da.score_launches)
+        got = da.decode_score(q, k, m, start, cursor, n_local=n_local)
+        assert (da.launches, da.score_launches) == (before[0],
+                                                    before[1] + 1)
+        assert_agrees(got, da.decode_score_ref(q, k, m, start, cursor,
+                                               n_local=n_local))
 
 
 @pytest.mark.cuda
@@ -120,7 +166,7 @@ def test_tiny_session_on_card_goes_through_the_kernels(cuda_device):
         torch.backends.cuda.matmul.allow_tf32 = False
         sess = lo.build_session(model, scfg, state_dtype=torch.float32,
                                 device=dev)
-        s0, d0 = sa.launches, da.launches
+        s0, d0 = sa.launches["float"], da.launches
         sess.encode_init_prompt([1, 2, 3, 4])
         for f in range(4):
             sess.encode_video(frames[f:f + 1])
@@ -129,8 +175,75 @@ def test_tiny_session_on_card_goes_through_the_kernels(cuda_device):
         sessions[str(dev)] = sess
         L = cfg.text.num_layers
         if dev != "cpu":
-            assert sa.launches - s0 == 4 * L
+            assert sa.launches["float"] - s0 == 4 * L
             assert da.launches - d0 == (2 + len(out)) * L
     torch.testing.assert_close(sessions["cuda:0"].kvs.block_k.cpu(),
                                sessions["cpu"].kvs.block_k,
                                rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_tiny_int8_session_on_card_goes_through_the_quantized_kernel(
+        cuda_device):
+    """A tiny pixel session on an int8 page store: every video append
+    launches the int8 stream_attention once per layer (no other page
+    kind), and the scales match the same session on the CPU."""
+    from stc_tpu_torch.models import llava_onevision as lo
+    cfg = lo.LlavaOVConfig.tiny()
+    scfg = SessionConfig(
+        rekv=ReKVConfig(n_init=4, n_local=128, block_size=3,
+                        exc_block_size=3, topk=4, max_blocks=64,
+                        max_prompt_tokens=32, max_new_tokens=8,
+                        kv_quant="int8"),
+        cacher=CacherConfig(update_token_ratio=0.5),
+        pruner=PrunerConfig(token_per_frame=3))
+    frames = np.random.default_rng(1).integers(0, 256, (4, 56, 56, 3),
+                                               dtype=np.uint8)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    scales = {}
+    for dev in ("cpu", cuda_device):
+        gen = torch.Generator().manual_seed(0)
+        model = lo.LlavaOV(cfg, dtype=torch.float32,
+                           device="cpu").init_random_params(gen)
+        sess = lo.build_session(model, scfg, state_dtype=torch.float32,
+                                device=dev)
+        assert sess.kvs.block_k.dtype == torch.int8
+        before = dict(sa.launches)
+        sess.encode_init_prompt([1, 2, 3, 4])
+        for f in range(4):
+            sess.encode_video(frames[f:f + 1])
+        out = sess.question_answering([5, 6], [5, 6, 7], [0],
+                                      max_new_tokens=4)
+        assert 1 <= len(out) <= 4
+        ran = {k: sa.launches[k] - before[k] for k in before}
+        want = 0 if dev == "cpu" else 4 * cfg.text.num_layers
+        assert ran == {"float": 0, "int8": want, "int4": 0}
+        scales[str(dev)] = sess.kvs.block_k_scale.cpu()
+    torch.testing.assert_close(scales["cuda:0"], scales["cpu"], rtol=1e-3,
+                               atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_decode_attend_past_the_window_on_card(cuda_device):
+    """decode_cap > n_local: decode_attend runs the plain two-stage
+    attention on the card (no kernel computes the init stage) and matches
+    the CPU."""
+    cfg = ReKVConfig(**dict(BASE, n_local=64))
+    assert cfg.decode_cap > cfg.n_local
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        g = torch.Generator().manual_seed(5)
+        dkv = engine.init_decode_kv(cfg, 1, HKV, D, torch.float32,
+                                    device=dev)
+        k, v = (torch.randn((1, HKV, 90, D), generator=g).to(dev)
+                for _ in range(2))
+        dkv = engine.decode_write(dkv, k, v, 90, at_start=True,
+                                  raw_rows=cfg.n_init)
+        q = torch.randn((1, HQ, 6, D), generator=g).to(dev)
+        slots = torch.arange(84, 90, dtype=torch.int32,
+                             device=dev)[None]
+        before = (da.launches, da.score_launches)
+        outs[str(dev)] = engine.decode_attend(q, slots, dkv, cfg).cpu()
+        assert (da.launches, da.score_launches) == before
+    torch.testing.assert_close(outs["cuda:0"], outs["cpu"], rtol=1e-4,
+                               atol=1e-4)

@@ -1,9 +1,9 @@
 """stc_tpu_torch.ops against stc_tpu.ops on the CPU: RoPE, the multi-stage
-attention, and the plain versions of the two CUDA kernels
-(stream_attention_ref, decode_attention_ref) against the Pallas kernels in
-interpret mode and against the JAX engine's plain math.  The CUDA kernels
-themselves run only on a card: tests/test_torch_cuda.py and
-chip_smoke.py."""
+attention, and the plain versions of the CUDA kernels
+(stream_attention_ref on float, int8 and int4 pages, decode_attention_ref,
+decode_score_ref) against the Pallas kernels in interpret mode and against
+the JAX engine's plain math.  The CUDA kernels themselves run only on a
+card: tests/test_torch_cuda.py and chip_smoke.py."""
 
 import numpy as np
 import jax
@@ -16,6 +16,8 @@ from stc_tpu.kvcache import engine as je
 from stc_tpu.ops import attention as jatt
 from stc_tpu.ops import rope as jrope
 from stc_tpu.ops.decode_attention import decode_attention as j_decode
+from stc_tpu.ops.decode_attention import decode_score as j_score
+from stc_tpu.ops.decode_attention import decode_score_jnp as j_score_jnp
 from stc_tpu.ops.stream_attention import stream_attention as j_stream
 from stc_tpu_torch.kernels.agreement import disagreement
 from stc_tpu_torch.kvcache import engine as te
@@ -84,21 +86,27 @@ def test_multi_stage_attention_matches_jax():
 # and against the JAX engine's three-group softmax
 # ---------------------------------------------------------------------------
 
-def _jax_stream_inputs(cfg, n_appends, T, seed):
+def _jax_stream_inputs(cfg, n_appends, T, seed, vary=False):
     """Drive the JAX engine to a phase, then build the exact operands its
-    Pallas kernel gets for the next append (engine.py:456-480)."""
+    Pallas kernel gets for the next append (engine.py:456-480); with
+    kv_quant the operands end with the page scales.  vary: keys and values
+    of append i get a gain of 4 ** (i % 3 - 1), so the pages' magnitudes
+    (and scales) differ from page to page."""
     rng = np.random.default_rng(seed)
 
-    def r(*s):
-        return jnp.asarray(rng.normal(size=s).astype(np.float32))
+    def r(*s, gain=1.0):
+        return jnp.asarray(gain * rng.normal(size=s).astype(np.float32))
 
     kv = je.init_stream_kv(cfg, 1, HKV, D, dtype=jnp.float32)
     _, kv = je.append_stream(kv, r(1, HQ, 4, D), r(1, HKV, 4, D),
                              r(1, HKV, 4, D), cfg, is_init=True)
-    for _ in range(n_appends):
-        _, kv = je.append_stream(kv, r(1, HQ, T, D), r(1, HKV, T, D),
-                                 r(1, HKV, T, D), cfg, is_init=False)
-    q, k, v = r(1, HQ, T, D), r(1, HKV, T, D), r(1, HKV, T, D)
+    gains = [4.0 ** (i % 3 - 1) if vary else 1.0
+             for i in range(n_appends + 1)]
+    for g in gains[:-1]:
+        _, kv = je.append_stream(kv, r(1, HQ, T, D), r(1, HKV, T, D, gain=g),
+                                 r(1, HKV, T, D, gain=g), cfg, is_init=False)
+    q = r(1, HQ, T, D)
+    k, v = r(1, HKV, T, D, gain=gains[-1]), r(1, HKV, T, D, gain=gains[-1])
     o_jnp, kv_new = je.append_stream(kv, q, k, v, cfg, is_init=False,
                                      backend="jnp")
     rc = je.make_rope_cache(kv.length, kv.num_blocks, T, cfg, D, 10000.0,
@@ -114,6 +122,9 @@ def _jax_stream_inputs(cfg, n_appends, T, seed):
         scalars=jnp.stack([kv.length, rc.start_tile, kv_new.num_blocks,
                            rc.init_active.astype(jnp.int32),
                            kv.page_offset], axis=1).astype(jnp.int32))
+    if cfg.kv_quant != "none":
+        ops.update(k_scales=kv_new.block_k_scale,
+                   v_scales=kv_new.block_v_scale)
     o_pl = j_stream(*ops.values(), T=T, n_local=cfg.n_local,
                     n_init=cfg.n_init, interpret=True)
     return ops, np.asarray(o_jnp), np.asarray(o_pl), kv
@@ -129,7 +140,7 @@ def test_stream_attention_ref_matches_pallas_and_engine(exc, T, n):
     cfg = ReKVConfig(**dict(BASE, exc_block_size=exc))
     ops, o_jnp, o_pl, kv = _jax_stream_inputs(cfg, n, T, seed=n + exc)
     args = [torch.from_numpy(np.array(a)) for a in ops.values()]
-    before = tsa.launches
+    before = dict(tsa.launches)
     got = tsa.stream_attention(*args, n_local=cfg.n_local)
     assert tsa.launches == before  # the CPU path launches nothing
     np.testing.assert_allclose(got.numpy(), o_jnp, **F32_TOL)
@@ -145,6 +156,31 @@ def test_stream_attention_ref_matches_pallas_and_engine(exc, T, n):
                                np.asarray(ops["cos_cover"]), **F32_TOL)
 
 
+def _port_stream_args(ops):
+    """The port's positional arguments and scale keywords of `ops`."""
+    t = {k: torch.from_numpy(np.array(a)) for k, a in ops.items()}
+    kw = {k: t.pop(k) for k in ("k_scales", "v_scales") if k in t}
+    return list(t.values()), kw
+
+
+@pytest.mark.parametrize("quant", ["int8", "int4"])
+@pytest.mark.parametrize("exc,T,n", STREAM_PHASES)
+def test_quantized_stream_attention_ref_matches_pallas_and_engine(
+        quant, exc, T, n):
+    """Int8 and packed-int4 pages with their scales: the plain version
+    against the Pallas kernel's in-VMEM dequantization (interpret mode) and
+    against the JAX engine's jnp int path."""
+    cfg = ReKVConfig(**dict(BASE, exc_block_size=exc, kv_quant=quant))
+    ops, o_jnp, o_pl, _ = _jax_stream_inputs(cfg, n, T, seed=n + exc)
+    args, scales = _port_stream_args(ops)
+    assert args[2].dtype == (torch.int8 if quant == "int8" else torch.uint8)
+    before = dict(tsa.launches)
+    got = tsa.stream_attention(*args, n_local=cfg.n_local, **scales)
+    assert tsa.launches == before
+    np.testing.assert_allclose(got.numpy(), o_jnp, **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), o_pl, **KERNEL_TOL)
+
+
 def test_stream_attention_wrapper_rejects_what_the_kernel_does_not_take():
     cfg = ReKVConfig(**BASE)
     ops, _, _, _ = _jax_stream_inputs(cfg, 2, 8, seed=0)
@@ -155,9 +191,22 @@ def test_stream_attention_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="whole number"):
         tsa.stream_attention(*half, **kw)
     quant = list(args)
-    quant[2] = args[2].to(torch.int8)
-    with pytest.raises(NotImplementedError, match="quantized"):
+    quant[2], quant[3] = args[2].to(torch.int8), args[3].to(torch.int8)
+    with pytest.raises(ValueError, match="scales"):  # int8 pages, no scales
         tsa.stream_attention(*quant, **kw)
+    B, H, Nb, _, Dh = args[2].shape
+    sc = torch.ones((B, H, Nb, Dh))
+    with pytest.raises(ValueError, match="scales"):  # one of the two missing
+        tsa.stream_attention(*quant, k_scales=sc, **kw)
+    with pytest.raises(ValueError, match="scales"):  # wrong shape
+        tsa.stream_attention(*quant, k_scales=sc, v_scales=sc[:, :, :-1],
+                             **kw)
+    with pytest.raises(ValueError, match="no scales"):  # float pages
+        tsa.stream_attention(*args, k_scales=sc, v_scales=sc, **kw)
+    packed = list(quant)
+    packed[2], packed[3] = (a.to(torch.uint8) for a in quant[2:4])
+    with pytest.raises(ValueError, match="last dimension"):  # not D/2 wide
+        tsa.stream_attention(*packed, k_scales=sc, v_scales=sc, **kw)
     strided = list(args)
     strided[0] = args[0].transpose(2, 3).contiguous().transpose(2, 3)
     with pytest.raises(ValueError, match="contiguous"):
@@ -207,6 +256,49 @@ def test_decode_attention_ref_matches_pallas(T, C, n_local, cursors):
         np.testing.assert_allclose(o.numpy(), np.asarray(o_jnp), **F32_TOL)
         np.testing.assert_allclose(o.numpy(), np.asarray(o_pl), **KERNEL_TOL)
         np.testing.assert_allclose(m.numpy(), np.asarray(m_pl), **KERNEL_TOL)
+
+
+@pytest.mark.parametrize("T,C,n_local,cursors", DECODE_CASES)
+def test_decode_score_ref_matches_pallas(T, C, n_local, cursors):
+    """decode_score_ref against the Pallas _score_kernel (interpret) and
+    decode_score_jnp, with the row maxima of the Pallas decode_attention."""
+    B, Hq, Hkv, Dh = 2, 4, 2, 16
+    rng = np.random.default_rng(C + 1)
+    for cur in cursors:
+        cursor = np.asarray([cur, max(1, cur - 13)], np.int32)
+        start = np.maximum(cursor - T, 0).astype(np.int32)
+        q = rng.normal(size=(B, Hq, T, Dh)).astype(np.float32)
+        k = rng.normal(size=(B, Hkv, C, Dh)).astype(np.float32)
+        jargs = [jnp.asarray(x) for x in (q, k, k, start, cursor)]
+        _, m = j_decode(*jargs, n_local=n_local, interpret=True,
+                        return_m=True)
+        sargs = (jargs[0], jargs[1], m, jargs[3], jargs[4])
+        s_pl = j_score(*sargs, n_local=n_local, interpret=True)
+        s_jnp = j_score_jnp(*sargs, n_local=n_local)
+        before = (tda.launches, tda.score_launches)
+        got = tda.decode_score(tt(q), tt(k), tt(np.asarray(m)),
+                               torch.from_numpy(start),
+                               torch.from_numpy(cursor), n_local=n_local)
+        assert (tda.launches, tda.score_launches) == before
+        assert got.shape == (B, Hq, C) and got.dtype == torch.float32
+        np.testing.assert_allclose(got.numpy(), np.asarray(s_jnp),
+                                   **F32_TOL)
+        np.testing.assert_allclose(got.numpy(), np.asarray(s_pl),
+                                   **KERNEL_TOL)
+        assert not got.numpy()[1, :, cursor[1]:].any()  # unwritten slots
+
+
+def test_decode_score_wrapper_checks_operands():
+    q = torch.zeros((1, 4, 2, 16))
+    k = torch.zeros((1, 2, 32, 16))
+    i32 = dict(dtype=torch.int32)
+    with pytest.raises(ValueError, match="float32"):
+        tda.decode_score(q, k, torch.zeros((1, 4, 3)), torch.zeros(1, **i32),
+                         torch.ones(1, **i32), n_local=8)
+    with pytest.raises(ValueError, match="one dtype"):
+        tda.decode_score(q, k.bfloat16(), torch.zeros((1, 4, 2)),
+                         torch.zeros(1, **i32), torch.ones(1, **i32),
+                         n_local=8)
 
 
 def test_decode_attention_wrapper_checks_operands():
@@ -267,4 +359,55 @@ def test_agreement_limits_reject_decode_faults(fault):
     else:
         bad = tda.decode_attention(*args, torch.from_numpy(cursor),
                                    n_local=n_local + 1)
+    assert not disagreement(bad, ref)["agrees"]
+
+
+def _nibbles_swapped(p):
+    return ((p & 0x0F) << 4) | (p >> 4)
+
+
+QUANT_FAULTS = {  # page kind -> a planted fault of the page operands
+    "int8: the scale rows of the neighbouring page": (
+        "int8", lambda a, kw: (a, {k: v.roll(1, dims=2)
+                                   for k, v in kw.items()})),
+    "int4: the nibble planes swapped": (
+        "int4", lambda a, kw: (a[:2] + [_nibbles_swapped(x) for x in a[2:4]]
+                               + a[4:], kw)),
+}
+
+
+@pytest.mark.parametrize("fault", sorted(QUANT_FAULTS))
+def test_agreement_limits_reject_quantized_page_faults(fault):
+    """Pages whose magnitudes differ from page to page, past the init-fill
+    trigger: the Pallas kernel's output agrees with the plain version, the
+    plain version of the faulty operands does not."""
+    quant, plant = QUANT_FAULTS[fault]
+    cfg = ReKVConfig(**dict(BASE, kv_quant=quant))
+    ops, _, o_pl, _ = _jax_stream_inputs(cfg, 12, 8, seed=21, vary=True)
+    args, scales = _port_stream_args(ops)
+    kw = dict(n_local=cfg.n_local)
+    ref = tsa.stream_attention(*args, **kw, **scales)
+    assert disagreement(torch.tensor(np.asarray(o_pl)), ref)["agrees"]
+    bad_args, bad_scales = plant(args, scales)
+    bad = tsa.stream_attention(*bad_args, **kw, **bad_scales)
+    assert not disagreement(bad, ref)["agrees"]
+
+
+def test_agreement_limits_reject_decode_score_window_fault():
+    """decode_score with a window one slot longer than the true one."""
+    T, C, n_local = 8, 256, 200
+    rng = np.random.default_rng(4)
+    q = rng.normal(size=(1, 4, T, 16)).astype(np.float32)
+    k = rng.normal(size=(1, 2, C, 16)).astype(np.float32)
+    cursor = np.asarray([250], np.int32)
+    start = cursor - T
+    jargs = [jnp.asarray(x) for x in (q, k, k, start, cursor)]
+    _, m = j_decode(*jargs, n_local=n_local, interpret=True, return_m=True)
+    s_pl = j_score(jargs[0], jargs[1], m, jargs[3], jargs[4],
+                   n_local=n_local, interpret=True)
+    args = (tt(q), tt(k), tt(np.asarray(m)), torch.from_numpy(start),
+            torch.from_numpy(cursor))
+    ref = tda.decode_score(*args, n_local=n_local)
+    assert disagreement(torch.tensor(np.asarray(s_pl)), ref)["agrees"]
+    bad = tda.decode_score(*args, n_local=n_local + 1)
     assert not disagreement(bad, ref)["agrees"]

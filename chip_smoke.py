@@ -6,10 +6,15 @@ Needs one CUDA card (an H100: the kernels are built for sm_90a) and the CUDA
 toolkit; builds the kernels from stc_tpu_torch/csrc at first use.  Phases,
 each of which makes the script exit non-zero when it fails:
 
-  1. the card (nvidia-smi name and power limit) and the kernel build;
+  1. the card (nvidia-smi name and power limit) and the kernel build,
+     with each kernel's registers and spills from ptxas; the bf16
+     (tensor-core) instances of stream_attention and decode_attention
+     must spill nothing and hold HMMA instructions in their SASS
+     (cuobjdump -sass);
   2. every hand-written kernel, through its public wrapper, against its
      plain PyTorch version on the card at main-path shapes, with kernel,
-     plain and library (SDPA) times, held to the scaled limits of
+     plain and library (SDPA) device times (calls issued behind a sleep
+     kernel) and the wrapper's host time a call, held to the scaled limits of
      stc_tpu_torch/kernels/agreement.py: stream_attention on bf16, int8
      and int4 pages (the quantized ones also timed against the bf16-page
      kernel on the same cover), decode_attention (at 0.5b and 7B heads)
@@ -39,7 +44,7 @@ each of which makes the script exit non-zero when it fails:
 
 Prints JSON lines; the line before the last holds one entry per kernel
 (route, source, the TPU kernel it replaces, launches on its path, error,
-kernel / plain / bound / library times), the last line is
+kernel / plain / bound / library times, design), the last line is
 {"ok": true, "device": {...}}.  A fuller record goes to
 build/chip_smoke.json.  TF32 is off for matmuls and convolutions, so
 every float32 product runs in full float32.
@@ -50,6 +55,8 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -59,6 +66,9 @@ import torch
 
 H100_BYTES_PER_S = 3.35e12   # HBM3, H100 SXM data sheet
 H100_BF16_FLOPS = 989e12     # dense bf16 tensor-core peak
+SLEEP_CYCLES = 100_000_000   # ~50 ms at the H100's 1.98 GHz SM clock
+
+DESIGN = "mma.sync bf16 / fma f32"
 
 RECORD: dict = {"phases": {}}
 
@@ -77,17 +87,34 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warm: int = 2) -> float:
+    """Device ms per call of fn: reps calls issued behind a sleep kernel, so
+    the device runs them back to back however long the host takes to issue
+    them (checked: the issuing ends before the sleep does)."""
+    return cuda_times(fn, reps, warm)[0]
+
+
+def cuda_times(fn, reps: int, warm: int = 2) -> tuple:
+    """(device ms, host ms) per call of fn, as cuda_ms measures them; the
+    host ms is the time to issue one call.  Where the issuing outlasts the
+    sleep, the sleep is made four times longer, once."""
     for _ in range(warm):
         fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
+    for cycles in (SLEEP_CYCLES, 4 * SLEEP_CYCLES):
+        torch.cuda.synchronize()
+        e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        e[0].record()
+        torch.cuda._sleep(cycles)
+        e[1].record()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        e[2].record()
+        torch.cuda.synchronize()
+        if host_ms < e[0].elapsed_time(e[1]):
+            return e[1].elapsed_time(e[2]) / reps, host_ms / reps
+    raise RuntimeError(f"issuing {reps} calls took {host_ms} ms, longer "
+                       f"than the sleep kernel before them")
 
 
 def bound(bytes_moved: float, flops: float, peak_flops: float):
@@ -95,6 +122,69 @@ def bound(bytes_moved: float, flops: float, peak_flops: float):
     t_ops = flops / peak_flops * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 1: what the compiler made of the kernels
+# ---------------------------------------------------------------------------
+
+def ptxas_functions(log: str) -> dict:
+    """{kernel function: {registers, spill_stores, spill_loads}} from an
+    nvcc -Xptxas -v log."""
+    out, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn = m.group(1)
+            out[fn] = {}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and fn:
+            out[fn].update(spill_stores=int(m.group(1)),
+                           spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and fn:
+            out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def sass_hmma(path) -> dict:
+    """{kernel function: number of HMMA (tensor-core) instructions} in the
+    SASS of a built library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    counts, fn = {}, None
+    for ln in out.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in ln:
+            counts[fn] += 1
+    return counts
+
+
+def tensor_core_check(paths: dict, logs: dict) -> dict:
+    """Every bf16 instance (the *_attention_tc kernels) of stream_attention
+    and decode_attention: HMMA in its SASS and no spill; the float32 (FMA)
+    instances and stream_attention's bf16 pre-pass (stream_cover, no
+    products) are listed beside them."""
+    rows = {}
+    for name in ("stream_attention", "decode_attention"):
+        hmma, regs = sass_hmma(paths[name]), ptxas_functions(logs[name])
+        for fn, r in regs.items():
+            if "combine" in fn:
+                continue
+            rows[fn] = dict(r, hmma=hmma.get(fn),
+                            tensor_cores="attention_tc" in fn)
+    bad = [fn for fn, r in rows.items() if r["tensor_cores"] and (
+        not r["hmma"] or r.get("spill_stores") or r.get("spill_loads"))]
+    if not any(r["tensor_cores"] for r in rows.values()) or bad:
+        raise RuntimeError(f"tensor-core instances without HMMA or with "
+                           f"spills: {bad} {rows}")
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -186,15 +276,20 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
     # what this design reads besides: f32 cos and sin rows per live key
     bt_ms, bt_by = bound(need + 2 * live * D * 4, flops, H100_BF16_FLOPS)
 
-    ms = cuda_ms(lambda: sa.stream_attention(*args, **kw), 20)
+    ms, host_ms = cuda_times(lambda: sa.stream_attention(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: sa.stream_attention_ref(*args, **kw), 3, 1)
+    # this design's bf16 scratch of rotated, dequantized cover keys and
+    # values: written by the pre-pass and read back at least once
+    Lc = rc.cos_cover.shape[1]
+    scratch = 2 * Hkv * Lc * D * 2
     rec = dict(case=name, kernel="stream_attention" + (
         f"_{quant}" if quant else ""), Hq=Hq, Hkv=Hkv, D=D, T=T, pages=pages,
         window_pages=engine.n_window_pages(cfg), init_active=init_active,
-        **agree, kernel_ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, bound_ms_with_tables=bt_ms,
+        **agree, kernel_ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, bound_ms_with_tables=bt_ms,
         bound_by_with_tables=bt_by, live_keys=live,
-        visible_pairs=pairs)
+        visible_pairs=pairs, cover_scratch_mb=scratch / 1e6,
+        cover_scratch_hbm_ms=2 * scratch / H100_BYTES_PER_S * 1e3)
     if quant is None:
         lib = sdpa_stream(args, n_local, Nb, S, Lv)
         rec.update(library_ms=cuda_ms(lib, 10),
@@ -294,12 +389,13 @@ def decode_case(name, T, start, cursor, n_local, dev, gen, Hq=14, Hkv=2,
             q, k, v, attn_mask=mask[None, None], enable_gqa=True)
 
     lib_err = held(name, lib(), want[0] if return_m else want)["max_rel_err"]
-    ms = cuda_ms(lambda: da.decode_attention(*args, **kw), 20)
+    ms, host_ms = cuda_times(lambda: da.decode_attention(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: da.decode_attention_ref(*args, **kw), 3, 1)
     lib_ms = cuda_ms(lib, 10)
     rec = dict(case=name, kernel="decode_attention", T=T, start=start,
                cursor=cursor, n_local=n_local, C=C, return_m=return_m,
-               **agree, kernel_ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+               **agree, kernel_ms=ms, host_ms=host_ms, plain_ms=plain_ms,
+               library_ms=lib_ms,
                library_max_rel_err=lib_err, bound_ms=b_ms, bound_by=b_by,
                live_slots=live, visible_pairs=pairs)
     return rec, args, kw, want
@@ -340,10 +436,11 @@ def score_case(name, T, start, cursor, n_local, dev, gen, Hq=14, Hkv=2,
                    + Hq * C * 4)
     flops = 2 * Hq * D * pairs
     b_ms, b_by = bound(bytes_moved, flops, H100_BF16_FLOPS)
-    ms = cuda_ms(lambda: da.decode_score(*args, **kw), 20)
+    ms, host_ms = cuda_times(lambda: da.decode_score(*args, **kw), 20)
     plain_ms = cuda_ms(lambda: da.decode_score_ref(*args, **kw), 3, 1)
     rec = dict(case=name, kernel="decode_score", T=T, start=start,
                cursor=cursor, n_local=n_local, C=C, **agree, kernel_ms=ms,
+               host_ms=host_ms,
                plain_ms=plain_ms, library_ms=None, bound_ms=b_ms,
                bound_by=b_by, live_slots=live, visible_pairs=pairs)
     return rec, args, kw, want
@@ -695,9 +792,6 @@ def segments(fn, targets) -> dict:
     return out
 
 
-SLEEP_CYCLES = 100_000_000   # ~50 ms at the H100's 1.98 GHz SM clock
-
-
 def probe(fn, starts, end, nth=1, sleep=False) -> dict:
     """Run fn once and time one stretch of it: from the nth call of any
     (obj, attr) in starts to the return of end's nth call.  The span
@@ -792,15 +886,17 @@ def main() -> int:
 
     # ---- phase 1: build ----
     t0 = time.perf_counter()
-    _build.build_all()
+    paths = _build.build_all()
     build_s = time.perf_counter() - t0
     regs = {n: [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
             for n, log in _build.build_log.items()}
+    tcore = tensor_core_check(paths, _build.build_log)
     emit({"phase": "build", "card": card, "build_s": build_s,
-          "tf32": False, "seconds": build_s})
+          "tf32": False, "instances": tcore,
+          "seconds": time.perf_counter() - t0})
     RECORD["phases"]["build"] = {"build_s": build_s, "ptxas": regs,
-                                 "card": card}
+                                 "instances": tcore, "card": card}
 
     # ---- phase 2: kernels vs plain, then planted faults ----
     t_phase = time.perf_counter()
@@ -812,6 +908,8 @@ def main() -> int:
                     gen),
         stream_case("stream 8-page append", 14, 2, 64, 480, 200, dev, gen),
         stream_case("stream 7B heads", 28, 4, 128, 60, 150, dev, gen),
+        stream_case("stream 8-page append 7B heads (28/4/128), 264 pages",
+                    28, 4, 128, 480, 264, dev, gen),
         stream_case("stream int8 300 pages init_active", 14, 2, 64, 60, 300,
                     dev, gen, quant="int8"),
         stream_case("stream int4 300 pages init_active", 14, 2, 64, 60, 300,
@@ -1049,7 +1147,13 @@ def main() -> int:
     RECORD["phases"]["session_7b_int4"] = p7
 
     # ---- the kernels line, then the device line ----
-    def entry(name, source, replaces, main_case, n_launches, path):
+    def times(c):
+        return {"case": c["case"], "ms": c["kernel_ms"],
+                "host_ms": c["host_ms"], "library_ms": c["library_ms"],
+                "bound_ms": c["bound_ms"]}
+
+    def entry(name, source, replaces, main_case, n_launches, path,
+              design=DESIGN, also=()):
         rows = [c for c in cases if c["kernel"] == name]
         m = next(c for c in rows if c["case"] == main_case)
         e = {"name": name, "route": "cuda", "source": source,
@@ -1058,11 +1162,15 @@ def main() -> int:
              "max_abs_err": max(c["max_abs_err"] for c in rows),
              "max_rel_err": max(c["max_rel_err"] for c in rows),
              "rms_rel_err": max(c["rms_rel_err"] for c in rows),
-             "ms": m["kernel_ms"], "plain_ms": m["plain_ms"],
+             "ms": m["kernel_ms"], "host_ms": m["host_ms"],
+             "plain_ms": m["plain_ms"],
              "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-             "library_ms": m["library_ms"], "case": main_case}
+             "library_ms": m["library_ms"], "case": main_case,
+             "design": design}
         if "bf16_pages_ms" in m:
             e["bf16_pages_ms"] = m["bf16_pages_ms"]
+        if also:
+            e["also"] = [times(c) for c in rows if c["case"] in also]
         return e
 
     sa_src, sa_tpu = ("stc_tpu_torch/csrc/stream_attention.cu",
@@ -1071,7 +1179,9 @@ def main() -> int:
     kernels = [
         entry("stream_attention", sa_src, sa_tpu,
               "stream 300 pages init_active",
-              launches["stream_attention"]["float"], "phase 3"),
+              launches["stream_attention"]["float"], "phase 3",
+              also=("stream 8-page append",
+                    "stream 8-page append 7B heads (28/4/128), 264 pages")),
         entry("stream_attention_int8", sa_src, sa_tpu,
               "stream int8 7B heads (28/4/128), 264 pages",
               p6["launches"]["stream_attention"]["int8"], "phase 6"),
@@ -1080,11 +1190,14 @@ def main() -> int:
               p7["launches"]["stream_attention"]["int4"], "phase 7"),
         entry("decode_attention", da_src,
               "stc_tpu/ops/decode_attention.py:143", "decode token T=1",
-              launches["decode_attention"], "phase 3"),
+              launches["decode_attention"], "phase 3",
+              also=("decode prefill T=256",
+                    "decode prefill T=256 7B heads (28/4/128)",
+                    "decode token T=1 7B heads (28/4/128)")),
         entry("decode_score", "stc_tpu_torch/csrc/decode_score.cu",
               "stc_tpu/ops/decode_attention.py:244",
               "decode_score prefill T=256 at slot 3854", 0,
-              "no session path calls it"),
+              "no session path calls it", design="fma f32 (both dtypes)"),
     ]
     RECORD["kernels"] = kernels
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),

@@ -1,5 +1,7 @@
-// Shared tile machinery of the hand-written attention kernels
-// (stream_attention.cu, decode_attention.cu, decode_score.cu).
+// Shared FP32-FMA tile machinery of the hand-written attention kernels:
+// the float32 instances of stream_attention.cu and decode_attention.cu, and
+// decode_score.cu for both dtypes (the bf16 instances of the first two run
+// the tensor-core tile of attn_tc.cuh).  combine_kernel serves them all.
 //
 // One CUDA block owns BR folded query rows (GQA: the G query heads of one
 // kv head times T tokens, row = g * T + t) and walks KV tiles of BC keys.
@@ -203,9 +205,11 @@ __device__ void write_partial(const TileSmem<D>& sm, const Acc<D>& acc,
   }
 }
 
-// Merge the splits of every output row; one warp per row.  m_out (may be
-// null) receives the row maxima of the scaled, masked scores (-inf for a
-// row with no visible key).
+// Merge the splits of every output row; one warp per row.  The lanes take
+// the splits' maxima, weights and sums 32 splits at a time, so a row with
+// many splits (a token step walks one key tile a split) waits on few
+// dependent loads.  m_out (may be null) receives the row maxima of the
+// scaled, masked scores (-inf for a row with no visible key).
 template <typename T, int D>
 __global__ void combine_kernel(const float* __restrict__ part_acc,
                                const float* __restrict__ part_ml,
@@ -214,29 +218,45 @@ __global__ void combine_kernel(const float* __restrict__ part_acc,
   const long long row =
       (long long)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  if (row >= n_rows) return;
+  if (row >= n_rows) return;  // uniform over the warp
+  auto ml = [&](int s) { return part_ml + ((long long)s * n_rows + row) * 2; };
   float m = -INFINITY;
-  for (int s = 0; s < n_split; ++s)
-    m = fmaxf(m, part_ml[((long long)s * n_rows + row) * 2]);
+  for (int s = lane; s < n_split; s += 32) m = fmaxf(m, ml(s)[0]);
+#pragma unroll
+  for (int k = 16; k > 0; k /= 2)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, k));
   constexpr int PER = (D + 31) / 32;
   float o[PER];
 #pragma unroll
   for (int j = 0; j < PER; ++j) o[j] = 0.f;
-  float l = 0.f;
+  float l = 0.f;  // this lane's splits
   if (m != -INFINITY) {
-    for (int s = 0; s < n_split; ++s) {
-      const float ms = part_ml[((long long)s * n_rows + row) * 2];
-      if (ms == -INFINITY) continue;
-      const float w = expf(ms - m);
-      l += w * part_ml[((long long)s * n_rows + row) * 2 + 1];
-      const float* src = part_acc + ((long long)s * n_rows + row) * D;
+    for (int s0 = 0; s0 < n_split; s0 += 32) {
+      // lane i: the weight of split s0 + i (0 for a split without keys)
+      float w = 0.f;
+      if (s0 + lane < n_split) {
+        const float ms = ml(s0 + lane)[0];
+        if (ms != -INFINITY) {
+          w = expf(ms - m);
+          l += w * ml(s0 + lane)[1];
+        }
+      }
+      const int n = min(32, n_split - s0);
+#pragma unroll 4
+      for (int i = 0; i < n; ++i) {
+        const float wi = __shfl_sync(0xffffffffu, w, i);
+        if (wi == 0.f) continue;  // uniform over the warp
+        const float* src = part_acc + ((long long)(s0 + i) * n_rows + row) * D;
 #pragma unroll
-      for (int j = 0; j < PER; ++j) {
-        const int d = lane + 32 * j;
-        if (d < D) o[j] = fmaf(w, src[d], o[j]);
+        for (int j = 0; j < PER; ++j) {
+          const int d = lane + 32 * j;
+          if (d < D) o[j] = fmaf(wi, src[d], o[j]);
+        }
       }
     }
   }
+#pragma unroll
+  for (int k = 16; k > 0; k /= 2) l += __shfl_xor_sync(0xffffffffu, l, k);
   const float inv = (l == 0.f) ? 1.f : 1.f / l;
 #pragma unroll
   for (int j = 0; j < PER; ++j) {

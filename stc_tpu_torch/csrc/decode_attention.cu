@@ -9,14 +9,29 @@
 // [start - n_local + 1, min(start + T, cursor)) are skipped.  Optionally the
 // row maxima m of the scaled, masked scores are written too.
 //
-// Bound on the H100 at llava-ov-0.5b shapes: a token step (T = 1, 7 rows per
-// kv head) reads ~2 MB of live cache, 0.6 us at 3.35 TB/s: bytes-bound and
-// below the cost of a launch, so the launch cost is the number to watch.
-// This first design splits the slot range over blocks (flash-decoding) so
-// one kv head's 7 rows still spread over the card; the prompt prefill
-// (T = 256) runs the same FP32-FMA tiles as stream_attention.
+// Bound on the H100: a token step (T = 1, 7 rows per kv head) at
+// llava-ov-0.5b heads reads ~2 MB of live cache, 0.6 us at 3.35 TB/s:
+// bytes-bound and below the cost of a launch, so the launch cost is the
+// number to watch.  The 256-token prompt prefill at llava-ov-7b heads does
+// ~14.6 GFLOP, 0.015 ms at the dense bf16 rate: operations bound it.
+//
+// Design.  The slot range is split over blocks (flash-decoding, merged by
+// combine_kernel) so one kv head's 7 query rows still spread over the card.
+// bf16 queries run the tensor-core tile of attn_tc.cuh (128 folded rows a
+// block, 64-slot tiles; a token step's 7 rows fill part of one warp, the
+// other warps only help load): the K and V tiles are copied with cp.async
+// straight into the padded MMA layout, double-buffered against the
+// previous tile's products, slots past the cache or the cursor zero-filled.
+// float32 queries keep the FP32-FMA tile of attn_common.cuh, so their
+// score operands stay in float32.  stc_decode_attention_tile reports the
+// tile each dtype runs; the wrapper sizes its split from it.
 
 #include "attn_common.cuh"
+#include "attn_tc.cuh"
+
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace stc {
 
@@ -102,17 +117,104 @@ decode_attention_kernel(DecodeArgs a) {
                    });
 }
 
+// bfloat16 queries: the tensor-core tile.
+template <int D>
+__global__ void __launch_bounds__(tc::Cfg<D>::NTH, tc::Cfg<D>::MIN_BLOCKS)
+decode_attention_tc(DecodeArgs a) {
+  constexpr int BC = tc::BC, MT = tc::Cfg<D>::MT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const tc::Smem<D> sm(smem_raw);
+  const tc::Block<D> blk(a.Hq, a.Hkv, a.T, a.n_split);
+  const bool warp_live = blk.warp_live();
+  const float scale = 1.f / sqrtf((float)D);
+  const int start = a.start[blk.b];
+  const int cursor = a.cursor[blk.b];
+  const long long hk = ((long long)blk.b * a.Hkv + blk.h) * a.C;
+
+  // the thread's rows
+  bool rok[2 * MT];
+  int qslot[2 * MT];
+#pragma unroll
+  for (int k = 0; k < 2 * MT; ++k) {
+    const int r = tc::row_of<D>(k);
+    rok[k] = blk.row(r) >= 0;
+    qslot[k] = start + blk.token(r);
+  }
+
+  tc::Warp<D> w;
+  tc::warp_init(w);
+  blk.stage(sm.q(), a.q);
+  __syncthreads();
+  if (warp_live) tc::load_q(w, sm.q());
+
+  // live slots over all rows of the call: (start - n_local, start + T - 1]
+  const int lo = start - a.n_local + 1;
+  const int hi = min(start + a.T, cursor);
+  const int valid = min(a.C, cursor);
+  tc::walk(
+      blk.split, a.n_split, (a.C + BC - 1) / BC,
+      [&](int tile) {
+        const int s0 = tile * BC;
+        return s0 < hi && s0 + BC - 1 >= lo;
+      },
+      // slots past the cache or the cursor are zero-filled
+      [&](int tile, int i) {
+        const int s0 = tile * BC;
+        const tc::bf16* k = static_cast<const tc::bf16*>(a.k);
+        const tc::bf16* v = static_cast<const tc::bf16*>(a.v);
+        tc::load_tile<D>(sm.k(i), k + (hk + s0) * D, valid - s0);
+        tc::load_tile<D>(sm.v(i), v + (hk + s0) * D, valid - s0);
+      },
+      [&](int tile, int i) {
+        if (!warp_live) return;
+        const int s0 = tile * BC;
+        // every slot of the tile is written and seen by every query
+        const bool full = s0 + BC <= valid && s0 + BC - 1 <= start &&
+                          start + a.T - 1 - s0 < a.n_local;
+        tc::update<D>(w, sm.q(), sm.k(i), sm.v(i), scale, [&](int k, int c) {
+          if (full) return rok[k];
+          const int dist = qslot[k] - (s0 + c);
+          return rok[k] && s0 + c < valid && dist >= 0 && dist < a.n_local;
+        });
+      });
+
+  tc::write_partial<D>(w, blk, a.part_acc, a.part_ml,
+                       (long long)a.B * a.Hq * a.T);
+}
+
+// float32 queries run the FMA tile, bfloat16 ones the tensor-core tile.
+// With `tile` set nothing is launched: tile receives the block's rows, its
+// keys per KV tile and the blocks an SM holds at once.
 template <typename T, int D>
 cudaError_t launch(const DecodeArgs& a, void* out, float* m_out,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(TileSmem<D>);
+                   cudaStream_t stream, int* tile) {
+  void (*kernel)(DecodeArgs);
+  int smem, br, bc, nth;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    kernel = decode_attention_tc<D>;
+    smem = tc::Cfg<D>::SMEM;
+    br = tc::Cfg<D>::BR;
+    bc = tc::BC;
+    nth = tc::Cfg<D>::NTH;
+  } else {
+    kernel = decode_attention_kernel<T, D>;
+    smem = (int)sizeof(TileSmem<D>);
+    br = BR;
+    bc = BC;
+    nth = NTH;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      decode_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  if (tile != nullptr) {
+    tile[0] = br;
+    tile[1] = bc;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&tile[2], kernel,
+                                                         nth, smem);
+  }
   const int G = a.Hq / a.Hkv;
-  dim3 grid((G * a.T + BR - 1) / BR, a.Hkv, a.B * a.n_split);
-  decode_attention_kernel<T, D><<<grid, NTH, smem, stream>>>(a);
+  dim3 grid((G * a.T + br - 1) / br, a.Hkv, a.B * a.n_split);
+  kernel<<<grid, nth, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_combine<T, D>(a.part_acc, a.part_ml, a.n_split,
@@ -122,20 +224,34 @@ cudaError_t launch(const DecodeArgs& a, void* out, float* m_out,
 
 template <typename T>
 cudaError_t launch_d(const DecodeArgs& a, int D, void* out, float* m_out,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, int* tile) {
   switch (D) {
-    case 16: return launch<T, 16>(a, out, m_out, stream);
-    case 32: return launch<T, 32>(a, out, m_out, stream);
-    case 64: return launch<T, 64>(a, out, m_out, stream);
-    case 128: return launch<T, 128>(a, out, m_out, stream);
+    case 16: return launch<T, 16>(a, out, m_out, stream, tile);
+    case 32: return launch<T, 32>(a, out, m_out, stream, tile);
+    case 64: return launch<T, 64>(a, out, m_out, stream, tile);
+    case 128: return launch<T, 128>(a, out, m_out, stream, tile);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace stc
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out).  m_out may be null.
-// Returns cudaGetLastError() after the launches.
+// The tile that stc_decode_attention runs for dtype (0 = float32, 1 =
+// bfloat16) and head dim D: tile[0] folded query rows a block, tile[1]
+// keys a KV tile, tile[2] blocks an SM holds at once.  The wrapper sizes
+// its grid and scratch from it.
+extern "C" int stc_decode_attention_tile(int dtype, int D, int* tile) {
+  stc::DecodeArgs a{};
+  return (int)(dtype == 1 ? stc::launch_d<__nv_bfloat16>(a, D, nullptr,
+                                                         nullptr, nullptr,
+                                                         tile)
+                          : stc::launch_d<float>(a, D, nullptr, nullptr,
+                                                 nullptr, tile));
+}
+
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out; with bfloat16, q, k
+// and v are 16-byte aligned).  m_out may be null.  Returns
+// cudaGetLastError() after the launches.
 extern "C" int stc_decode_attention(const void* q, const void* k,
                                     const void* v, const void* start,
                                     const void* cursor, void* part_acc,
@@ -159,10 +275,15 @@ extern "C" int stc_decode_attention(const void* q, const void* k,
   a.n_local = n_local;
   a.n_split = n_split;
   if (Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {q, k, v};
+  for (const void* p : ptrs)
+    if (dtype == 1 && reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* m = static_cast<float*>(m_out);
   cudaError_t err = dtype == 1
-                        ? stc::launch_d<__nv_bfloat16>(a, D, out, m, st)
-                        : stc::launch_d<float>(a, D, out, m, st);
+                        ? stc::launch_d<__nv_bfloat16>(a, D, out, m, st,
+                                                       nullptr)
+                        : stc::launch_d<float>(a, D, out, m, st, nullptr);
   return (int)err;
 }

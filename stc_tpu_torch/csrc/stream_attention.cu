@@ -16,25 +16,37 @@
 //   3. the unrotated init keys against the one-angle queries, gated by
 //      init_active.
 // GQA is folded into the query rows; tiles holding no live key are skipped;
-// the output is normalised by l and 0 where l == 0.
+// the KV walk of a row tile is split over blocks and merged by
+// combine_kernel; the output is normalised by l and 0 where l == 0.
 //
-// Bound on the H100 at llava-ov-0.5b shapes, full window: one 1-frame
-// append does 4*14*60*15028*64 ~ 3.2 GFLOP (3.3 us at the dense bf16 rate)
-// and reads ~7.7 MB of bf16 window pages (3.9 MB int8, 1.9 MB int4) plus
-// ~7.7 MB of f32 RoPE cover tables (4.7 us at 3.35 TB/s): bytes bound it
-// while the tables come from memory (computing cos/sin in the kernel would
-// halve the bytes).  This first design runs the products as FP32 FMA
-// (67 TFLOP/s peak) and splits the KV walk over blocks so a 60-token append
-// still fills the card; tensor cores (mma/wgmma), TMA page loads and
-// in-kernel RoPE tables are the next steps.  Dequantizing costs a few
-// integer and float operations per loaded element, beside the D FMAs each
-// loaded key feeds.
+// Bound on the H100: one 8-page append (T 480) over the full 264-page
+// window at llava-ov-7b heads (28/4 of 128) does ~103 GFLOP of visible
+// (query, key) pairs, 0.104 ms at the dense bf16 rate, and reads ~16 MB of
+// int8 pages: operations bound it.  A 1-frame append at llava-ov-0.5b heads
+// does ~3.2 GFLOP (3.3 us) against ~7.7 MB of bf16 pages (2.3 us).
+//
+// Design.  bf16 queries take two kernels.  A pre-pass reads each live
+// window tile once per kv head: it dequantizes the page rows in f32 (int8 x
+// scale; both nibbles of a packed int4 byte are a dim and its rotate-half
+// partner), rotates the keys with the f32 cover tables (whose two halves
+// are equal, so it reads the first) and writes MMA-ready bf16 keys and
+// values, (B, Hkv, Lc, D), to scratch.  The attention then runs the
+// tensor-core tile of attn_tc.cuh (128 folded rows a block, 64-key tiles),
+// copying those rows with cp.async into padded shared-memory tiles,
+// double-buffered against the previous tile's products.  A transform
+// inside the attention would be repeated for every 128-row tile (27 times
+// on an 8-page append at llava-ov-7b heads) and, measured on the H100,
+// cost as much as the products it sat between.  float32 queries keep the
+// FP32-FMA tile of attn_common.cuh (64 x 64), so their score operands stay
+// in float32.  stc_stream_attention_tile reports the tile each dtype runs;
+// the wrapper sizes its split from it.
 
 #include <stdint.h>
 
 #include <type_traits>
 
 #include "attn_common.cuh"
+#include "attn_tc.cuh"
 
 namespace stc {
 
@@ -114,6 +126,8 @@ struct StreamArgs {
   const int* scalars;      // (B, 5): L, start_tile, total, init_active, offset
   float* part_acc;         // (n_split, B*Hq*T, D)
   float* part_ml;          // (n_split, B*Hq*T, 2)
+  __nv_bfloat16* cover_k;  // (B, Hkv, Lc, D) scratch of the bf16 kernel
+  __nv_bfloat16* cover_v;
   int B, Hq, Hkv, T, Nb, S, Lc, ppt, n_init, n_local, n_split;
 };
 
@@ -253,16 +267,292 @@ stream_attention_kernel(StreamArgs a) {
                    });
 }
 
+// ---- bfloat16 queries: the tensor-core tile (attn_tc.cuh) ----
+
+// One page row's dims d .. d + 7 and their rotate-half partners d + D/2 ..
+// d + D/2 + 7 (d a multiple of 8, below D/2), dequantized in f32.  `sc` is
+// the page's scale row (D floats); bf16 pages have none.
+template <int D>
+__device__ __forceinline__ void row8(const __nv_bfloat16* row, const float*,
+                                     int d, float lo[8], float hi[8]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(row + d);
+  const uint4 y = *reinterpret_cast<const uint4*>(row + d + D / 2);
+  const __nv_bfloat162* xp = reinterpret_cast<const __nv_bfloat162*>(&x);
+  const __nv_bfloat162* yp = reinterpret_cast<const __nv_bfloat162*>(&y);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 a = __bfloat1622float2(xp[i]), b = __bfloat1622float2(yp[i]);
+    lo[2 * i] = a.x;
+    lo[2 * i + 1] = a.y;
+    hi[2 * i] = b.x;
+    hi[2 * i + 1] = b.y;
+  }
+}
+__device__ __forceinline__ void scales8(const float* sc, float s[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(sc));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(sc + 4));
+  s[0] = a.x, s[1] = a.y, s[2] = a.z, s[3] = a.w;
+  s[4] = b.x, s[5] = b.y, s[6] = b.z, s[7] = b.w;
+}
+template <int D>
+__device__ __forceinline__ void row8(const int8_t* row, const float* sc,
+                                     int d, float lo[8], float hi[8]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(row + d);
+  const uint2 y = *reinterpret_cast<const uint2*>(row + d + D / 2);
+  float sx[8], sy[8];
+  scales8(sc + d, sx);
+  scales8(sc + d + D / 2, sy);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const unsigned wx = i < 4 ? x.x : x.y, wy = i < 4 ? y.x : y.y;
+    lo[i] = (float)(int8_t)((wx >> (8 * (i % 4))) & 0xFF) * sx[i];
+    hi[i] = (float)(int8_t)((wy >> (8 * (i % 4))) & 0xFF) * sy[i];
+  }
+}
+// split-plane int4: bytes d .. d + 7 hold dims d .. d + 7 in their low
+// nibbles and the partners d + D/2 .. in their high ones
+template <int D>
+__device__ __forceinline__ void row8(const uint8_t* row, const float* sc,
+                                     int d, float lo[8], float hi[8]) {
+  const uint2 x = *reinterpret_cast<const uint2*>(row + d);
+  float sx[8], sy[8];
+  scales8(sc + d, sx);
+  scales8(sc + d + D / 2, sy);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int byte = ((i < 4 ? x.x : x.y) >> (8 * (i % 4))) & 0xFF;
+    lo[i] = nibble(byte & 0x0F) * sx[i];
+    hi[i] = nibble(byte >> 4) * sy[i];
+  }
+}
+
+// What both bf16 kernels derive from a batch row's scalars: the cover
+// index range of window keys in the store and their affine positions.
+struct Cover {
+  int L, start_page, init_active, c_lim;
+  long long pos_base, pos_end, q_lo, q_hi;
+
+  __device__ Cover(const StreamArgs& a, int b) {
+    L = a.scalars[b * 5 + 0];
+    start_page = a.scalars[b * 5 + 1] * a.ppt;
+    const int total = a.scalars[b * 5 + 2];
+    init_active = a.scalars[b * 5 + 3];
+    const int offset = a.scalars[b * 5 + 4];
+    // position of the key at cover index c is pos_base + c
+    pos_base = (long long)a.n_init + (long long)(start_page + offset) * a.S;
+    pos_end = (long long)a.n_init + (long long)total * a.S;
+    const int c_store = (a.Nb - start_page) * a.S;  // cover keys in the store
+    c_lim = min(a.Lc, max(c_store, 0));
+    q_lo = L;
+    q_hi = (long long)L + a.T - 1;
+  }
+  // whether tile `tile` of bc cover keys holds a key some query may see
+  __device__ bool live(int tile, int bc, int n_local) const {
+    const long long p0 = pos_base + (long long)tile * bc;
+    return tile * bc < c_lim && p0 < pos_end && p0 <= q_hi &&
+           q_lo - (p0 + bc - 1) < n_local;
+  }
+};
+
+constexpr int COVER_NTH = 256;  // threads of a pre-pass block
+// cover keys of a pre-pass block: the attention's KV tile, so that the
+// pre-pass writes every row of each tile the attention reads
+constexpr int COVER_BC = tc::BC;
+
+// Pre-pass of the bf16 kernel: one block per (live tile of COVER_BC cover
+// keys, kv head, batch row) dequantizes the page rows in f32, rotates the
+// keys with the f32 cover tables and rounds keys and values to bf16 into
+// cover_k / cover_v (B, Hkv, Lc, D), zeros for keys outside the store or
+// past the last page.  It runs once per key, where a transform inside the
+// attention kernel would run once per row tile.
+template <typename P, int D>
+__global__ void __launch_bounds__(COVER_NTH)
+stream_cover(StreamArgs a) {
+  constexpr int H = D / 2;
+  constexpr int ROW = (std::is_same<P, uint8_t>::value ? H : D) *
+                      (int)sizeof(P);  // bytes of one page row
+  const int tile = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const Cover cv(a, b);
+  if (!cv.live(tile, COVER_BC, a.n_local)) return;  // never read
+  const long long hk = ((long long)b * a.Hkv + h) * a.Nb;
+  const unsigned char* bk = static_cast<const unsigned char*>(a.block_k);
+  const unsigned char* bv = static_cast<const unsigned char*>(a.block_v);
+  const long long first = (hk + cv.start_page) * a.S;  // store row of c = 0
+  const long long out0 = ((long long)b * a.Hkv + h) * a.Lc;
+  // one item: key cc, dims d .. d + 7 and their rotate-half partners
+  for (int i = threadIdx.x; i < COVER_BC * (H / 8); i += COVER_NTH) {
+    const int cc = tile * COVER_BC + i / (H / 8), d = 8 * (i % (H / 8));
+    if (cc >= a.Lc) break;
+    uint32_t k_lo[4] = {}, k_hi[4] = {}, v_lo[4] = {}, v_hi[4] = {};
+    if (cc < cv.c_lim && cv.pos_base + cc < cv.pos_end) {
+      const long long srow = (hk + cv.start_page + cc / a.S) * D;
+      float xl[8], xh[8], yl[8], yh[8];
+      row8<D>(reinterpret_cast<const P*>(bk + (first + cc) * ROW),
+              a.k_scales + srow, d, xl, xh);
+      row8<D>(reinterpret_cast<const P*>(bv + (first + cc) * ROW),
+              a.v_scales + srow, d, yl, yh);
+      // rope_cos_sin concatenates the angles twice, so the tables' two
+      // halves are equal and the first serves both (tests/test_torch_ops.py
+      // checks)
+      const long long t = ((long long)b * a.Lc + cc) * D + d;
+      float co[8], si[8];
+      scales8(a.cos_cover + t, co);
+      scales8(a.sin_cover + t, si);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int u = 2 * e, v = 2 * e + 1;
+        // rotate-half: dim d pairs with -(dim d + D/2), d + D/2 with d
+        k_lo[e] = tc::pack(xl[u] * co[u] + (-xh[u]) * si[u],
+                           xl[v] * co[v] + (-xh[v]) * si[v]);
+        k_hi[e] = tc::pack(xh[u] * co[u] + xl[u] * si[u],
+                           xh[v] * co[v] + xl[v] * si[v]);
+        v_lo[e] = tc::pack(yl[u], yl[v]);
+        v_hi[e] = tc::pack(yh[u], yh[v]);
+      }
+    }
+    __nv_bfloat16* kr = a.cover_k + (out0 + cc) * D;
+    __nv_bfloat16* vr = a.cover_v + (out0 + cc) * D;
+    *reinterpret_cast<uint4*>(kr + d) = *reinterpret_cast<uint4*>(k_lo);
+    *reinterpret_cast<uint4*>(kr + d + H) = *reinterpret_cast<uint4*>(k_hi);
+    *reinterpret_cast<uint4*>(vr + d) = *reinterpret_cast<uint4*>(v_lo);
+    *reinterpret_cast<uint4*>(vr + d + H) = *reinterpret_cast<uint4*>(v_hi);
+  }
+}
+
+// The bf16 attention: the tensor-core tile over the pre-pass's cover rows
+// (tc::walk: cp.async, double-buffered against the previous tile's
+// products), then, on split 0, the init keys.
+template <int D>
+__global__ void __launch_bounds__(tc::Cfg<D>::NTH, tc::Cfg<D>::MIN_BLOCKS)
+stream_attention_tc(StreamArgs a) {
+  using bf16 = __nv_bfloat16;
+  constexpr int BC = tc::BC, MT = tc::Cfg<D>::MT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const tc::Smem<D> sm(smem_raw);
+  const tc::Block<D> blk(a.Hq, a.Hkv, a.T, a.n_split);
+  const bool warp_live = blk.warp_live();
+  const float scale = 1.f / sqrtf((float)D);
+  const Cover cv(a, blk.b);
+  const long long hc = ((long long)blk.b * a.Hkv + blk.h) * a.Lc;
+
+  // the thread's rows (positions fit 32 bits: the scalars are int32)
+  bool rok[2 * MT];
+  int qpos[2 * MT];
+#pragma unroll
+  for (int k = 0; k < 2 * MT; ++k) {
+    const int r = tc::row_of<D>(k);
+    rok[k] = blk.row(r) >= 0;
+    qpos[k] = cv.L + blk.token(r);
+  }
+  tc::Warp<D> w;
+  tc::warp_init(w);
+  blk.stage(sm.q(), a.q_rot);
+  __syncthreads();
+  if (warp_live) tc::load_q(w, sm.q());
+
+  // group 2: the split's live window tiles; key c of a tile sits at
+  // position p0 + c
+  tc::walk(
+      blk.split, a.n_split, (a.Lc + BC - 1) / BC,
+      [&](int tile) { return cv.live(tile, BC, a.n_local); },
+      [&](int tile, int i) {
+        const long long c0 = (long long)tile * BC;
+        tc::load_tile<D>(sm.k(i), a.cover_k + (hc + c0) * D,
+                         (int)(a.Lc - c0));
+        tc::load_tile<D>(sm.v(i), a.cover_v + (hc + c0) * D,
+                         (int)(a.Lc - c0));
+      },
+      [&](int tile, int i) {
+        if (!warp_live) return;
+        const long long p0 = cv.pos_base + (long long)tile * BC;
+        const int n_ok =
+            (int)min((long long)(cv.c_lim - tile * BC), cv.pos_end - p0);
+        // every key of the tile is in the store and seen by every query
+        const bool full = n_ok >= BC && cv.q_lo - (p0 + BC - 1) >= 0 &&
+                          cv.q_hi - p0 < a.n_local;
+        int base[2 * MT];
+#pragma unroll
+        for (int k = 0; k < 2 * MT; ++k) base[k] = qpos[k] - (int)p0;
+        tc::update<D>(w, sm.q(), sm.k(i), sm.v(i), scale, [&](int k, int c) {
+          if (full) return rok[k];
+          const int dist = base[k] - c;
+          return rok[k] && c < n_ok && dist >= 0 && dist < a.n_local;
+        });
+      });
+
+  // groups 1 and 3, once per row tile (split 0): the init keys at window
+  // RoPE (mask 0 <= q_pos - c < n_local), then, with init_active, the raw
+  // init keys against the one-angle queries (every key kept); one update
+  // site serves both.
+  const long long ib = ((long long)blk.b * a.Hkv + blk.h) * a.n_init;
+  for (int grp = 0; blk.split == 0 && grp < 1 + (cv.init_active != 0);
+       ++grp) {
+    const bf16* kp =
+        static_cast<const bf16*>(grp == 0 ? a.k_init_rot : a.k_init_raw);
+    const bf16* vp = static_cast<const bf16*>(a.v_init);
+    if (grp == 1) blk.stage(sm.q(), a.q_one);
+    tc::load_rows<D>(sm.k(0), BC, [&](int r) -> const bf16* {
+      return r < a.n_init ? kp + (ib + r) * D : nullptr;
+    });
+    tc::load_rows<D>(sm.v(0), BC, [&](int r) -> const bf16* {
+      return r < a.n_init ? vp + (ib + r) * D : nullptr;
+    });
+    __syncthreads();
+    if (warp_live) {
+      if (grp == 1) tc::load_q(w, sm.q());
+      tc::update<D>(w, sm.q(), sm.k(0), sm.v(0), scale, [&](int k, int c) {
+        const int dist = qpos[k] - c;
+        return rok[k] && c < a.n_init &&
+               (grp == 1 || (dist >= 0 && dist < a.n_local));
+      });
+    }
+    __syncthreads();  // every warp done before the next group's loads
+  }
+
+  tc::write_partial<D>(w, blk, a.part_acc, a.part_ml,
+                       (long long)a.B * a.Hq * a.T);
+}
+
+// float32 queries run the FMA tile; bfloat16 ones the cover pre-pass and
+// the tensor-core tile.  With `tile` set nothing is launched: tile receives
+// the block's rows, its keys per KV tile and the blocks an SM holds at once.
 template <typename T, typename P, int D>
-cudaError_t launch(const StreamArgs& a, void* out, cudaStream_t stream) {
-  const size_t smem = sizeof(TileSmem<D>);
+cudaError_t launch(const StreamArgs& a, void* out, cudaStream_t stream,
+                   int* tile) {
+  constexpr bool tcore = std::is_same<T, __nv_bfloat16>::value;
+  void (*kernel)(StreamArgs);
+  int smem, br, bc, nth;
+  if constexpr (tcore) {
+    kernel = stream_attention_tc<D>;
+    smem = tc::Cfg<D>::SMEM;
+    br = tc::Cfg<D>::BR;
+    bc = tc::BC;
+    nth = tc::Cfg<D>::NTH;
+  } else {
+    kernel = stream_attention_kernel<T, P, D>;
+    smem = (int)sizeof(TileSmem<D>);
+    br = BR;
+    bc = BC;
+    nth = NTH;
+  }
   cudaError_t err = cudaFuncSetAttribute(
-      stream_attention_kernel<T, P, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  if (tile != nullptr) {
+    tile[0] = br;
+    tile[1] = bc;
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(&tile[2], kernel,
+                                                         nth, smem);
+  }
+  if constexpr (tcore) {
+    dim3 cover((a.Lc + COVER_BC - 1) / COVER_BC, a.Hkv, a.B);
+    stream_cover<P, D><<<cover, COVER_NTH, 0, stream>>>(a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
   const int G = a.Hq / a.Hkv;
-  dim3 grid((G * a.T + BR - 1) / BR, a.Hkv, a.B * a.n_split);
-  stream_attention_kernel<T, P, D><<<grid, NTH, smem, stream>>>(a);
+  dim3 grid((G * a.T + br - 1) / br, a.Hkv, a.B * a.n_split);
+  kernel<<<grid, nth, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   return launch_combine<T, D>(a.part_acc, a.part_ml, a.n_split,
@@ -272,41 +562,58 @@ cudaError_t launch(const StreamArgs& a, void* out, cudaStream_t stream) {
 
 template <typename T, typename P>
 cudaError_t launch_d(const StreamArgs& a, int D, void* out,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, int* tile) {
   switch (D) {
-    case 16: return launch<T, P, 16>(a, out, stream);
-    case 32: return launch<T, P, 32>(a, out, stream);
-    case 64: return launch<T, P, 64>(a, out, stream);
-    case 128: return launch<T, P, 128>(a, out, stream);
+    case 16: return launch<T, P, 16>(a, out, stream, tile);
+    case 32: return launch<T, P, 32>(a, out, stream, tile);
+    case 64: return launch<T, P, 64>(a, out, stream, tile);
+    case 128: return launch<T, P, 128>(a, out, stream, tile);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 cudaError_t launch_p(const StreamArgs& a, int pages, int D, void* out,
-                     cudaStream_t stream) {
+                     cudaStream_t stream, int* tile) {
   switch (pages) {
-    case 0: return launch_d<T, T>(a, D, out, stream);
-    case 1: return launch_d<T, int8_t>(a, D, out, stream);
-    case 2: return launch_d<T, uint8_t>(a, D, out, stream);
+    case 0: return launch_d<T, T>(a, D, out, stream, tile);
+    case 1: return launch_d<T, int8_t>(a, D, out, stream, tile);
+    case 2: return launch_d<T, uint8_t>(a, D, out, stream, tile);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace stc
 
+// The tile that stc_stream_attention runs for dtype (0 = float32, 1 =
+// bfloat16), page kind and head dim D: tile[0] folded query rows a block,
+// tile[1] keys a KV tile, tile[2] blocks an SM holds at once.  The wrapper
+// sizes its grid and scratch from it.
+extern "C" int stc_stream_attention_tile(int dtype, int pages, int D,
+                                         int* tile) {
+  stc::StreamArgs a{};
+  return (int)(dtype == 1
+                   ? stc::launch_p<__nv_bfloat16>(a, pages, D, nullptr,
+                                                  nullptr, tile)
+                   : stc::launch_p<float>(a, pages, D, nullptr, nullptr,
+                                          tile));
+}
+
 // dtype: 0 = float32, 1 = bfloat16 (queries, init keys and values, output).
 // pages: 0 = pages in that dtype (k_scales, v_scales unused), 1 = int8,
 // 2 = packed int4 (uint8, D/2 bytes a row), each with f32 scales
-// (B, Hkv, Nb, D).  Returns cudaGetLastError() after the launches.
+// (B, Hkv, Nb, D).  cover_k, cover_v: (B, Hkv, Lc, D) bf16 scratch, with
+// bfloat16 only.  With bfloat16, every pointer is 16-byte aligned.
+// Returns cudaGetLastError() after the launches.
 extern "C" int stc_stream_attention(
     const void* q_rot, const void* q_one, const void* block_k,
     const void* block_v, const void* k_scales, const void* v_scales,
     const void* cos_cover, const void* sin_cover, const void* k_init_rot,
     const void* v_init, const void* k_init_raw, const void* scalars,
-    void* part_acc, void* part_ml, void* out, int B, int Hq, int Hkv, int T,
-    int D, int Nb, int S, int Lc, int ppt, int n_init, int n_local,
-    int n_split, int dtype, int pages, void* stream) {
+    void* part_acc, void* part_ml, void* cover_k, void* cover_v, void* out,
+    int B, int Hq, int Hkv, int T, int D, int Nb, int S, int Lc, int ppt,
+    int n_init, int n_local, int n_split, int dtype, int pages,
+    void* stream) {
   stc::StreamArgs a;
   a.q_rot = q_rot;
   a.q_one = q_one;
@@ -322,6 +629,8 @@ extern "C" int stc_stream_attention(
   a.scalars = static_cast<const int*>(scalars);
   a.part_acc = static_cast<float*>(part_acc);
   a.part_ml = static_cast<float*>(part_ml);
+  a.cover_k = static_cast<__nv_bfloat16*>(cover_k);
+  a.cover_v = static_cast<__nv_bfloat16*>(cover_v);
   a.B = B;
   a.Hq = Hq;
   a.Hkv = Hkv;
@@ -333,12 +642,22 @@ extern "C" int stc_stream_attention(
   a.n_init = n_init;
   a.n_local = n_local;
   a.n_split = n_split;
-  if (n_init > stc::BC || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  if (n_init > stc::BC || n_init > stc::tc::BC || Hq % Hkv != 0)
+    return (int)cudaErrorInvalidValue;
   if (pages != 0 && (k_scales == nullptr || v_scales == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && (cover_k == nullptr || cover_v == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const void* ptrs[] = {q_rot,    q_one,     block_k,    block_v,
+                        k_scales, v_scales,  cos_cover,  sin_cover,
+                        cover_k,  cover_v,   k_init_rot, v_init,
+                        k_init_raw, out};
+  for (const void* p : ptrs)
+    if (dtype == 1 && reinterpret_cast<uintptr_t>(p) % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err =
-      dtype == 1 ? stc::launch_p<__nv_bfloat16>(a, pages, D, out, st)
-                 : stc::launch_p<float>(a, pages, D, out, st);
+      dtype == 1 ? stc::launch_p<__nv_bfloat16>(a, pages, D, out, st, nullptr)
+                 : stc::launch_p<float>(a, pages, D, out, st, nullptr);
   return (int)err;
 }

@@ -11,6 +11,7 @@ Nothing here runs at import time.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -27,7 +28,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lock = threading.Lock()
 _libs: dict = {}
-build_log: dict = {}  # name -> compiler output of the last build
+build_log: dict = {}  # name -> compiler output of its build (kept as .log)
 
 
 def _nvcc() -> str:
@@ -56,6 +57,9 @@ def build_all() -> dict:
         procs = {}
         for name, out in todo.items():
             if out.exists():
+                log = out.with_suffix(".log")
+                if name not in build_log and log.exists():
+                    build_log[name] = log.read_text()
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -69,19 +73,65 @@ def build_all() -> dict:
             if proc.returncode != 0:
                 failed.append(f"--- {name} ---\n{log}")
                 continue
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         return todo
 
 
-def n_splits(row_blocks: int, n_tiles: int, device) -> int:
-    """How many blocks share one row tile's KV walk: enough blocks for two
-    waves over the card's SMs, at most one tile per block."""
+@functools.lru_cache(maxsize=None)
+def split_grid(rows: int, heads: int, n_keys: int, br: int, bc: int,
+               slots: int) -> tuple:
+    """The grid of a split-KV attention launch, from the tile the kernel
+    reports (br rows, bc keys): (row_blocks, n_split).  rows: folded query
+    rows per kv head (G * T); heads: kv heads times batch; n_keys: keys
+    each row tile walks; slots: blocks the card holds at once (SMs times
+    blocks per SM).  n_split blocks share one row tile's KV walk; it is
+    the count that finishes soonest when a block takes one time unit per
+    key tile it walks plus one for loading its queries and writing its
+    partial sums: (waves) x (tiles a block walks + 1), the largest such."""
+    row_blocks = -(-rows // br) * heads
+    n_tiles = -(-n_keys // bc)
+
+    def cost(s):
+        return -(-row_blocks * s // slots) * (-(-n_tiles // s) + 1)
+
+    return row_blocks, min(range(1, n_tiles + 1),
+                           key=lambda s: (cost(s), -s))
+
+
+def n_splits(name: str, codes: tuple, rows: int, heads: int, n_keys: int,
+             device) -> int:
+    """split_grid's n_split for kernel `name` at its tile query's codes
+    on device."""
+    br, bc, per_sm = tile(name, codes)
+    return split_grid(rows, heads, n_keys, br, bc,
+                      _sm_count(device.index) * per_sm)[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
     import torch
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-2 * sms // max(row_blocks, 1))
-    return max(1, min(n_tiles, want))
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_tiles: dict = {}
+
+
+def tile(name: str, codes: tuple) -> tuple:
+    """(rows, keys, blocks per SM) of the tile that kernel `name` runs,
+    as its library reports it; codes are the query's int arguments
+    (stream_attention: dtype, page kind, D; decode_attention: dtype, D)."""
+    key = (name, codes)
+    if key not in _tiles:
+        fn = getattr(load(name), f"stc_{name}_tile")
+        out = (ctypes.c_int * 3)()
+        fn.argtypes = [ctypes.c_int] * len(codes) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        check_launch(fn(*codes, out), f"{name} tile query")
+        _tiles[key] = tuple(out)
+    return _tiles[key]
 
 
 def check_launch(rc: int, name: str) -> None:

@@ -17,13 +17,16 @@ get_score), with m from ``decode_attention(return_m=True)``.  The kernel is
 
 Bound on the H100: a token step at llava-ov-0.5b shapes reads ~2 MB of
 live cache (0.6 us at 3.35 TB/s), below the cost of a launch; the
-256-token prompt prefill is bound by its bf16 operations (~3.8 us), and so
-is its decode_score (~1.9 us).  The first designs run the tile products as
-FP32 FMA; decode_attention splits the live slot range over blocks
-(flash-decoding, with a combine kernel) so one kv head's 7 query rows
-still spread over the card, and decode_score gives each block one key tile,
-so its sums need no second pass.  Neither uses tensor cores (PERF.md has
-their distance from the bound).
+256-token prompt prefill is bound by its bf16 operations (~3.8 us at 0.5b
+heads, ~15 us at 7B heads), and so is its decode_score (~1.9 us).
+decode_attention splits the live slot range over blocks (flash-decoding,
+with a combine kernel) so one kv head's 7 query rows still spread over the
+card; bfloat16 queries run the tensor-core tile (``mma.sync``, 64-slot
+tiles copied with cp.async, double-buffered),
+float32 ones the FP32-FMA tile, and the split follows the tile the
+library reports.  decode_score gives each block one key tile, so its sums
+need no second pass; it runs the FP32-FMA tile for both dtypes (PERF.md
+has the distance from the bound).
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.  ``launches`` counts decode_attention's
@@ -86,8 +89,8 @@ def _launch(q_rot, k, v, start, cursor, n_local, return_m):
     B, Hq, T, D = q_rot.shape
     Hkv, C = k.shape[1], k.shape[2]
     dev = q_rot.device
-    row_blocks = -(-(Hq // Hkv) * T // 64) * Hkv * B
-    n_split = _build.n_splits(row_blocks, -(-C // 64), dev)
+    n_split = _build.n_splits("decode_attention", (_DTYPES[q_rot.dtype], D),
+                              (Hq // Hkv) * T, Hkv * B, C, dev)
     rows = B * Hq * T
     part_acc = torch.empty((n_split, rows, D), dtype=torch.float32,
                            device=dev)

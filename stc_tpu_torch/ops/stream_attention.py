@@ -20,17 +20,22 @@ Pages come in three kinds, as in the Pallas kernel:
 Quantized pages are dequantized in f32 inside the kernel, rotated, and
 rounded to the input dtype; values are dequantized and rounded the same way.
 
-Bound on the H100: a 1-frame append over the full llava-ov-0.5b window
-needs ~3.2 GFLOP (3.3 us at the bf16 tensor-core rate) and ~7.7 MB of page
-reads (2.3 us at 3.35 TB/s), so operations bound the function; int8 and
-int4 pages cut the page bytes to a half and a quarter and move it further
-from the byte bound.  This design also reads the f32 RoPE cover tables
-(another ~7.7 MB, 4.7 us in all), which computing the angles from the
-affine key positions in the kernel would save.  It runs the tile products
-as FP32 FMA out of shared memory and splits each row tile's KV walk over
-several blocks (merged by a combine kernel) so a 60-token append still
-fills the card; it does not use tensor cores or TMA (PERF.md has its
-distance from the bound).
+Bound on the H100: an 8-page append (T 480) over the full 264-page window
+at llava-ov-7b heads does ~103 GFLOP of visible (query, key) pairs, 0.104
+ms at the dense bf16 tensor-core rate, against ~16 MB of int8 pages:
+operations bound the function; a 1-frame append at llava-ov-0.5b heads
+needs ~3.2 GFLOP (3.3 us) and ~7.7 MB of bf16 pages (2.3 us).
+
+Design.  bfloat16 queries run two kernels: a pre-pass that dequantizes,
+rotates (reading the first half of each f32 cover-table row, the two halves
+being equal) and rounds each live window key and value to bf16 once, into
+a (2, B, Hkv, Lc, D) scratch, and a FlashAttention-2 style tensor-core
+attention (``mma.sync`` m16n8k16 bf16, 64-key tiles copied with cp.async,
+double-buffered).  float32 queries run the FP32-FMA
+tile, so their score operands stay float32.  Both split each row tile's
+KV walk over several blocks (merged by a combine kernel) so a 60-token
+append still fills the card; the split follows the tile the library
+reports (``_build.tile``).  PERF.md has the card times.
 
 On a CPU tensor the wrapper runs ``stream_attention_ref``; on a CUDA tensor
 it launches the kernel or raises.  ``launches`` counts kernel launches by
@@ -139,7 +144,11 @@ def stream_attention(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
       or int8 (B, Hkv, Nb, S, D), or packed int4 uint8 (B, Hkv, Nb, S, D/2).
     k_scales/v_scales: (B, Hkv, Nb, D) f32, with quantized pages only.
     cos_cover/sin_cover: (B, Lc, D) f32 tables of the page cover, Lc keys
-      from local page start_tile * ppt on.
+      from local page start_tile * ppt on.  Each row's two halves must be
+      equal, as ``rope_cos_sin`` (and so ``engine.make_rope_cache``) makes
+      them: with bfloat16 queries the CUDA kernel reads only the first half
+      of each row, so tables whose halves differ give another result there
+      than the plain version.
     k_init_rot/v_init/k_init_raw: (B, Hkv, n_init, D).
     scalars: (B, 5) int32 [L, start_tile, total_pages, init_active,
       page_offset].  Returns (B, Hq, T, D) in q's dtype.
@@ -161,20 +170,25 @@ def _launch(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
     lib = _build.load("stream_attention")
     fn = lib.stc_stream_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 14 + [
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 14 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     B, Hq, T, D = q_rot.shape
     Hkv, Nb, S = block_k.shape[1], block_k.shape[2], block_k.shape[3]
     Lc, n_init = cos_cover.shape[1], k_init_rot.shape[2]
     kind = page_kind(block_k)
-    row_blocks = -(-(Hq // Hkv) * T // 64) * Hkv * B
-    n_split = _build.n_splits(row_blocks, -(-Lc // 64), q_rot.device)
+    codes = (_DTYPES[q_rot.dtype], _PAGE_CODES[kind], D)
+    n_split = _build.n_splits("stream_attention", codes, (Hq // Hkv) * T,
+                              Hkv * B, Lc, q_rot.device)
     rows = B * Hq * T
     dev = q_rot.device
     part_acc = torch.empty((n_split, rows, D), dtype=torch.float32,
                            device=dev)
     part_ml = torch.empty((n_split, rows, 2), dtype=torch.float32, device=dev)
+    # the bf16 kernel's rotated, dequantized window keys and values
+    cover = (torch.empty((2, B, Hkv, Lc, D), dtype=torch.bfloat16,
+                         device=dev) if q_rot.dtype == torch.bfloat16
+             else None)
     out = torch.empty_like(q_rot)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(q_rot.data_ptr(), q_one.data_ptr(), block_k.data_ptr(),
@@ -184,6 +198,8 @@ def _launch(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
             cos_cover.data_ptr(), sin_cover.data_ptr(),
             k_init_rot.data_ptr(), v_init.data_ptr(), k_init_raw.data_ptr(),
             scalars.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            None if cover is None else cover[0].data_ptr(),
+            None if cover is None else cover[1].data_ptr(),
             out.data_ptr(), B, Hq, Hkv, T, D, Nb, S, Lc, pages_per_tile(S),
             n_init, n_local, n_split, _DTYPES[q_rot.dtype],
             _PAGE_CODES[kind], stream)

@@ -36,24 +36,27 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
-def _stream_operands(cfg, n_appends, T, seed, scales=None):
+def _stream_operands(cfg, n_appends, T, seed, scales=None, heads=(HQ, HKV,
+                                                                  D)):
     """The kernel operands of the next append after n_appends appends; with
     kv_quant, `scales` (a dict) receives the page scales."""
     gen = torch.Generator().manual_seed(seed)
+    hq, hkv, d = heads
 
     def r(*s):
         return torch.randn(s, generator=gen)
 
-    kv = engine.init_stream_kv(cfg, 1, HKV, D, dtype=torch.float32,
+    kv = engine.init_stream_kv(cfg, 1, hkv, d, dtype=torch.float32,
                                 device="cpu")
-    engine.append_stream(kv, r(1, HQ, 4, D), r(1, HKV, 4, D),
-                         r(1, HKV, 4, D), cfg, is_init=True)
+    n_init = cfg.n_init
+    engine.append_stream(kv, r(1, hq, n_init, d), r(1, hkv, n_init, d),
+                         r(1, hkv, n_init, d), cfg, is_init=True)
     for _ in range(n_appends + 1):  # the last one writes the new pages
-        rc = engine.make_rope_cache(kv.length, kv.num_blocks, T, cfg, D,
+        rc = engine.make_rope_cache(kv.length, kv.num_blocks, T, cfg, d,
                                     1e4, kv.page_offset)
-        engine.append_stream(kv, r(1, HQ, T, D), r(1, HKV, T, D),
-                             r(1, HKV, T, D), cfg, is_init=False)
-    q = r(1, HQ, T, D)
+        engine.append_stream(kv, r(1, hq, T, d), r(1, hkv, T, d),
+                             r(1, hkv, T, d), cfg, is_init=False)
+    q = r(1, hq, T, d)
     scalars = rc.scalars.clone()
     if scales is not None:
         scales.update(k_scales=kv.block_k_scale, v_scales=kv.block_v_scale)
@@ -96,6 +99,73 @@ def test_quantized_stream_attention_kernel_on_card(cuda_device, quant, exc,
         got = sa.stream_attention(*a, **kw)
         assert sa.launches[quant] == before + 1
         assert_agrees(got, sa.stream_attention_ref(*a, **kw))
+
+
+# the head layouts of the tensor-core tile: tiny, llava-ov-0.5b, llava-ov-7b
+TC_HEADS = [(4, 2, 32), (14, 2, 64), (28, 4, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+@pytest.mark.parametrize("S,T,n", [(8, 8, 0), (8, 8, 12), (12, 60, 2)])
+@pytest.mark.parametrize("heads", TC_HEADS)
+def test_bf16_stream_attention_tensor_core_tile_on_card(cuda_device, quant,
+                                                        S, T, n, heads):
+    """bf16 queries (the tensor-core tile) on the three page kinds at the
+    heads of both models: G = 7 folds T = 8 or 60 tokens into 56 or 420
+    rows (not multiples of 16); n = 0 is an empty window (the new pages
+    only), n = 12 and the 60-token case run with init_active on."""
+    cfg = ReKVConfig(**dict(BASE, block_size=S, exc_block_size=T,
+                            kv_quant=quant))
+    scales = {}
+    ops = _stream_operands(cfg, n, T, seed=100 * n + T + heads[2],
+                           scales=scales if quant != "none" else None,
+                           heads=heads)
+    init_active = int(ops[9][0, 3])
+    assert init_active == (cfg.n_init + (n + 1) * T > cfg.n_local)
+    kw = dict(n_local=cfg.n_local,
+              **{k: v.to(cuda_device) for k, v in scales.items()})
+    keep = (2, 3, 4, 5, 9) if quant != "none" else (4, 5, 9)
+    a = [x.to(cuda_device, torch.bfloat16 if i not in keep else x.dtype)
+         .contiguous() for i, x in enumerate(ops)]
+    kind = "float" if quant == "none" else quant
+    before = sa.launches[kind]
+    got = sa.stream_attention(*a, **kw)
+    assert sa.launches[kind] == before + 1
+    want = sa.stream_attention_ref(*a, **kw)
+    assert torch.isfinite(got.float()).all()
+    assert_agrees(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 8, 60])
+@pytest.mark.parametrize("heads", TC_HEADS)
+def test_bf16_decode_attention_tensor_core_tile_on_card(cuda_device, T,
+                                                        heads):
+    """bf16 queries with return_m at both models' heads, G * T = 7, 56, 420
+    folded rows; batch row 1 sees no key at all (start past the cursor and
+    the window), so its output is 0 and its row maxima -inf."""
+    hq, hkv, d = heads
+    C, n_local = 640, 200
+    gen = torch.Generator(device=cuda_device).manual_seed(T + d)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device)
+               .to(torch.bfloat16)
+               for s in ((2, hq, T, d), (2, hkv, C, d), (2, hkv, C, d)))
+    cursor = torch.tensor([600, 100], dtype=torch.int32, device=cuda_device)
+    start = torch.tensor([600 - T, 400], dtype=torch.int32,
+                         device=cuda_device)
+    before = da.launches
+    got, m = da.decode_attention(q, k, v, start, cursor, n_local=n_local,
+                                 return_m=True)
+    assert da.launches == before + 1
+    want, m_ref = da.decode_attention_ref(q, k, v, start, cursor,
+                                          n_local=n_local, return_m=True)
+    assert_agrees(got, want)
+    fin = torch.isfinite(m_ref)
+    assert torch.equal(torch.isfinite(m), fin)
+    assert not fin[1].any() and fin[0].all()
+    assert_agrees(m[fin], m_ref[fin])
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
 
 
 @pytest.mark.cuda

@@ -213,6 +213,46 @@ def test_stream_attention_wrapper_rejects_what_the_kernel_does_not_take():
         tsa.stream_attention(*strided, **kw)
 
 
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_rope_cover_tables_repeat_their_first_half(D):
+    """The bf16 stream_attention kernel stages only the first D/2 columns
+    of each cos/sin cover row (csrc/stream_attention.cu): the engine's
+    tables must hold the same values, bit for bit, in the second half."""
+    cfg = port_cfg(ReKVConfig(**BASE))
+    L = torch.tensor([4 + 8 * 9, 4], dtype=torch.int32)
+    nb = torch.tensor([9, 0], dtype=torch.int32)
+    rc = te.make_rope_cache(L, nb, 8, cfg, D, 1e6,
+                            torch.tensor([2, 0], dtype=torch.int32))
+    for t in (rc.cos_cover, rc.sin_cover):
+        assert t.shape[-1] == D
+        assert torch.equal(t[..., :D // 2], t[..., D // 2:])
+
+
+def test_split_grid_follows_the_reported_tile():
+    """The wrappers' split-KV grid (kernels/_build.split_grid) at the main
+    path's shapes on a 132-SM H100, from the tile the kernel reports: 128
+    rows x 64 keys for bf16 (tensor cores), 64 x 64 for float32 (FMA),
+    one or two blocks an SM.  The split minimises (waves) x (key tiles a
+    block walks + 1)."""
+    from stc_tpu_torch.kernels._build import split_grid
+    sms, cover = 132, 34 * 8 * 60          # 264-page window, 8-page tiles
+    # 1-frame append at llava-ov-0.5b heads: 7 * 60 rows per kv head;
+    # 8 x 16 blocks are one wave of 17 units
+    assert split_grid(420, 2, cover, 128, 64, sms) == (8, 16)
+    assert split_grid(420, 2, cover, 64, 64, sms) == (14, 9)
+    # 8-page append at llava-ov-7b heads: 7 * 480 rows, 4 kv heads; 108 x
+    # 6 blocks are 5 waves of 43 + 1 units (5 splits: 5 x 53, 7: 6 x 38)
+    assert split_grid(3360, 4, cover, 128, 64, sms) == (108, 6)
+    # prompt prefill at 7B heads; twice the resident blocks, twice the split
+    assert split_grid(1792, 4, 4352, 128, 64, sms) == (56, 7)
+    assert split_grid(1792, 4, 4352, 128, 64, 2 * sms) == (56, 14)
+    # token step: 7 rows of each kv head spread over the slot tiles
+    assert split_grid(7, 2, 4352, 128, 64, sms) == (2, 66)
+    # at most one block per key tile, at least one split
+    assert split_grid(7, 1, 100, 128, 64, sms) == (1, 2)
+    assert split_grid(10000, 8, cover, 128, 64, sms) == (632, 5)
+
+
 # ---------------------------------------------------------------------------
 # decode_attention: the plain version against the Pallas kernel (interpret)
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 // Shared FP32-FMA tile machinery of the hand-written attention kernels:
-// the float32 instances of stream_attention.cu and decode_attention.cu, and
-// decode_score.cu for both dtypes (the bf16 instances of the first two run
-// the tensor-core tile of attn_tc.cuh).  combine_kernel serves them all.
+// the float32 instances of stream_attention.cu, decode_attention.cu and
+// decode_score.cu (their bf16 instances run the tensor-core tile of
+// attn_tc.cuh).  combine_kernel serves the first two.
 //
 // One CUDA block owns BR folded query rows (GQA: the G query heads of one
 // kv head times T tokens, row = g * T + t) and walks KV tiles of BC keys.

@@ -1,5 +1,7 @@
 // Tensor-core tile of the bf16 attention kernels (stream_attention.cu,
-// decode_attention.cu), FlashAttention-2 style on mma.sync.
+// decode_attention.cu), FlashAttention-2 style on mma.sync; decode_score.cu
+// uses its block layout, copies, fragments and walk with keys and queries
+// in exchanged roles.
 //
 // A block owns BR folded query rows (GQA: the G query heads of one kv head
 // times T tokens, row = g * T + t), 16 or 32 a warp (Cfg), and walks KV
@@ -113,6 +115,13 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+// cp.async of 4 bytes; src_bytes 0 writes a zero
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes));
 }

@@ -39,21 +39,25 @@ def _nvcc() -> str:
     return path
 
 
-def _lib_path(name: str) -> Path:
+def _lib_path(name: str, defines: tuple = ()) -> Path:
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
-    h.update(" ".join(FLAGS).encode())
-    return BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+    h.update(" ".join(FLAGS + defines).encode())
+    tag = "".join("-" + d.replace("=", "") for d in defines)
+    return BUILD / f"lib{name}{tag}-{h.hexdigest()[:16]}.so"
 
 
-def build_all() -> dict:
+def build_all(variants: dict | None = None) -> dict:
     """Compile every kernel source that is not built yet, all in parallel.
-    Returns {name: path}.  Raises with the compiler output on a failure."""
+    variants, {key: (source name, -D defines)}, builds those instead (a
+    measurement's variants of a kernel).  Returns {name or key: path}.
+    Raises with the compiler output on a failure."""
+    jobs = variants or {n: (n, ()) for n in SOURCES}
     with _lock:
         BUILD.mkdir(parents=True, exist_ok=True)
-        todo = {n: _lib_path(n) for n in SOURCES}
+        todo = {key: _lib_path(*job) for key, job in jobs.items()}
         procs = {}
         for name, out in todo.items():
             if out.exists():
@@ -62,7 +66,9 @@ def build_all() -> dict:
                     build_log[name] = log.read_text()
                 continue
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            src, defines = jobs[name]
+            cmd = [_nvcc(), *FLAGS, *("-D" + d for d in defines), "-o",
+                   str(tmp), str(CSRC / f"{src}.cu")]
             procs[name] = (subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True), tmp, out)

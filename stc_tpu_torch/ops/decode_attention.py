@@ -17,16 +17,21 @@ get_score), with m from ``decode_attention(return_m=True)``.  The kernel is
 
 Bound on the H100: a token step at llava-ov-0.5b shapes reads ~2 MB of
 live cache (0.6 us at 3.35 TB/s), below the cost of a launch; the
-256-token prompt prefill is bound by its bf16 operations (~3.8 us at 0.5b
-heads, ~15 us at 7B heads), and so is its decode_score (~1.9 us).
+256-token prompt prefill is bound by its bf16 products (~15 us at 7B
+heads); at 0.5b heads its exponentials (one per visible query-key pair
+and head, 16 a clock per SM against 4096 flops) tie them, ~3.7 us each,
+since at D = 64 a pair costs 4 D = 256 flops.  decode_score pays the same
+exponentials for only half the products, so they bound it: ~3.7 us at
+0.5b heads (its products ~1.9 us).
 decode_attention splits the live slot range over blocks (flash-decoding,
 with a combine kernel) so one kv head's 7 query rows still spread over the
 card; bfloat16 queries run the tensor-core tile (``mma.sync``, 64-slot
 tiles copied with cp.async, double-buffered),
 float32 ones the FP32-FMA tile, and the split follows the tile the
-library reports.  decode_score gives each block one key tile, so its sums
-need no second pass; it runs the FP32-FMA tile for both dtypes (PERF.md
-has the distance from the bound).
+library reports.  decode_score gives each block one key tile of one query
+head, so its sums need no second pass; bfloat16 runs it on tensor cores
+with the keys as the MMA rows and the queries streamed past them, float32
+on the FP32-FMA tile (PERF.md has the distance from the bound).
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.  ``launches`` counts decode_attention's

@@ -191,6 +191,42 @@ def test_decode_score_kernel_on_card(cuda_device, T, C, n_local, cursors):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("T,C,n_local,start0,cursor0", [
+    (45, 300, 70, 230, 263), (13, 640, 200, 600, 613),
+    (256, 1100, 15000, 800, 1056), (256, 1000, 64, 900, 1000)])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+def test_bf16_decode_score_tensor_core_tile_on_card(cuda_device, T, C,
+                                                    n_local, start0,
+                                                    cursor0, D):
+    """bf16 queries (the tensor-core tile), G = 7, with the row maxima of
+    decode_attention: ragged T and C (not multiples of 8 and of the 128-key
+    tile), a window that expires inside a key tile, a prompt over a window
+    of 64 whose queries from t = 163 on see no key (m = -inf), and batch
+    row 1 that sees no key at all (exact zeros)."""
+    hq, hkv = (14, 2) if D == 128 else (7, 1)
+    gen = torch.Generator(device=cuda_device).manual_seed(T + C + D)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device)
+               .to(torch.bfloat16)
+               for s in ((2, hq, T, D), (2, hkv, C, D), (2, hkv, C, D)))
+    cursor = torch.tensor([cursor0, 100], dtype=torch.int32,
+                          device=cuda_device)
+    start = torch.tensor([start0, 99 + n_local], dtype=torch.int32,
+                         device=cuda_device)
+    _, m = da.decode_attention(q, k, v, start, cursor, n_local=n_local,
+                               return_m=True)
+    assert (~torch.isfinite(m[0])).any() == (start0 + T - n_local >= cursor0)
+    assert not torch.isfinite(m[1]).any()
+    before = (da.launches, da.score_launches)
+    got = da.decode_score(q, k, m, start, cursor, n_local=n_local)
+    assert (da.launches, da.score_launches) == (before[0], before[1] + 1)
+    assert torch.isfinite(got).all()
+    assert_agrees(got, da.decode_score_ref(q, k, m, start, cursor,
+                                           n_local=n_local))
+    assert torch.equal(got[1], torch.zeros_like(got[1]))
+    assert not got[0, :, cursor0:].any()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("T,C,n_local,cursors", [
     (1, 128, 96, [40, 128]), (8, 256, 200, [30, 250]),
     (24, 640, 512, [100, 640])])

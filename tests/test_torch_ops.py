@@ -328,6 +328,51 @@ def test_decode_score_ref_matches_pallas(T, C, n_local, cursors):
         assert not got.numpy()[1, :, cursor[1]:].any()  # unwritten slots
 
 
+# (T, C, n_local, start, cursor) of batch row 0; batch row 1 sees no key
+# (its first query's window ends just below its cursor).  T is not a
+# multiple of 8 and C not one of the 128-key tile: 45 queries whose window
+# of 70 expires inside a key tile; a 256-token prompt; 256 queries over a
+# window of 64, of which those from t = 163 on see no key (m = -inf).
+SCORE_BF16_CASES = [(45, 300, 70, 230, 263), (13, 640, 200, 600, 613),
+                    (256, 1100, 15000, 800, 1056), (256, 1000, 64, 900, 1000)]
+
+
+@pytest.mark.parametrize("T,C,n_local,start0,cursor0", SCORE_BF16_CASES)
+def test_bf16_decode_score_ref_matches_pallas(T, C, n_local, start0,
+                                              cursor0):
+    """bf16 operands at 7B head geometry (G = 7, D = 128): decode_score_ref
+    against the Pallas _score_kernel (interpret) and decode_score_jnp, with
+    the row maxima of the Pallas decode_attention.  Every term of a query
+    that sees no key is masked, so its row and batch row 1 add exactly
+    0."""
+    B, Hq, Hkv, Dh = 2, 7, 1, 128
+    rng = np.random.default_rng(T + C)
+    bf = jnp.bfloat16
+    q, k = (np.asarray(jnp.asarray(rng.normal(size=s), bf).astype(
+        jnp.float32)) for s in ((B, Hq, T, Dh), (B, Hkv, C, Dh)))
+    cursor = np.asarray([cursor0, 100], np.int32)
+    start = np.asarray([start0, 99 + n_local], np.int32)
+    jq, jk = jnp.asarray(q, bf), jnp.asarray(k, bf)
+    js, jc = jnp.asarray(start), jnp.asarray(cursor)
+    _, m = j_decode(jq, jk, jk, js, jc, n_local=n_local, interpret=True,
+                    return_m=True)
+    s_pl = np.asarray(j_score(jq, jk, m, js, jc, n_local=n_local,
+                              interpret=True))
+    s_jnp = np.asarray(j_score_jnp(jq, jk, m, js, jc, n_local=n_local))
+    before = (tda.launches, tda.score_launches)
+    got = tda.decode_score(tt(q).bfloat16(), tt(k).bfloat16(),
+                           tt(np.asarray(m)), torch.from_numpy(start),
+                           torch.from_numpy(cursor), n_local=n_local)
+    assert (tda.launches, tda.score_launches) == before
+    assert got.shape == (B, Hq, C) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), s_jnp, **F32_TOL)
+    np.testing.assert_allclose(got.numpy(), s_pl, **KERNEL_TOL)
+    assert not got.numpy()[1].any() and not s_pl[1].any()
+    assert not got.numpy()[0, :, cursor0:].any()
+    blind = np.asarray(m)[0, 0] < -1e29  # queries of row 0 that see no key
+    assert blind.any() == (start0 + T - n_local >= cursor0)
+
+
 def test_decode_score_wrapper_checks_operands():
     q = torch.zeros((1, 4, 2, 16))
     k = torch.zeros((1, 2, 32, 16))

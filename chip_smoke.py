@@ -43,7 +43,21 @@ each of which makes the script exit non-zero when it fails:
      launch counts (every append launches the int8 kernel), then
      stream_attention, decode_attention and decode_score against their
      plain versions on the session's own state;
-  7. the same model and stream on an int4 page store, one question.
+  7. the same model and stream on an int4 page store, one question;
+  8. bench.py's 7b mode on the port, at int8 and int8_g128 weights: a
+     fresh seeded model of phase 6's widths with SigLIP in bf16, its
+     prompt logits and one decode step on bf16 weights, then the session
+     (which quantizes the LM at build) streams phase 6's 40 chunks on bf16
+     pages (max_blocks 768) and answers its two questions; each quantized
+     product against its bf16 one on the same recorded input (cosine >
+     0.999, the head's top-1 agreement > 0.9), the whole model's prompt
+     logits against bf16's (reported), the decode step's device time
+     against bf16's, the LM's weight bytes;
+  9. the HF loader: phase 3's model with its head tied to the embedding
+     written as a 2-shard bf16 HF checkpoint (this script's own writer),
+     loaded through MODEL_REGISTRY["llava_ov_7b"] onto the card: every
+     tensor bit-equal to its source, phase 3's first question answered
+     with the same ids; the directory is removed.
 
 Prints JSON lines; the line before the last holds one entry per kernel
 (route, source, the TPU kernel it replaces, launches on its path, error,
@@ -57,12 +71,14 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -599,9 +615,9 @@ QWEN2_7B = dict(vocab_size=152064, hidden_size=3584, num_layers=28,
                 intermediate_size=18944, rope_base=1000000.0)
 
 
-def make_model(dev, seed, text=QWEN2_05B):
-    """SigLIP 1152 x 27 at 384 px in float32 and the Qwen2 of `text` in
-    bf16, random weights from a seeded torch.Generator."""
+def make_model(dev, seed, text=QWEN2_05B, vision_dtype=torch.float32):
+    """SigLIP 1152 x 27 at 384 px in vision_dtype and the Qwen2 of `text`
+    in bf16, random weights from a seeded torch.Generator."""
     from stc_tpu_torch.models import llava_onevision as lo
     from stc_tpu_torch.models import qwen2 as qw
     from stc_tpu_torch.models import siglip as sg
@@ -610,13 +626,13 @@ def make_model(dev, seed, text=QWEN2_05B):
                              patch_size=14)
     cfg = lo.LlavaOVConfig(vision=vision, text=qw.Qwen2Config(**text))
     gen = torch.Generator(device=dev).manual_seed(seed)
-    model = lo.LlavaOV(cfg, dtype=torch.bfloat16, vision_dtype=torch.float32,
+    model = lo.LlavaOV(cfg, dtype=torch.bfloat16, vision_dtype=vision_dtype,
                        device=dev).init_random_params(gen)
     return model, cfg
 
 
 def session_cfg(n_local, topk, max_prompt, max_new, exc_frames, max_blocks,
-                kv_quant="none"):
+                kv_quant="none", weights_quant="none"):
     from stc_tpu_torch.config import (CacherConfig, PrunerConfig, ReKVConfig,
                                       SessionConfig)
     return SessionConfig(
@@ -627,7 +643,7 @@ def session_cfg(n_local, topk, max_prompt, max_new, exc_frames, max_blocks,
         cacher=CacherConfig(strategy="cacher", update_token_ratio=0.25,
                             cache_interval=2),
         pruner=PrunerConfig(token_per_frame=60),
-        encode_chunk_frames=exc_frames)
+        encode_chunk_frames=exc_frames, weights_quant=weights_quant)
 
 
 def reset_counts() -> None:
@@ -649,22 +665,25 @@ def read_counts() -> dict:
             "decode_score": da.score_launches}
 
 
-def quant_phase(model, cfg, quant, n_chunks, questions, card, dev,
-                gen) -> dict:
-    """Phases 6-7: the pixel session at the model's width on a `quant`
-    page store, n_chunks 8-frame chunks (past the full window and the
-    init-fill crossing, asserted where each happens), then the questions.
-    Checks the launch counts, then holds stream_attention, decode_attention
-    and decode_score against their plain versions on the session's own
-    state."""
+def stream_phase(model, cfg, scfg, name, n_chunks, questions, card, dev,
+                 gen) -> dict:
+    """Phases 6-8: the pixel session of scfg (8-frame chunks) at the
+    model's width, n_chunks chunks (past the full window and the init-fill
+    crossing, asserted where each happens), then the questions.  Checks the
+    launch counts (every append launches the kernel of the store's page
+    kind), then holds stream_attention, decode_attention and decode_score
+    against their plain versions on the session's own state.  Building the
+    session quantizes the model's LM in place when scfg.weights_quant is
+    set."""
     from stc_tpu_torch.kvcache import engine
     from stc_tpu_torch.kvcache.state import layer
     from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.models import siglip as sg
     from stc_tpu_torch.ops import decode_attention as da
     from stc_tpu_torch.ops import stream_attention as sa
     t_phase = time.perf_counter()
-    torch.cuda.reset_peak_memory_stats()
-    scfg = session_cfg(15000, 64, 256, 16, 8, 1024, kv_quant=quant)
+    quant = scfg.rekv.kv_quant
+    page_kind = "float" if quant == "none" else quant
     rekv, tc = scfg.rekv, cfg.text
     sess = lo.build_session(model, scfg, state_dtype=torch.bfloat16,
                             device=dev)
@@ -689,7 +708,7 @@ def quant_phase(model, cfg, quant, n_chunks, questions, card, dev,
     if init_active != [k >= k_init for k in range(n_chunks)] or \
             window[k_full] != W or window[k_full - 1] >= W or \
             k_full >= n_chunks - 1:
-        raise RuntimeError(f"{quant}: init_active {init_active}, window "
+        raise RuntimeError(f"{name}: init_active {init_active}, window "
                            f"pages {window}; expected init_active from "
                            f"chunk {k_init}, {W} pages from chunk {k_full}")
     stop = [151645]
@@ -712,11 +731,11 @@ def quant_phase(model, cfg, quant, n_chunks, questions, card, dev,
     counts = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     n_app = n_chunks
-    want = {"stream_attention": {k: (n_layers * n_app if k == quant else 0)
-                                 for k in sa.launches},
+    want = {"stream_attention": {k: (n_layers * n_app if k == page_kind
+                                      else 0) for k in sa.launches},
             "decode_attention": n_layers * lm_forwards, "decode_score": 0}
     if counts != want:
-        raise RuntimeError(f"{quant} session launch counts {counts} != "
+        raise RuntimeError(f"{name} session launch counts {counts} != "
                            f"expected {want}")
     for a in answers:
         if not a or not all(0 <= t < tc.vocab_size for t in a):
@@ -732,9 +751,10 @@ def quant_phase(model, cfg, quant, n_chunks, questions, card, dev,
                     device=dev).bfloat16()
     args = (q, q.flip(2).contiguous(), kv.block_k, kv.block_v, rc.cos_cover,
             rc.sin_cover, kv.init_k, kv.init_v, kv.init_k, rc.scalars)
-    kw = dict(n_local=rekv.n_local, k_scales=kv.block_k_scale,
-              v_scales=kv.block_v_scale)
-    stream_check = held(f"{quant} session state",
+    kw = dict(n_local=rekv.n_local)
+    if quant != "none":
+        kw.update(k_scales=kv.block_k_scale, v_scales=kv.block_v_scale)
+    stream_check = held(f"{name} session state",
                         sa.stream_attention(*args, **kw),
                         sa.stream_attention_ref(*args, **kw))
     dkv = layer(captured["dkvs"], li)
@@ -744,11 +764,11 @@ def quant_phase(model, cfg, quant, n_chunks, questions, card, dev,
     start = (dkv.cursor - Tq).to(torch.int32)
     dargs = (qd, dkv.k, dkv.v, start, dkv.cursor)
     got = da.decode_attention(*dargs, n_local=rekv.n_local, return_m=True)
-    decode_check = held(f"{quant} decode cache attention", got,
+    decode_check = held(f"{name} decode cache attention", got,
                         da.decode_attention_ref(*dargs, n_local=rekv.n_local,
                                                 return_m=True))
     sargs = (qd, dkv.k, got[1], start, dkv.cursor)
-    score_check = held(f"{quant} decode cache",
+    score_check = held(f"{name} decode cache",
                        da.decode_score(*sargs, n_local=rekv.n_local),
                        da.decode_score_ref(*sargs, n_local=rekv.n_local))
     # where the time of a full-window chunk goes (after the counted run):
@@ -756,6 +776,8 @@ def quant_phase(model, cfg, quant, n_chunks, questions, card, dev,
     targets = [
         (sess.vision, "full", "vision_full"),
         (sess.vision, "cached", "vision_cached"),
+        (sg, "_attn_full", "siglip_attention_full_path"),
+        (sg, "_f32_mm", "siglip_f32_attention_products"),
         (sess.lm, "encode_step", "lm_append"),
         (sa, "_launch", "stream_attention_kernel")]
     split = [segments(lambda: sess.encode_video(rng.integers(
@@ -773,7 +795,7 @@ def quant_phase(model, cfg, quant, n_chunks, questions, card, dev,
     steady = chunk_s[2:]
     full = [dt for k, dt in enumerate(chunk_s) if window[k] == W]
     full_fps = [8 / dt for dt in full]
-    rec = {"phase": f"session llava-ov-7b {quant} pages", "card": card,
+    rec = {"phase": f"session llava-ov-7b {name}", "card": card,
            "frames": 8 * n_chunks, "chunks": n_chunks,
            "first_init_active_chunk": k_init, "first_full_window_chunk":
            k_full, "window_pages": W, "answers": answers,
@@ -801,8 +823,345 @@ def quant_phase(model, cfg, quant, n_chunks, questions, card, dev,
     if not all(c["agrees"] for c in (stream_check, decode_check,
                                       score_check)) or \
             rec["init_active_on_state"] != 1:
-        raise RuntimeError(f"{quant} session state checks failed {rec}")
+        raise RuntimeError(f"{name} session state checks failed {rec}")
     return rec
+
+
+def lm_bytes(lm) -> int:
+    """The bytes of the LM's weights: parameters and (int8) buffers."""
+    return sum(t.numel() * t.element_size()
+               for t in list(lm.parameters()) + list(lm.buffers()))
+
+
+def decode_step_ms(lm, step) -> dict:
+    """A 1-token decode step (`step` runs one): its span issued as usual
+    (median of 3), and its device time as the sum of parts each issued
+    behind a sleep kernel, since a whole 7B step issues more launches than
+    the CUDA launch queue holds: one LM layer (probe(); the median of
+    the layers at a quarter, half and three quarters of the depth) times
+    the layer count, plus the head (cuda_ms)."""
+    step()
+    span = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        step()
+        b.record()
+        torch.cuda.synchronize()
+        span.append(a.elapsed_time(b))
+    L = lm.cfg.num_layers
+    layers = [probe(step, [(lm, "_qkv")], (lm, "_finish_layer"),
+                    L * f // 4 + 1, sleep=True) for f in (1, 2, 3)]
+    ok = [r["span_ms"] for r in layers if r["host_ms"] < r["sleep_ms"]]
+    x = torch.randn((1, 1, lm.cfg.hidden_size), device=lm.device,
+                    dtype=lm.dtype)
+    head = cuda_ms(lambda: lm._lm_head(x), reps=5)
+    layer = float(np.median(ok)) if ok else None
+    return {"span_ms": float(np.median(span)), "span_ms_all": span,
+            "layer_device_ms": layer, "head_device_ms": head,
+            "device_ms": L * layer + head if layer else None,
+            "layers": layers}
+
+
+def cosine(a, b) -> float:
+    a, b = a.double().reshape(-1), b.double().reshape(-1)
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def weights_phase(wq, questions, card, dev, gen) -> dict:
+    """Phase 8: bench.py's 7b mode on the port.  A fresh seeded llava-ov-7b
+    width model with the tower in bf16: its prompt logits (256 tokens) and
+    one decode step on bf16 weights, recording every LM matmul's input and
+    output and the prompt's embedding rows on the way; then the session of
+    bench.py's settings (weights_quant=wq quantizes the LM at build; bf16
+    pages and state, max_blocks 768) streams phase 6's 40 chunks and
+    answers phase 6's questions; then the same on int8 weights.
+
+    tests/test_quant.py's criteria (cosine > 0.999, top-1 agreement > 0.9)
+    are held per quantized product: each recorded matmul replayed on its
+    recorded bf16 input through the int8 weights against its bf16 output
+    (the head's top-1 over the prompt's positions), and the embedding rows.
+    The whole model's prompt logits against bf16's are reported beside
+    them, not held: on random weights each layer amplifies the products'
+    differences, and the port's int8 products are stc_tpu's (PERF.md
+    §6)."""
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    model, cfg = make_model(dev, seed=8, text=QWEN2_7B,
+                            vision_dtype=torch.bfloat16)
+    lm = model.text
+    scfg = session_cfg(15000, 64, 256, 16, 8, 768, weights_quant=wq)
+    rekv = scfg.rekv
+    T = rekv.max_prompt_tokens
+    ids = torch.from_numpy(np.random.default_rng(8).integers(
+        0, cfg.text.vocab_size, size=(1, T))).to(dev)
+    n, one = (torch.tensor([k], dtype=torch.int32, device=dev)
+              for k in (T, 1))
+
+    def prompt():
+        """Prompt logits (T, V) float32 from a fresh decode cache, and a
+        1-token decode step after it."""
+        dkvs = lm.init_decode_state(rekv, 1, torch.bfloat16)
+        logits, dkvs = lm.decode_step(rekv, dkvs, lm.embed_tokens(ids), n)
+        tok = lm.embed_tokens(ids[:, -1:])
+        step = decode_step_ms(lm, lambda: lm.decode_step(rekv, dkvs, tok,
+                                                         one))
+        return logits[0].float(), step
+
+    products = []
+
+    def record(f):
+        def g(h, mod, name):
+            out = f(h, mod, name)
+            if len(products) < 4 * cfg.text.num_layers + 1:  # the prompt
+                products.append((h, mod, name, out))
+            return out
+        return g
+
+    rows = lm.embed_tokens(ids)
+    with patched([(lm, "_mm", record)]):
+        want, bf16_step = prompt()
+    bf16_bytes = lm_bytes(lm)
+    rec = stream_phase(model, cfg, scfg,
+                       f"{wq} weights, bf16 vision, bf16 pages", 40,
+                       questions, card, dev, gen)
+    if lm.int8_group != scfg.weights_quant_group:
+        raise RuntimeError(f"{wq}: the session did not quantize the LM")
+    per = {"embed": cosine(lm.embed_tokens(ids), rows)}
+    for h, mod, name, out in products:
+        c = cosine(lm._mm(h, mod, name), out)
+        per[name] = min(per.get(name, 1.0), c)
+        if name == "lm_head":
+            head_top1 = float((lm._mm(h, mod, name).argmax(-1)
+                               == out.argmax(-1)).float().mean())
+    del products, rows
+    got, q_step = prompt()
+    q_bytes = lm_bytes(lm)
+    rec.update({
+        "weights_quant": wq, "vision_dtype": "bfloat16",
+        "lm_weight_bytes_bf16": bf16_bytes, "lm_weight_bytes": q_bytes,
+        "lm_weight_bytes_over_bf16": q_bytes / bf16_bytes,
+        "prompt_tokens": T,
+        "product_cosine_min": per, "head_top1_agreement": head_top1,
+        "logits_cosine": cosine(got, want),
+        "top1_agreement": float((want.argmax(-1) == got.argmax(-1))
+                                .float().mean()),
+        "decode_step_bf16": bf16_step, "decode_step": q_step,
+        "decode_step_device_over_bf16":
+            q_step["device_ms"] / bf16_step["device_ms"]
+            if q_step["device_ms"] and bf16_step["device_ms"] else None,
+        "decode_layer_device_over_bf16":
+            q_step["layer_device_ms"] / bf16_step["layer_device_ms"]
+            if q_step["layer_device_ms"] and bf16_step["layer_device_ms"]
+            else None,
+        "head_device_over_bf16":
+            q_step["head_device_ms"] / bf16_step["head_device_ms"],
+        "decode_step_span_over_bf16":
+            q_step["span_ms"] / bf16_step["span_ms"],
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+        "seconds": time.perf_counter() - t_phase})
+    del model, lm, want, got
+    torch.cuda.empty_cache()
+    if not (min(per.values()) > 0.999 and head_top1 > 0.9):
+        raise RuntimeError(f"{wq}: quantized products cosine {per}, head "
+                           f"top-1 agreement {head_top1}")
+    return rec
+
+
+def loader_phase(card, dev) -> dict:
+    """Phase 9: phase 3's llava-ov-0.5b model with its head tied to the
+    embedding (tower weights rounded to bf16 values) written as a 2-shard
+    bf16 HF checkpoint in the 'model.language_model.*' layout, loaded
+    through MODEL_REGISTRY["llava_ov_7b"] onto the card: every tensor
+    bit-equal to its source, and phase 3's first question (after the init
+    prompt and two 8-frame chunks) answered with the same ids."""
+    from stc_tpu_torch.models import MODEL_REGISTRY
+    from stc_tpu_torch.models import llava_onevision as lo
+    t_phase = time.perf_counter()
+    model, cfg = make_model(dev, seed=0)
+    tie_head_and_round_vision(model)
+    scfg = session_cfg(15000, 64, 256, 16, 8, 1024)
+    frames = np.random.default_rng(0).integers(0, 256, size=(16, 384, 384, 3),
+                                               dtype=np.uint8)
+    path = tempfile.mkdtemp(prefix="stc_tpu_torch_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        nbytes = write_hf_checkpoint(model, path, n_shards=2)
+        write_s = time.perf_counter() - t0
+        shards = sorted(f for f in os.listdir(path)
+                        if f.endswith(".safetensors"))
+        (sess, lcfg), load_s = timed(lambda: MODEL_REGISTRY["llava_ov_7b"](
+            path, scfg=scfg, dtype=torch.bfloat16,
+            vision_dtype=torch.float32, device=dev))
+    finally:
+        shutil.rmtree(path)
+    src, got = model.state_dict(), sess.model.state_dict()
+    differ = [k for k in src if k not in got or got[k].dtype != src[k].dtype
+              or not torch.equal(got[k], src[k])]
+    answers = []
+    for s in (lo.build_session(model, scfg, state_dtype=torch.bfloat16,
+                               device=dev), sess):
+        s.encode_init_prompt(list(range(100, 114)))
+        for i in (0, 8):
+            s.encode_video(frames[i:i + 8])
+        answers.append(s.question_answering(
+            list(range(200, 212)), list(range(300, 320)), [151645],
+            max_new_tokens=16))
+    rec = {"phase": "loader llava-ov-0.5b", "card": card,
+           "checkpoint_bytes": nbytes, "shards": shards,
+           "write_s": write_s, "load_s": load_s,
+           "tensors": len(src), "tensors_differ": differ,
+           "config_equal": lcfg == dataclasses.replace(
+               cfg, text=dataclasses.replace(cfg.text,
+                                             tie_embeddings=True)),
+           "answers": answers, "path_removed": not os.path.exists(path),
+           "seconds": time.perf_counter() - t_phase}
+    del model, sess, src, got
+    torch.cuda.empty_cache()
+    if differ or not rec["config_equal"] or answers[0] != answers[1] or \
+            not answers[0]:
+        raise RuntimeError(f"loader phase failed {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 9: an HF checkpoint written here, read back through the loader
+# ---------------------------------------------------------------------------
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """A .safetensors file without the safetensors package: 8-byte
+    little-endian header length, the JSON header (padded to 8 bytes), the
+    raw little-endian bytes, one tensor at a time; the dtype names are the
+    port's reader's.  Returns the file's bytes."""
+    from stc_tpu_torch.models.convert import SAFETENSORS_DTYPES
+    names = {v: k for k, v in SAFETENSORS_DTYPES.items()}
+    header, off = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": names[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [off, off + n]}
+        off += n
+    h = json.dumps(header).encode()
+    h += b" " * (-len(h) % 8)
+    with open(path, "wb") as f:
+        f.write(len(h).to_bytes(8, "little"))
+        f.write(h)
+        for t in tensors.values():
+            t = t.detach().contiguous().cpu().reshape(-1)
+            f.write(t.view(torch.uint8).numpy().tobytes())
+    return 8 + len(h) + off
+
+
+def hf_state(model) -> dict:
+    """The port's LlavaOV as an HF LLaVA-OneVision state dict in the
+    'model.language_model.*' layout ((out, in) matrices, q/k/v and gate/up
+    apart, the patch conv (C, 3, P, P)); no lm_head (the head is tied)."""
+    out = {}
+    t, tc = model.text, model.cfg.text
+    pre = "model.language_model."
+    q_end = tc.num_heads * tc.head_dim
+    k_end = q_end + tc.num_kv_heads * tc.head_dim
+    F_ = tc.intermediate_size
+    out[pre + "embed_tokens.weight"] = t.embed
+    out[pre + "norm.weight"] = t.norm_f
+    for i, lp in enumerate(t.layers):
+        p = f"{pre}layers.{i}."
+        out[p + "input_layernorm.weight"] = lp.ln1
+        out[p + "post_attention_layernorm.weight"] = lp.ln2
+        for n, (a, b) in {"q": (0, q_end), "k": (q_end, k_end),
+                          "v": (k_end, None)}.items():
+            out[p + f"self_attn.{n}_proj.weight"] = lp.wqkv[:, a:b].t()
+            out[p + f"self_attn.{n}_proj.bias"] = lp.bqkv[a:b]
+        out[p + "self_attn.o_proj.weight"] = lp.wo.t()
+        out[p + "mlp.gate_proj.weight"] = lp.w_gateup[:, :F_].t()
+        out[p + "mlp.up_proj.weight"] = lp.w_gateup[:, F_:].t()
+        out[p + "mlp.down_proj.weight"] = lp.w_down.t()
+    v, vc = model.vision, model.cfg.vision
+    pre = "model.vision_tower.vision_model."
+    P = vc.patch_size
+    out[pre + "embeddings.patch_embedding.weight"] = v.patch_w.t().reshape(
+        vc.hidden_size, 3, P, P)
+    out[pre + "embeddings.patch_embedding.bias"] = v.patch_b
+    out[pre + "embeddings.position_embedding.weight"] = v.pos_embed
+    out[pre + "post_layernorm.weight"] = v.post_ln_w
+    out[pre + "post_layernorm.bias"] = v.post_ln_b
+    names = {"ln1_w": "layer_norm1.weight", "ln1_b": "layer_norm1.bias",
+             "wq": "self_attn.q_proj.weight", "bq": "self_attn.q_proj.bias",
+             "wk": "self_attn.k_proj.weight", "bk": "self_attn.k_proj.bias",
+             "wv": "self_attn.v_proj.weight", "bv": "self_attn.v_proj.bias",
+             "wo": "self_attn.out_proj.weight",
+             "bo": "self_attn.out_proj.bias",
+             "ln2_w": "layer_norm2.weight", "ln2_b": "layer_norm2.bias",
+             "fc1": "mlp.fc1.weight", "fc1_b": "mlp.fc1.bias",
+             "fc2": "mlp.fc2.weight", "fc2_b": "mlp.fc2.bias"}
+    for i, lp in enumerate(v.layers):
+        for name, key in names.items():
+            w = getattr(lp, name)
+            out[f"{pre}encoder.layers.{i}.{key}"] = w.t() if w.dim() == 2 \
+                else w
+    pj = model.projector
+    pre = "model.multi_modal_projector."
+    out[pre + "linear_1.weight"] = pj.w1.t()
+    out[pre + "linear_1.bias"] = pj.b1
+    out[pre + "linear_2.weight"] = pj.w2.t()
+    out[pre + "linear_2.bias"] = pj.b2
+    return out
+
+
+@torch.no_grad()
+def tie_head_and_round_vision(model) -> None:
+    """lm_head <- embed^T, and the tower's and projector's float32 weights
+    rounded to bf16 values, so that a bf16 checkpoint holds them exactly."""
+    model.text.lm_head.copy_(model.text.embed.t())
+    for mod in (model.vision, model.projector):
+        for prm in mod.parameters():
+            prm.copy_(prm.to(torch.bfloat16))
+
+
+def write_hf_checkpoint(model, path: str, n_shards: int = 2) -> int:
+    """model as a bf16 HF LLaVA-OneVision checkpoint directory: config.json
+    and n_shards .safetensors shards of about equal bytes.  Returns the
+    shards' bytes."""
+    state = {k: v.to(torch.bfloat16) for k, v in hf_state(model).items()}
+    total = sum(v.numel() * 2 for v in state.values())
+    shards, cur, size = [], {}, 0
+    for k, v in state.items():
+        cur[k] = v
+        size += v.numel() * 2
+        if size >= total * (len(shards) + 1) / n_shards and \
+                len(shards) < n_shards - 1:
+            shards.append(cur)
+            cur = {}
+    shards.append(cur)
+    nbytes = sum(write_safetensors(
+        os.path.join(path, f"model-{i + 1:05d}-of-{n_shards:05d}"
+                     ".safetensors"), sh) for i, sh in enumerate(shards))
+    tc, vc = model.cfg.text, model.cfg.vision
+    config = {
+        "model_type": "llava_onevision",
+        "text_config": {
+            "model_type": "qwen2", "vocab_size": tc.vocab_size,
+            "hidden_size": tc.hidden_size,
+            "num_hidden_layers": tc.num_layers,
+            "num_attention_heads": tc.num_heads,
+            "num_key_value_heads": tc.num_kv_heads,
+            "intermediate_size": tc.intermediate_size,
+            "rope_theta": tc.rope_base, "rms_norm_eps": tc.rms_eps,
+            "tie_word_embeddings": True, "torch_dtype": "bfloat16"},
+        "vision_config": {
+            "model_type": "siglip_vision_model",
+            "hidden_size": vc.hidden_size,
+            "num_hidden_layers": vc.num_layers,
+            "num_attention_heads": vc.num_heads,
+            "intermediate_size": vc.intermediate_size,
+            "image_size": vc.image_size, "patch_size": vc.patch_size},
+        "vision_feature_layer": -1,
+        "vision_feature_select_strategy": "full"}
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f, indent=1)
+    return nbytes
 
 
 def timed(fn):
@@ -1228,17 +1587,35 @@ def main() -> int:
 
     # ---- phases 6-7: llava-ov-7b width on int8 and int4 page stores ----
     model7, cfg7 = make_model(dev, seed=7, text=QWEN2_7B)
-    p6 = quant_phase(model7, cfg7, "int8", 40,
-                     [(list(range(200, 212)), list(range(300, 316))),
-                      (list(range(400, 409)), list(range(500, 516)))],
-                     card, dev, gen)
+    two_questions = [(list(range(200, 212)), list(range(300, 316))),
+                     (list(range(400, 409)), list(range(500, 516)))]
+    torch.cuda.reset_peak_memory_stats()
+    p6 = stream_phase(model7, cfg7,
+                      session_cfg(15000, 64, 256, 16, 8, 1024,
+                                  kv_quant="int8"), "int8 pages", 40,
+                      two_questions, card, dev, gen)
     emit(p6)
     RECORD["phases"]["session_7b_int8"] = p6
-    p7 = quant_phase(model7, cfg7, "int4", 40,
-                     [(list(range(200, 212)), list(range(300, 316)))],
-                     card, dev, gen)
+    torch.cuda.reset_peak_memory_stats()
+    p7 = stream_phase(model7, cfg7,
+                      session_cfg(15000, 64, 256, 16, 8, 1024,
+                                  kv_quant="int4"), "int4 pages", 40,
+                      two_questions[:1], card, dev, gen)
     emit(p7)
     RECORD["phases"]["session_7b_int4"] = p7
+    del model7
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: bench.py's 7b mode: int8 weights, bf16 vision ----
+    for wq in ("int8", "int8_g128"):
+        p8 = weights_phase(wq, two_questions, card, dev, gen)
+        emit(p8)
+        RECORD["phases"][f"session_7b_{wq}_weights"] = p8
+
+    # ---- phase 9: the HF loader at llava-ov-0.5b width ----
+    p9 = loader_phase(card, dev)
+    emit(p9)
+    RECORD["phases"]["loader"] = p9
 
     # ---- the kernels line, then the device line ----
     def bound_by(c):

@@ -159,18 +159,30 @@ class SessionConfig:
     cacher: CacherConfig = dataclasses.field(default_factory=CacherConfig)
     pruner: PrunerConfig = dataclasses.field(default_factory=PrunerConfig)
     encode_chunk_frames: int = 1
+    # LM weight storage: 'none' (the model dtype) | 'int8' (per-output-
+    # channel weight-only quantization, Qwen2.quantize_int8) | 'int8_g<N>'
+    # (one scale per group of N input rows; N divides every contraction dim)
     weights_quant: str = "none"
     ingest_format: str = "rgb"
 
     def __post_init__(self):
-        assert self.weights_quant in ("none", "int8") or \
-            self.weights_quant.startswith("int8_g"), self.weights_quant
+        assert (self.weights_quant in ("none", "int8")
+                or (self.weights_quant.startswith("int8_g")
+                    and self.weights_quant[6:].isdigit()
+                    and int(self.weights_quant[6:]) > 0)), self.weights_quant
         assert self.ingest_format in ("rgb", "yuv420"), self.ingest_format
+
+    @property
+    def weights_quant_group(self) -> int:
+        """Sub-channel group size (input rows per scale); 0 = per-channel."""
+        if self.weights_quant.startswith("int8_g"):
+            return int(self.weights_quant[6:])
+        return 0
 
     def check_main_path(self) -> None:
         self.rekv.check_main_path()
         self.cacher.check_main_path()
-        if self.weights_quant != "none" or self.ingest_format != "rgb":
+        if self.ingest_format != "rgb":
             raise NotImplementedError(
-                "weight quantization and yuv420 ingest are not ported yet "
-                "(ROADMAP.md queue 1)")
+                "yuv420 ingest is not ported yet (ROADMAP.md queue 1, "
+                "item 17)")

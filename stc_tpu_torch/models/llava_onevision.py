@@ -22,6 +22,7 @@ from stc_tpu_torch.compress.pruner import init_pruner_state, stc_prune
 from stc_tpu_torch.config import SessionConfig
 from stc_tpu_torch.device import resolve_device
 from stc_tpu_torch.models import qwen2 as qw
+from stc_tpu_torch.models import register_model
 from stc_tpu_torch.models import siglip as sg
 from stc_tpu_torch.runtime.vlm import Preprocessor, VisionPipeline, VLMSession
 
@@ -170,3 +171,45 @@ def build_session(model: LlavaOV, scfg: SessionConfig,
     """A single-stream pixel session over `model`, moved to `device`."""
     model = model.to(resolve_device(device))
     return LlavaOVSession(model, scfg, state_dtype=state_dtype)
+
+
+@register_model("llava_ov_7b")
+def load_llava_ov_7b(model_path: str, scfg: SessionConfig = None,
+                     dtype=torch.bfloat16, vision_dtype=torch.float32,
+                     device="cuda"):
+    """A session over an HF LLaVA-OneVision checkpoint directory
+    (config.json + *.safetensors or *.bin shards), converted tensor by
+    tensor onto `device`: the LM in `dtype`, the tower and projector in
+    `vision_dtype`, the session state in `dtype`.  Returns (session, cfg)."""
+    from stc_tpu_torch.models.convert import (convert_projector,
+                                              convert_qwen2, convert_siglip,
+                                              find_prefix, load_hf_state,
+                                              qwen2_config_from_hf,
+                                              read_hf_config)
+    device = resolve_device(device)
+    hf = read_hf_config(model_path)
+    v = hf.vision_config
+    vcfg = sg.SiglipConfig(
+        hidden_size=v.hidden_size, num_layers=v.num_hidden_layers,
+        num_heads=v.num_attention_heads,
+        intermediate_size=v.intermediate_size, image_size=v.image_size,
+        patch_size=v.patch_size)
+    cfg = LlavaOVConfig(vision=vcfg,
+                        text=qwen2_config_from_hf(hf.text_config))
+    state = load_hf_state(model_path)
+    # HF key layouts drift across transformers versions ('model.'-nested in
+    # newer releases); probe for the actual prefixes
+    vpfx = find_prefix(state, "embeddings.patch_embedding.weight", (
+        "vision_tower.vision_model.", "model.vision_tower.vision_model."))
+    ppfx = find_prefix(state, "linear_1.weight", (
+        "multi_modal_projector.", "model.multi_modal_projector."))
+    lpfx = find_prefix(state, "layers.0.self_attn.q_proj.weight", (
+        "language_model.model.", "model.language_model.model.",
+        "model.language_model."))
+    model = LlavaOV(cfg, dtype, vision_dtype, device)
+    convert_siglip(state, model.vision, prefix=vpfx)
+    convert_projector(state, model.projector, prefix=ppfx)
+    convert_qwen2(state, model.text, prefix=lpfx)
+    del state
+    return build_session(model, scfg or SessionConfig(), state_dtype=dtype,
+                         device=device), cfg

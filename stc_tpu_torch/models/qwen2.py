@@ -13,6 +13,10 @@ slice.  Entry points mirror the JAX call graph:
   decode_step       prompt prefill / one-token decode over the decode cache
   greedy_decode     the answer loop, never emitting a stop token first
   answer_question   retrieval + prefill + greedy decode
+
+``Qwen2.quantize_int8`` turns the weights into int8 with float32 scales
+(``stc_tpu``'s ``quantize_params_int8``); every matmul then dequantizes its
+weight inside the call, at ``stc_tpu``'s rounding points (``_mm``).
 """
 
 from __future__ import annotations
@@ -59,6 +63,37 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+# the matrices quantize_int8 stores as int8 in each layer
+QUANT_MATRICES = ("wqkv", "wo", "w_gateup", "w_down")
+
+
+def quantize_weight(w: torch.Tensor, group_size: int = 0):
+    """Symmetric int8 of an (in, out) matrix: (int8 (in, out), float32
+    scales), the scales (out,) per output channel, or (in/G, out) per group
+    of G = group_size input rows.  stc_tpu's quantize_params_int8: scale =
+    max(max |w|, 1e-8) / 127 over the rows it covers, q = round(w / scale),
+    half to even."""
+    wf = w.to(torch.float32)
+    if group_size:
+        n_in, n_out = wf.shape
+        if n_in % group_size:
+            raise ValueError(f"group size {group_size} does not divide the "
+                             f"{n_in} input rows of a {tuple(w.shape)} "
+                             "matrix")
+        wf = wf.reshape(n_in // group_size, group_size, n_out)
+    s = _int8_scale(wf.abs().amax(dim=-2, keepdim=True))
+    q = torch.round(wf / s).to(torch.int8).reshape(w.shape)
+    return q, s.squeeze(-2)
+
+
+def _int8_scale(amax: torch.Tensor) -> torch.Tensor:
+    """max(amax, 1e-8) / 127, correctly rounded on every device: CUDA
+    divides by a Python number through its reciprocal, which can land an
+    ulp away, so the divisor is a tensor."""
+    a = amax.clamp_min(1e-8)
+    return a / torch.full_like(a, 127.0)
+
+
 class Qwen2Layer(nn.Module):
     def __init__(self, cfg: Qwen2Config, dtype, device):
         super().__init__()
@@ -97,13 +132,17 @@ class Qwen2(nn.Module):
                                                 device=device),
                                     requires_grad=False)
 
+        # None: weights in the model dtype; else quantize_int8's group size
+        # (0: int8 per output channel)
+        self.int8_group: Optional[int] = None
+
     @property
     def dtype(self):
-        return self.embed.dtype
+        return self.norm_f.dtype
 
     @property
     def device(self):
-        return self.embed.device
+        return self.norm_f.device
 
     @torch.no_grad()
     def init_random_params(self, generator: torch.Generator,
@@ -126,6 +165,40 @@ class Qwen2(nn.Module):
                 rnd(w)
         return self
 
+    @torch.no_grad()
+    def quantize_int8(self, group_size: int = 0) -> "Qwen2":
+        """Weight-only int8, in place (stc_tpu's quantize_params_int8): each
+        layer's wqkv / wo / w_gateup / w_down and lm_head become `<name>_q`
+        int8 buffers with float32 scales `<name>_s` (out,) per output
+        channel, or `<name>_gs` (in/G, out) per group of G = group_size
+        input rows; embed becomes int8 rows `embed_q` with per-row scales
+        `embed_s`.  Norms and biases stay in the model dtype.  One matrix
+        at a time, each freed once quantized, so the peak above the model
+        is one matrix's temporaries.  Idempotent: a quantized model is
+        returned as it is."""
+        if self.int8_group is not None:
+            return self
+        skey = "_gs" if group_size else "_s"
+
+        def swap(mod, name, q, suffix, s):
+            delattr(mod, name)
+            mod.register_buffer(name + "_q", q)
+            mod.register_buffer(name + suffix, s)
+
+        for lp in self.layers:
+            for name in QUANT_MATRICES:
+                q, s = quantize_weight(getattr(lp, name), group_size)
+                swap(lp, name, q, skey, s)
+        e = self.embed.to(torch.float32)
+        s = _int8_scale(e.abs().amax(dim=-1, keepdim=True))
+        q = torch.round(e / s).to(torch.int8)
+        del e
+        swap(self, "embed", q, "_s", s[:, 0])
+        q, s = quantize_weight(self.lm_head, group_size)
+        swap(self, "lm_head", q, skey, s)
+        self.int8_group = group_size
+        return self
+
     # ------------------------------------------------------------------ #
     def init_stream_state(self, rekv: ReKVConfig, batch: int,
                           dtype=torch.bfloat16) -> StreamKV:
@@ -142,28 +215,47 @@ class Qwen2(nn.Module):
                                      layers=c.num_layers)
 
     def embed_tokens(self, ids: torch.Tensor) -> torch.Tensor:
-        return self.embed[ids.to(torch.int64)]
+        ids = ids.to(torch.int64)
+        if self.int8_group is None:
+            return self.embed[ids]
+        dt = self.dtype
+        return self.embed_q[ids].to(dt) * self.embed_s[ids][..., None].to(dt)
+
+    def _mm(self, h: torch.Tensor, mod: nn.Module, name: str):
+        """h @ mod.<name>; on int8 weights the weight dequantizes inside
+        the call at stc_tpu's rounding points (qwen2._mm): per channel
+        (h @ q.to(h.dtype)) * s.to(h.dtype); per group the weight in
+        float32 times its group's scales, rounded once to h.dtype, then
+        one matmul."""
+        if self.int8_group is None:
+            return h @ getattr(mod, name)
+        q = getattr(mod, name + "_q")
+        if not self.int8_group:
+            return (h @ q.to(h.dtype)) * getattr(mod, name + "_s").to(h.dtype)
+        gs = getattr(mod, name + "_gs")
+        n_in, n_out = q.shape
+        w = (q.reshape(gs.shape[0], -1, n_out).to(torch.float32)
+             * gs[:, None, :]).to(h.dtype)
+        return h @ w.reshape(n_in, n_out)
 
     def _qkv(self, lp: Qwen2Layer, h: torch.Tensor):
         c = self.cfg
         B, T, _ = h.shape
         Hq, Hkv, D = c.num_heads, c.num_kv_heads, c.head_dim
-        qkv = h @ lp.wqkv + lp.bqkv
+        qkv = self._mm(h, lp, "wqkv") + lp.bqkv
         q, k, v = qkv.split([Hq * D, Hkv * D, Hkv * D], dim=-1)
         q = q.reshape(B, T, Hq, D).transpose(1, 2)
         k = k.reshape(B, T, Hkv, D).transpose(1, 2)
         v = v.reshape(B, T, Hkv, D).transpose(1, 2)
         return q, k, v
 
-    @staticmethod
-    def _proj_out(lp: Qwen2Layer, o):
+    def _proj_out(self, lp: Qwen2Layer, o):
         B, Hq, T, D = o.shape
-        return o.transpose(1, 2).reshape(B, T, Hq * D) @ lp.wo
+        return self._mm(o.transpose(1, 2).reshape(B, T, Hq * D), lp, "wo")
 
-    @staticmethod
-    def _mlp(lp: Qwen2Layer, h):
-        g, u = (h @ lp.w_gateup).chunk(2, dim=-1)
-        return (F.silu(g) * u) @ lp.w_down
+    def _mlp(self, lp: Qwen2Layer, h):
+        g, u = self._mm(h, lp, "w_gateup").chunk(2, dim=-1)
+        return self._mm(F.silu(g) * u, lp, "w_down")
 
     def _finish_layer(self, lp: Qwen2Layer, h, o):
         """Attention output projection and residual, then the MLP."""
@@ -171,7 +263,8 @@ class Qwen2(nn.Module):
         return h + self._mlp(lp, rms_norm(h, lp.ln2, self.cfg.rms_eps))
 
     def _lm_head(self, h):
-        return rms_norm(h, self.norm_f, self.cfg.rms_eps) @ self.lm_head
+        return self._mm(rms_norm(h, self.norm_f, self.cfg.rms_eps), self,
+                        "lm_head")
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()

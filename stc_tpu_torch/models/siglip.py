@@ -77,18 +77,35 @@ def layer_norm(x, w, b, eps):
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype) * w + b
 
 
+def _f32_mm(a, b):
+    """a @ b accumulated in float32 from the operands' own values (bf16 to
+    f32 is exact, and so is a bf16 product in f32): the JAX package's
+    preferred_element_type=float32, rounded by the caller where it casts.
+    Full float32 needs TF32 off on the card (PyTorch's default)."""
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
 def _attn_full(q, k, v, num_heads):
-    """Plain bidirectional softmax attention; q/k/v: (B, Tq|Tk, C)."""
+    """Plain bidirectional softmax attention; q/k/v: (B, Tq|Tk, C).  Both
+    products accumulate in float32; p rounds to the input dtype before
+    p @ V, the output once at the end."""
     B, Tq, C = q.shape
     Tk = k.shape[1]
     H, D = num_heads, C // num_heads
     qh = q.reshape(B, Tq, H, D).transpose(1, 2)
     kh = k.reshape(B, Tk, H, D).transpose(1, 2)
     vh = v.reshape(B, Tk, H, D).transpose(1, 2)
-    logits = (qh @ kh.transpose(-1, -2)).to(torch.float32) * (D ** -0.5)
+    logits = _f32_mm(qh, kh.transpose(-1, -2)) * (D ** -0.5)
     p = torch.softmax(logits, dim=-1).to(q.dtype)
-    o = p @ vh
-    return o.transpose(1, 2).reshape(B, Tq, C)
+    o = _f32_mm(p, vh)
+    return o.transpose(1, 2).reshape(B, Tq, C).to(q.dtype)
+
+
+def key_similarity(k, ref_k):
+    """Cosine similarity in float32 of each token's fresh key (F, T, C) to
+    the reference key (1, T, C): the cacher's gate."""
+    kf, rf = k.to(torch.float32), ref_k.to(torch.float32)
+    return (kf * rf).sum(-1) / (kf.norm(dim=-1) * rf.norm(dim=-1) + 1e-8)
 
 
 def _scatter_tokens(base, idx, vals):
@@ -145,8 +162,7 @@ class SiglipLayer(nn.Module):
         D = C // H
         hn = layer_norm(h, self.ln1_w, self.ln1_b, eps)
         k_full = hn @ self.wk + self.bk
-        kf, rf = k_full.to(torch.float32), ref_k.to(torch.float32)
-        sim = (kf * rf).sum(-1) / (kf.norm(dim=-1) * rf.norm(dim=-1) + 1e-8)
+        sim = key_similarity(k_full, ref_k)
         upd = torch.topk(-sim, num_update, dim=-1).indices
         upd = torch.sort(upd, dim=-1).values                    # (F, U)
         frow = torch.arange(F_, device=h.device)[:, None]
@@ -159,16 +175,17 @@ class SiglipLayer(nn.Module):
         v_sel = toks @ self.wv + self.bv
         qh = q_sel.reshape(F_, num_update, H, D).transpose(1, 2)
         kh = k_full.reshape(F_, T, H, D).transpose(1, 2)
-        logits = (qh @ kh.transpose(-1, -2)).to(torch.float32) * (D ** -0.5)
+        logits = _f32_mm(qh, kh.transpose(-1, -2)) * (D ** -0.5)
         p = torch.softmax(logits, dim=-1).to(q_sel.dtype)       # (F,H,U,T)
         # attention against the scattered V without forming it:
-        #   p @ V = p @ ref_V + p[:, :, :, upd] @ (V_sel - ref_V[upd])
+        #   p @ V = p @ ref_V + p[:, :, :, upd] @ (V_sel - ref_V[upd]),
+        # both terms and their sum in float32
         rvh = ref_v[0].reshape(T, H, D).transpose(0, 1)         # (H, T, D)
-        o = p @ rvh
+        o = _f32_mm(p, rvh)
         p_sel = torch.gather(p, 3, upd[:, None, None, :].expand(
             F_, H, num_update, num_update))
         dv = (v_sel - ref_v[0][upd]).reshape(F_, num_update, H, D)
-        o = o + p_sel @ dv.transpose(1, 2).to(p_sel.dtype)
+        o = o + _f32_mm(p_sel, dv.transpose(1, 2).to(p_sel.dtype))
         attn_sel = o.transpose(1, 2).reshape(F_, num_update, C).to(h.dtype)
         attn_sel = attn_sel @ self.wo + self.bo
         h = merge(h, ref_attn, attn_sel)

@@ -4,9 +4,11 @@ main-path subset): the plug-and-play API
     clear_cache() / encode_init_prompt(ids) / encode_video_features(feats)
     / question_answering(...)
 
-over one device-resident page store.  Left out until their ROADMAP.md
-items land: the host tier (a stream past max_blocks raises), meshes, the
-serve router, speculative decode and external retrieval.
+over one device-resident page store.  With ``weights_quant`` set, the
+session quantizes the LM it is given to int8 at build (in place).  Left
+out until their ROADMAP.md items land: the host tier (a stream past
+max_blocks raises), meshes, the serve router, speculative decode and
+external retrieval.
 """
 
 from __future__ import annotations
@@ -38,6 +40,9 @@ class StreamingSession:
     def __init__(self, lm: Qwen2, session_cfg: SessionConfig, batch: int = 1,
                  state_dtype=torch.bfloat16):
         session_cfg.check_main_path()
+        if session_cfg.weights_quant != "none":
+            # in place, as stc_tpu's session quantizes its params at build
+            lm.quantize_int8(session_cfg.weights_quant_group)
         self.lm = lm
         self.mcfg = lm.cfg
         self.scfg = session_cfg

@@ -26,11 +26,15 @@ def _t(x) -> torch.Tensor:
 def qwen2_from_jax(tree, cfg: qw.Qwen2Config, dtype=torch.float32,
                    device="cuda") -> qw.Qwen2:
     """Unfused JAX Qwen2 params (wq/wk/wv, w_gate/w_up) -> Qwen2 with the
-    fused wqkv / w_gateup (the same weights, concatenated)."""
+    fused wqkv / w_gateup (the same weights, concatenated); a tree of
+    qwen2.quantize_params_int8 -> a Qwen2 on the same int8 weights and
+    scales."""
     return _fill_qwen2(qw.Qwen2(cfg, dtype, device), tree)
 
 
 def _fill_qwen2(lm: qw.Qwen2, tree) -> qw.Qwen2:
+    if "embed_q" in tree:
+        return _fill_qwen2_int8(lm, tree)
     lm.embed.copy_(_t(tree["embed"]))
     lm.norm_f.copy_(_t(tree["norm_f"]))
     lm.lm_head.copy_(_t(tree["lm_head"]))
@@ -46,6 +50,25 @@ def _fill_qwen2(lm: qw.Qwen2, tree) -> qw.Qwen2:
         lp.w_gateup.copy_(torch.cat([_t(L["w_gate"][i]), _t(L["w_up"][i])],
                                     dim=-1))
         lp.w_down.copy_(_t(L["w_down"][i]))
+    return lm
+
+
+def _fill_qwen2_int8(lm: qw.Qwen2, tree) -> qw.Qwen2:
+    """A tree of stc_tpu's quantize_params_int8 (fused, `*_q` int8 with
+    `*_s` or `*_gs` scales, `embed_q` / `embed_s`): quantize the module
+    first, which lays out the same buffers, then copy the tree's values
+    in (int8 values are exact in float32)."""
+    L = tree["layers"]
+    gs = L.get("wqkv_gs")
+    lm.quantize_int8(0 if gs is None else
+                     lm.cfg.hidden_size // np.shape(gs)[-2])
+    for name in ("embed_q", "embed_s", "norm_f", "lm_head_q", "lm_head_s",
+                 "lm_head_gs"):
+        if name in tree:
+            getattr(lm, name).copy_(_t(tree[name]))
+    for i, lp in enumerate(lm.layers):
+        for name, arr in L.items():
+            getattr(lp, name).copy_(_t(arr[i]))
     return lm
 
 

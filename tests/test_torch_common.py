@@ -9,6 +9,10 @@ Tolerances used across the port tests:
   package's own kernel tests use, tests/test_stream_attention.py).
 - DEEP_TOL (1e-4 abs/rel): through several layers of a model, where f32
   summation-order differences compound.
+- BF16_MAX_REL / BF16_RMS_REL (2^-6 of max |want|, 2^-7 of RMS want): bf16
+  outputs of the same arithmetic summed in another order.  One bf16 ulp
+  is at most 2^-7 of a value, so the max limit allows two ulps at the
+  largest magnitude; the RMS limit, one on average (assert_bf16_close).
 """
 
 import dataclasses
@@ -23,6 +27,21 @@ from stc_tpu_torch import config as tcfg
 F32_TOL = dict(rtol=1e-5, atol=1e-5)
 KERNEL_TOL = dict(rtol=2e-2, atol=2e-2)
 DEEP_TOL = dict(rtol=1e-4, atol=1e-4)
+BF16_MAX_REL = 2 ** -6
+BF16_RMS_REL = 2 ** -7
+
+
+def assert_bf16_close(got, want, err_msg=""):
+    """max |got - want| <= BF16_MAX_REL * max |want| and RMS(got - want) <=
+    BF16_RMS_REL * RMS(want), in float64."""
+    g = np.asarray(got, np.float64)
+    w = np.asarray(want, np.float64)
+    assert g.shape == w.shape, (g.shape, w.shape, err_msg)
+    d = g - w
+    max_err, scale = np.abs(d).max(), np.abs(w).max()
+    rms_err, rms = np.sqrt((d * d).mean()), np.sqrt((w * w).mean())
+    assert max_err <= BF16_MAX_REL * scale, (err_msg, max_err, scale)
+    assert rms_err <= BF16_RMS_REL * rms, (err_msg, rms_err, rms)
 
 
 def port_cfg(jax_cfg):

@@ -353,3 +353,80 @@ def test_decode_attend_past_the_window_on_card(cuda_device):
         assert (da.launches, da.score_launches) == before
     torch.testing.assert_close(outs["cuda:0"], outs["cpu"], rtol=1e-4,
                                atol=1e-4)
+
+
+def _tiny_pixel_cfg(**kw):
+    return SessionConfig(
+        rekv=ReKVConfig(n_init=4, n_local=128, block_size=3,
+                        exc_block_size=3, topk=4, max_blocks=64,
+                        max_prompt_tokens=32, max_new_tokens=8),
+        cacher=CacherConfig(update_token_ratio=0.5),
+        pruner=PrunerConfig(token_per_frame=3), **kw)
+
+
+def _tiny_answers(sess, seed):
+    frames = np.random.default_rng(seed).integers(0, 256, (4, 56, 56, 3),
+                                                  dtype=np.uint8)
+    sess.encode_init_prompt([1, 2, 3, 4])
+    for f in range(4):
+        sess.encode_video(frames[f:f + 1])
+    out = sess.question_answering([5, 6], [5, 6, 7], [0], max_new_tokens=6)
+    return out, sess.last_retrieved_indices
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["int8", "int8_g32"])
+def test_tiny_int8_weight_session_on_card_answers_as_on_cpu(cuda_device,
+                                                            quant):
+    """The session quantizes the LM at build on either device: the same
+    int8 weights and scales, and the same answer ids and retrieved blocks
+    on the card as on the CPU."""
+    from stc_tpu_torch.models import llava_onevision as lo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        model = lo.LlavaOV(lo.LlavaOVConfig.tiny(), dtype=torch.float32,
+                           device="cpu").init_random_params(
+                               torch.Generator().manual_seed(0))
+        sess = lo.build_session(model, _tiny_pixel_cfg(weights_quant=quant),
+                                state_dtype=torch.float32, device=dev)
+        assert sess.lm.int8_group == (32 if quant == "int8_g32" else 0)
+        runs[str(dev)] = (_tiny_answers(sess, 2),
+                          {k: v.cpu() for k, v in
+                           sess.lm.state_dict().items()})
+    (ans_cpu, w_cpu), (ans_card, w_card) = runs["cpu"], runs["cuda:0"]
+    assert ans_card == ans_cpu
+    for k, v in w_cpu.items():
+        if k.endswith(("_q", "_s", "_gs")):
+            assert torch.equal(w_card[k], v), k
+
+
+@pytest.mark.cuda
+def test_loader_on_card_reads_a_tiny_checkpoint(cuda_device, tmp_path):
+    """chip_smoke.py's writer makes a bf16 HF checkpoint of a tiny model
+    with a tied head; the loader puts it on the card bit for bit, and the
+    loaded session answers as the source model does on the card."""
+    import importlib.util
+    import pathlib
+    from stc_tpu_torch.models import MODEL_REGISTRY
+    from stc_tpu_torch.models import llava_onevision as lo
+    root = pathlib.Path(__file__).resolve().parents[1]
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  root / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    model = lo.LlavaOV(lo.LlavaOVConfig.tiny(), dtype=torch.bfloat16,
+                       device=cuda_device).init_random_params(
+                           torch.Generator(device=cuda_device).manual_seed(1))
+    cs.tie_head_and_round_vision(model)
+    cs.write_hf_checkpoint(model, str(tmp_path))
+    loaded, _ = MODEL_REGISTRY["llava_ov_7b"](
+        str(tmp_path), scfg=_tiny_pixel_cfg(), dtype=torch.bfloat16)
+    assert loaded.lm.device.type == "cuda"
+    src, got = model.state_dict(), loaded.model.state_dict()
+    for k in src:
+        assert got[k].device.type == "cuda", k
+        assert torch.equal(got[k], src[k]), k
+    source = lo.build_session(model, _tiny_pixel_cfg(),
+                              state_dtype=torch.bfloat16, device=cuda_device)
+    assert _tiny_answers(loaded, 3) == _tiny_answers(source, 3)

@@ -1,5 +1,6 @@
 """The port stands alone: stc_tpu_torch (and chip_smoke.py) import neither
-JAX nor any module of the JAX package stc_tpu."""
+JAX nor any module of the JAX package stc_tpu, nor safetensors,
+transformers or ml_dtypes (the card machine has none of them)."""
 
 import pathlib
 import re
@@ -11,9 +12,11 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "stc_tpu_torch"
 # word match: `stc_tpu` must not be followed by a word character, so the
 # port's own `stc_tpu_torch` passes
+NAMES = r"(?:jax|stc_tpu|safetensors|transformers|ml_dtypes)"
 FORBIDDEN = re.compile(
-    r"^\s*(?:import\s+[\w., ]*\b(?:jax|stc_tpu)\b(?!\w)"
-    r"|from\s+(?:jax|stc_tpu)\b(?![\w]))", re.M)
+    r"^\s*(?:import\s+[\w., ]*\b" + NAMES + r"\b(?!\w)"
+    r"|from\s+" + NAMES + r"\b(?![\w]))", re.M)
+BLOCKED = ("jax", "stc_tpu", "safetensors", "transformers", "ml_dtypes")
 
 
 def test_sources_import_no_jax_and_no_stc_tpu():
@@ -24,13 +27,18 @@ def test_sources_import_no_jax_and_no_stc_tpu():
     assert not bad, bad
     assert FORBIDDEN.search("from stc_tpu.config import ReKVConfig")
     assert FORBIDDEN.search("import jax.numpy as jnp")
+    assert FORBIDDEN.search("from safetensors.torch import load_file")
+    assert FORBIDDEN.search("    import transformers")
+    assert FORBIDDEN.search("import numpy, ml_dtypes")
     assert not FORBIDDEN.search("from stc_tpu_torch.ops import rope")
 
 
 def test_importing_and_running_the_port_loads_no_jax():
-    """A fresh interpreter imports every module of the port and runs a tiny
-    session on the CPU; neither jax nor stc_tpu ends up in sys.modules."""
-    code = textwrap.dedent("""
+    """A fresh interpreter imports every module of the port, runs a tiny
+    session on the CPU and reloads its model from an HF checkpoint
+    directory; none of jax, stc_tpu, safetensors, transformers or
+    ml_dtypes ends up in sys.modules."""
+    code = f"BLOCKED = {BLOCKED!r}\n" + textwrap.dedent("""
         import importlib, pkgutil, sys
         import numpy as np, torch
         import stc_tpu_torch
@@ -60,9 +68,23 @@ def test_importing_and_running_the_port_loads_no_jax():
         out = sess.question_answering([5, 6], [5, 6, 7], [0],
                                       max_new_tokens=4)
         assert 1 <= len(out) <= 4, out
+        # an HF checkpoint written by chip_smoke.py's writer loads back
+        # through the port's own shard reader
+        import tempfile
+        sys.path.insert(0, ".")
+        import chip_smoke
+        chip_smoke.tie_head_and_round_vision(model)
+        with torch.no_grad():  # the float32 LM too holds bf16 values
+            for prm in model.text.parameters():
+                prm.copy_(prm.to(torch.bfloat16))
+        with tempfile.TemporaryDirectory() as d:
+            chip_smoke.write_hf_checkpoint(model, d)
+            loaded, _ = lo.load_llava_ov_7b(d, scfg, dtype=torch.float32,
+                                            device="cpu")
+        src, got = model.state_dict(), loaded.model.state_dict()
+        assert all(torch.equal(src[k], got[k]) for k in src)
         leaked = [m for m in sys.modules
-                  if m == "jax" or m.startswith("jax.")
-                  or m == "stc_tpu" or m.startswith("stc_tpu.")]
+                  if m.split(".")[0] in BLOCKED]
         assert not leaked, leaked
         print("OK", len(mods))
     """)

@@ -2,7 +2,8 @@
 tests/test_llava_ov.py::make and the port's session, built from the same
 weights, stream frames, answer, stream on and answer again.  Answer ids,
 every layer's retrieved block indices and the page counters must be
-exactly equal, with the cacher on and off."""
+exactly equal, with the cacher on and off, at 1-, 2- and 4-frame chunks,
+across the init fill (n_local 12) and on bf16 state."""
 
 import numpy as np
 import jax
@@ -10,13 +11,16 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from stc_tpu.config import (CacherConfig, PrunerConfig, ReKVConfig,
+                            SessionConfig)
 from stc_tpu.kvcache.engine import score_blocks
 from stc_tpu.models import llava_onevision as jlo
 from stc_tpu.models import qwen2 as jq
 from stc_tpu_torch import weights
 from stc_tpu_torch.models import llava_onevision as tlo
 from test_llava_ov import make
-from test_torch_common import DEEP_TOL, np_tree, port_cfg, port_model_cfg
+from test_torch_common import (DEEP_TOL, assert_bf16_close, np_tree,
+                               port_cfg, port_model_cfg)
 
 
 def _jax_layer_indices(sess, question):
@@ -40,34 +44,73 @@ def _jax_layer_indices(sess, question):
     return out
 
 
-def _port_session(jsess, cfg, seed):
+def _port_session(jsess, cfg, seed, state_dtype=torch.float32):
     params = jlo.init_random_params(cfg, jax.random.key(seed))
     model = weights.params_from_jax(np_tree(params), port_model_cfg(cfg),
                                     device="cpu")
     return tlo.build_session(model, port_cfg(jsess.scfg),
-                             state_dtype=torch.float32, device="cpu")
+                             state_dtype=state_dtype, device="cpu")
 
 
-@pytest.mark.parametrize("cacher", ["cacher", "none"])
-def test_pixel_session_matches_jax(cacher):
-    jsess, cfg = make(seed=0, cacher=cacher)
-    tsess = _port_session(jsess, cfg, seed=0)
+def _jax_session(seed, cacher, chunk, n_local, state_dtype):
+    """tests/test_llava_ov.py::make's session with `chunk`-frame chunks,
+    n_local and state dtype as given."""
+    cfg = jlo.LlavaOVConfig.tiny()
+    scfg = SessionConfig(
+        rekv=ReKVConfig(n_init=4, n_local=n_local, block_size=3,
+                        exc_block_size=3, topk=4, max_blocks=64,
+                        max_prompt_tokens=32, max_new_tokens=8),
+        cacher=CacherConfig(strategy=cacher, update_token_ratio=0.5,
+                            cache_interval=2),
+        pruner=PrunerConfig(strategy="stc", token_per_frame=3),
+        encode_chunk_frames=chunk)
+    params = jlo.init_random_params(cfg, jax.random.key(seed))
+    return jlo.build_session(params, cfg, scfg,
+                             state_dtype=state_dtype), cfg
+
+
+@pytest.mark.parametrize("cacher,chunk,n_local,state", [
+    pytest.param("cacher", 1, 128, "f32", id="cacher"),
+    pytest.param("none", 1, 128, "f32", id="none"),
+    pytest.param("cacher", 2, 128, "f32", id="cacher-chunk2"),
+    pytest.param("cacher", 4, 128, "f32", id="cacher-chunk4"),
+    pytest.param("cacher", 1, 12, "f32", id="cacher-init-fill"),
+    pytest.param("cacher", 2, 12, "f32", id="cacher-init-fill-chunk2"),
+    pytest.param("cacher", 1, 128, "bf16", id="cacher-bf16-state"),
+    pytest.param("cacher", 2, 128, "bf16", id="cacher-bf16-state-chunk2"),
+    pytest.param("none", 1, 128, "bf16", id="none-bf16-state"),
+    pytest.param("none", 2, 128, "bf16", id="none-bf16-state-chunk2"),
+])
+def test_pixel_session_matches_jax(cacher, chunk, n_local, state):
+    jdt, tdt = {"f32": (jnp.float32, torch.float32),
+                "bf16": (jnp.bfloat16, torch.bfloat16)}[state]
+    jsess, cfg = _jax_session(0, cacher, chunk, n_local, jdt)
+    tsess = _port_session(jsess, cfg, seed=0, state_dtype=tdt)
     rng = np.random.default_rng(0)
     base = rng.uniform(0, 255, size=(56, 56, 3))
-    frames = np.clip(base[None] + rng.normal(0, 40, size=(10, 56, 56, 3)),
+    frames = np.clip(base[None] + rng.normal(0, 40, size=(12, 56, 56, 3)),
                      0, 255).astype(np.uint8)
     for s in (jsess, tsess):
         s.encode_init_prompt([1, 2, 3, 4])
     qas = [([7, 8, 9], [7, 8, 9, 10]), ([5, 6], [5, 6, 7])]
-    for (lo, hi), (question, prompt) in zip([(0, 6), (6, 10)], qas):
-        for f in range(lo, hi):
-            jsess.encode_video(frames[f:f + 1])
-            tsess.encode_video(frames[f:f + 1])
-        assert tsess.chunk_idx == jsess.chunk_idx == hi
+    # 6 then 4 frames, each rounded up to whole chunks
+    b1 = -(-6 // chunk) * chunk
+    b2 = b1 + -(-4 // chunk) * chunk
+    for (lo, hi), (question, prompt) in zip([(0, b1), (b1, b2)], qas):
+        for f in range(lo, hi, chunk):
+            jsess.encode_video(frames[f:f + chunk])
+            tsess.encode_video(frames[f:f + chunk])
+        assert tsess.chunk_idx == jsess.chunk_idx == hi // chunk
         np.testing.assert_array_equal(tsess.kvs.num_blocks.numpy(),
                                       np.asarray(jsess.kvs.num_blocks))
-        np.testing.assert_allclose(tsess.kvs.block_k.numpy(),
-                                   np.asarray(jsess.kvs.block_k), **DEEP_TOL)
+        np.testing.assert_array_equal(tsess.kvs.length.numpy(),
+                                      np.asarray(jsess.kvs.length))
+        got = tsess.kvs.block_k.float().numpy()
+        want = np.asarray(jsess.kvs.block_k, np.float32)
+        if state == "bf16":
+            assert_bf16_close(got, want, "block_k")
+        else:
+            np.testing.assert_allclose(got, want, **DEEP_TOL)
         want_idx = _jax_layer_indices(jsess, question)
         want = jsess.question_answering(question, prompt, stop_token_ids=[0],
                                         max_new_tokens=6)

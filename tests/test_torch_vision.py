@@ -1,7 +1,10 @@
 """The port's vision side against the JAX package on the CPU, same weights:
 SigLIP full chunks (features + cacher references), cached chunks (features
 close, recomputed rows exactly equal), the STC-Pruner's keeps over several
-chunks, bilinear pooling and the projector."""
+chunks, bilinear pooling and the projector.  The tower also runs in bf16 in
+both packages: features within the bf16 limits of test_torch_common, and
+the recomputed rows equal wherever the similarities are separated by more
+than the two packages' difference."""
 
 import numpy as np
 import jax
@@ -15,14 +18,20 @@ from stc_tpu.models import siglip as jsg
 from stc_tpu_torch import weights
 from stc_tpu_torch.compress import pruner as tp
 from stc_tpu_torch.models import llava_onevision as tlo
-from test_torch_common import DEEP_TOL, F32_TOL, np_tree, port_model_cfg, tt
+from stc_tpu_torch.models import siglip as tsg
+from test_torch_common import (DEEP_TOL, F32_TOL, assert_bf16_close, np_tree,
+                               port_model_cfg, tt)
+
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
 
 
-def _towers(seed=0):
+def _towers(seed=0, dtype="f32"):
+    jdt, tdt = DTYPES[dtype]
     cfg = jsg.SiglipConfig.tiny()
-    params = jsg.init_params(cfg, jax.random.key(seed))
+    params = jsg.init_params(cfg, jax.random.key(seed), dtype=jdt)
     tower = weights.siglip_from_jax(np_tree(params), port_model_cfg(cfg),
-                                    device="cpu")
+                                    dtype=tdt, device="cpu")
     return cfg, params, tower
 
 
@@ -87,6 +96,117 @@ def test_encode_cached_matches_jax(ratio):
     ht, rows_t = tower.encode_cached(tt(new_px), ct, ratio)
     np.testing.assert_array_equal(rows_t.numpy(), rows_j)
     np.testing.assert_allclose(ht.numpy(), hj, **DEEP_TOL)
+
+
+@pytest.mark.parametrize("T", [16, 729])
+def test_attention_bf16_rounds_where_jax_does(T):
+    """bf16 attention: both products accumulate in float32 and round once,
+    p to bf16 before p @ V, as stc_tpu's _attn_full.  Summation order is
+    the only difference left (a probability one bf16 ulp apart): at most
+    1% of the outputs differ, by at most 2^-8 of max |out| (rounding the
+    products in bf16 instead makes about half of them differ)."""
+    rng = np.random.default_rng(T)
+    q, k, v = (rng.normal(size=(3, T, 64)).astype(np.float32)
+               for _ in range(3))
+    want = np.asarray(jsg._attn_full(*(jnp.asarray(x, jnp.bfloat16)
+                                       for x in (q, k, v)), 4), np.float32)
+    got = tsg._attn_full(*(tt(x, torch.bfloat16) for x in (q, k, v)), 4)
+    assert got.dtype == torch.bfloat16
+    d = np.abs(got.float().numpy() - want)
+    assert (d > 0).mean() <= 0.01, (d > 0).mean()
+    assert d.max() <= 2 ** -8 * np.abs(want).max(), d.max()
+
+
+def test_encode_full_bf16_within_bf16_limits():
+    cfg, params, tower = _towers(dtype="bf16")
+    px, _ = _frames(np.random.default_rng(0), 3)
+    hj, cj = jsg.encode_full(params, cfg, jnp.asarray(px, jnp.bfloat16),
+                             jsg.init_cacher_state(cfg, 1, jnp.bfloat16))
+    ht, ct = tower.encode_full(tt(px, torch.bfloat16))
+    assert ht.dtype == torch.bfloat16 and hj.dtype == jnp.bfloat16
+    assert_bf16_close(ht.float(), np.asarray(hj, np.float32), "features")
+    for name in ("ref_k", "ref_v", "ref_attn", "ref_mlp"):
+        assert_bf16_close(getattr(ct, name).float(),
+                          np.asarray(getattr(cj, name), np.float32), name)
+
+
+def _bf16_layer_sims(params, tower, cfg, px, cj, ct, num_update):
+    """Per layer, the cacher's key similarities (F, T) in each package (the
+    float32 cosine of each package's cached layer, on its own stream of
+    hidden states), and each package's recomputed rows (F, U)."""
+    hj = jsg.patch_embed(params, jnp.asarray(px, jnp.bfloat16), cfg)
+    ht = tower.patch_embed(tt(px, torch.bfloat16))
+    sims, rows_t = [], []
+    for l, lp in enumerate(tower.layers):
+        jl = jax.tree.map(lambda x: x[l], params["layers"])
+        jrefs = tuple(x[l] for x in cj)
+        hn = jsg.layer_norm(hj, jl["ln1_w"], jl["ln1_b"], cfg.layer_norm_eps)
+        kf = (hn @ jl["wk"] + jl["bk"]).astype(jnp.float32)
+        rf = jrefs[0].astype(jnp.float32)
+        sj = jnp.sum(kf * rf, -1) / (jnp.linalg.norm(kf, axis=-1)
+                                     * jnp.linalg.norm(rf, axis=-1) + 1e-8)
+        hj = jsg._layer_cached(jl, hj, jrefs, num_update, cfg, "key",
+                               "index")
+        trefs = tuple(x[l] for x in ct)
+        hn_t = tsg.layer_norm(ht, lp.ln1_w, lp.ln1_b, cfg.layer_norm_eps)
+        st = tsg.key_similarity(hn_t @ lp.wk + lp.bk, trefs[0])
+        ht, upd = lp.cached(ht, trefs, num_update, tower.cfg)
+        sims.append((np.asarray(sj), st.numpy()))
+        rows_t.append(upd.numpy())
+    return sims, np.stack(rows_t)
+
+
+@pytest.mark.parametrize("ratio", [0.25, 0.5])
+def test_encode_cached_bf16_within_limits_and_rows_equal_where_separated(
+        ratio):
+    """bf16 cached chunks: features within the bf16 limits; at each layer
+    and frame where the gap between the U-th and (U+1)-th smallest JAX
+    similarity exceeds twice the largest difference between the packages'
+    similarities, both recompute the same rows (and most pairs qualify)."""
+    cfg, params, tower = _towers(seed=1, dtype="bf16")
+    rng = np.random.default_rng(1)
+    ref_px, base = _frames(rng, 1)
+    new_px, _ = _frames(rng, 4, base)
+    _, cj = jsg.encode_full(params, cfg, jnp.asarray(ref_px, jnp.bfloat16),
+                            jsg.init_cacher_state(cfg, 1, jnp.bfloat16))
+    _, ct = tower.encode_full(tt(ref_px, torch.bfloat16))
+    U = max(1, min(int(cfg.num_tokens * ratio), cfg.num_tokens))
+    hj = jsg.encode_cached(params, cfg, jnp.asarray(new_px, jnp.bfloat16),
+                           cj, ratio, gather_impl="index")
+    ht, rows = tower.encode_cached(tt(new_px, torch.bfloat16), ct, ratio)
+    assert_bf16_close(ht.float(), np.asarray(hj, np.float32), "features")
+    sims, rows_t = _bf16_layer_sims(params, tower, cfg, new_px, cj, ct, U)
+    np.testing.assert_array_equal(rows.numpy(), rows_t)
+    separated = 0
+    for l, (sj, st) in enumerate(sims):
+        for f in range(sj.shape[0]):
+            diff = np.abs(st[f] - sj[f]).max()
+            order = np.sort(sj[f])
+            if order[U] - order[U - 1] > 2 * diff:
+                want = np.sort(np.argsort(sj[f], kind="stable")[:U])
+                np.testing.assert_array_equal(rows_t[l, f], want,
+                                              err_msg=f"layer {l} frame {f}")
+                separated += 1
+    assert separated >= len(sims) * sims[0][0].shape[0] // 2, separated
+
+
+def test_pruner_keeps_equal_on_equal_bf16_features():
+    """bf16 features, the same in both packages: the pruner's keeps and
+    memory over several chunks are equal (both score in float32)."""
+    rng = np.random.default_rng(4)
+    F_, Tin, C, keep = 2, 16, 32, 5
+    js = jp.init_pruner_state(1, C // 2)
+    ts = tp.init_pruner_state(1, C // 2, device="cpu")
+    for _ in range(4):
+        feats = tt(rng.normal(size=(1, F_, Tin, C)), torch.bfloat16)
+        pj, ij, js = jp.stc_prune(jnp.asarray(feats.float().numpy(),
+                                              jnp.bfloat16), js, keep)
+        pt, it, ts = tp.stc_prune(feats, ts, keep)
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+        np.testing.assert_array_equal(pt.float().numpy(),
+                                      np.asarray(pj, np.float32))
+        np.testing.assert_allclose(ts.mean_sum.numpy(),
+                                   np.asarray(js.mean_sum), **F32_TOL)
 
 
 def test_pruner_keeps_equal_over_chunks():

@@ -20,11 +20,15 @@ each of which makes the script exit non-zero when it fails:
      kernel on the same cover), decode_attention and decode_score (at
      0.5b and 7B heads; decode_score's float32 instance timed beside, and
      its bf16 tile built and timed with each part switched off in turn);
+     stream_attention and decode_attention also over four streams in one
+     call, each at its own position, with page offsets of 0, 56 and 112
+     pages (0.5b heads on bf16 pages, 7B heads on int8 pages);
      each bound counts bytes, products and exponentials at the data
      sheet's clock; then
      planted faults (a key group dropped, a mask one page or one slot off,
-     the neighbouring page's scales, the int4 nibble planes swapped) that
-     those limits must reject;
+     the neighbouring page's scales, the int4 nibble planes swapped, every
+     stream reading stream 0's scalars or cursors, one stream's page
+     offset one page off) that those limits must reject;
   3. the main path: the LLaVA-OV + ReKV session at llava-ov-0.5b width and
      depth (SigLIP 1152 x 27 layers at 384 px in float32, Qwen2 896 x 24
      layers in bf16, random weights from a seeded torch.Generator): init
@@ -57,7 +61,23 @@ each of which makes the script exit non-zero when it fails:
      written as a 2-shard bf16 HF checkpoint (this script's own writer),
      loaded through MODEL_REGISTRY["llava_ov_7b"] onto the card: every
      tensor bit-equal to its source, phase 3's first question answered
-     with the same ids; the directory is removed.
+     with the same ids; the directory is removed;
+ 10. the host tier at llava-ov-7b width (phase 8's widths: bf16 SigLIP,
+     bf16 weights and state): max_blocks 320 (a 264-page window), 480
+     frames in 8-frame chunks, three evictions of 56 pages to pinned host
+     memory; questions cold, warm and on external blocks 0-3, against an
+     all-device session (max_blocks 512): (a) exact host pages, answers
+     and every layer's blocks equal, host pages bit-equal; (b) the default
+     int8 host tier on (a)'s replayed features, its bytes and answers;
+     (c) int8 device pages against an all-device int8 session, answers
+     equal; each with at most 2 rounds cold and 1 warm, eviction stalls,
+     link rates, staged bytes and QA times;
+ 11. ragged multi-stream at llava-ov-0.5b width in float32: four slots
+     ticking every 1st, 2nd, 3rd and 1st tick (mixed cacher ticks), slot
+     2 recycled after tick 12, per-stream, shared and external-block
+     questions, against a batch-1 session per stream: integer state
+     exact, pages within the agreement limits, answers and blocks equal
+     unless the batch-1 run shows a near-tie (counted and printed).
 
 Prints JSON lines; the line before the last holds one entry per kernel
 (route, source, the TPU kernel it replaces, launches on its path, error,
@@ -259,15 +279,17 @@ PAGE_BYTES = {None: 2.0, "int8": 1.0, "int4": 0.5}  # per page element
 
 
 def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
-                Nb=1024, n_init=14, exc=480, quant=None):
+                Nb=1024, n_init=14, exc=480, quant=None, states=None):
     """One stream_attention call of the main path's configuration
     (exc_block_size 480: a 264-page window cover), T new tokens with
-    `pages` pages in the store after their write.  With quant ('int8' or
-    'int4') the store is quantized by the engine's own quantizer from
-    float pages whose magnitudes differ from page to page (gain
-    4 ** (page % 3 - 1)), so a page read with another page's scales
-    shows.  Returns the record, the wrapper's arguments and keywords, and
-    the plain version's output."""
+    `pages` pages in the store after their write.  With states, a call
+    over B = len(states) streams, each at its own (pages before the
+    append, page_offset): every stream's L, start_tile, total, init_active
+    and offset differ.  With quant ('int8' or 'int4') the store is
+    quantized by the engine's own quantizer from float pages whose
+    magnitudes differ from page to page (gain 4 ** (page % 3 - 1)), so a
+    page read with another page's scales shows.  Returns the record, the
+    wrapper's arguments and keywords, and the plain version's output."""
     from stc_tpu_torch.config import ReKVConfig
     from stc_tpu_torch.kvcache import engine
     from stc_tpu_torch.ops import stream_attention as sa
@@ -280,44 +302,51 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
         return torch.randn(shape, generator=gen, device=dev).to(bf)
 
     n_new = T // S
-    before = pages - n_new          # pages in the store before this append
-    L = torch.tensor([n_init + before * S], dtype=torch.int32, device=dev)
-    nb = torch.tensor([before], dtype=torch.int32, device=dev)
-    rc = engine.make_rope_cache(L, nb, T, cfg, D, 1e6)
+    states = states or [(pages - n_new, 0)]
+    B = len(states)
+    nb = torch.tensor([s[0] for s in states], dtype=torch.int32, device=dev)
+    off = torch.tensor([s[1] for s in states], dtype=torch.int32,
+                       device=dev)
+    if int((nb + n_new - off).max()) > Nb:
+        raise RuntimeError(f"{name}: states {states} outgrow {Nb} pages")
+    rc = engine.make_rope_cache(n_init + nb * S, nb, T, cfg, D, 1e6, off)
     kw = dict(n_local=n_local)
     if quant is None:
-        bk, bv = rnd(1, Hkv, Nb, S, D), rnd(1, Hkv, Nb, S, D)
+        bk, bv = rnd(B, Hkv, Nb, S, D), rnd(B, Hkv, Nb, S, D)
     else:
         gain = 4.0 ** (torch.arange(Nb, device=dev) % 3 - 1)
         qfn = (engine._quantize_page_int4 if quant == "int4"
                else engine._quantize_page)
         (bk, ks), (bv, vs) = (
-            qfn(torch.randn((1, Hkv, Nb, S, D), generator=gen, device=dev)
+            qfn(torch.randn((B, Hkv, Nb, S, D), generator=gen, device=dev)
                 * gain[:, None, None]) for _ in range(2))
         kw.update(k_scales=ks, v_scales=vs)
-    args = (rnd(1, Hq, T, D), rnd(1, Hq, T, D), bk, bv, rc.cos_cover,
-            rc.sin_cover, rnd(1, Hkv, n_init, D), rnd(1, Hkv, n_init, D),
-            rnd(1, Hkv, n_init, D), rc.scalars)
+    args = (rnd(B, Hq, T, D), rnd(B, Hq, T, D), bk, bv, rc.cos_cover,
+            rc.sin_cover, rnd(B, Hkv, n_init, D), rnd(B, Hkv, n_init, D),
+            rnd(B, Hkv, n_init, D), rc.scalars)
     out = sa.stream_attention(*args, **kw)
     ref = sa.stream_attention_ref(*args, **kw)
     torch.cuda.synchronize()
     agree = held(name, out, ref)
 
     # what this run's data needs: the (query, key) pairs the masks let
-    # through, and the live window keys (seen by some query) and their pages
-    Lv = int(L.item())
-    page, _, _, mask = stream_mask(args, n_local, Nb, S, Lv)
-    m_win = mask[:, n_init:n_init + page.numel()]
-    pairs = int(mask.sum())
-    seen = m_win.any(dim=0)
-    live = int(seen.sum())
-    live_pages = int(page[seen].unique().numel())
-    init_active = int(rc.scalars[0, 3].item())
+    # through, and the live window keys (seen by some query) and their
+    # pages, stream by stream
+    pairs = live = live_pages = 0
+    for b in range(B):
+        page, _, _, mask = stream_mask(args, b, n_local, Nb, S)
+        m_win = mask[:, n_init:n_init + page.numel()]
+        pairs += int(mask.sum())
+        seen = m_win.any(dim=0)
+        live += int(seen.sum())
+        live_pages += int(page[seen].unique().numel())
+    init_active = rc.scalars[:, 3].tolist()
     # queries, live pages (and their scales), init keys/values, output
     # (RoPE angles follow from the affine key positions)
-    need = (2 * Hq * T * D * 2 + 2 * Hkv * live * D * PAGE_BYTES[quant]
-            + (2 * Hkv * live_pages * D * 4 if quant else 0)
-            + 3 * Hkv * n_init * D * 2 + Hq * T * D * 2)
+    need = (B * (2 * Hq * T * D * 2 + 3 * Hkv * n_init * D * 2
+                 + Hq * T * D * 2)
+            + 2 * Hkv * live * D * PAGE_BYTES[quant]
+            + (2 * Hkv * live_pages * D * 4 if quant else 0))
     flops, exps = 4 * Hq * D * pairs, Hq * pairs
     b_ms, b_by = bound(need, flops, exps)
     # what this design reads besides: f32 cos and sin rows per live key
@@ -328,18 +357,22 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
     # this design's bf16 scratch of rotated, dequantized cover keys and
     # values: written by the pre-pass and read back at least once
     Lc = rc.cos_cover.shape[1]
-    scratch = 2 * Hkv * Lc * D * 2
+    scratch = 2 * B * Hkv * Lc * D * 2
     rec = dict(case=name, kernel="stream_attention" + (
         f"_{quant}" if quant else ""), Hq=Hq, Hkv=Hkv, D=D, T=T, pages=pages,
-        window_pages=engine.n_window_pages(cfg), init_active=init_active,
+        window_pages=engine.n_window_pages(cfg),
+        init_active=init_active[0] if B == 1 else init_active,
         **agree, kernel_ms=ms, host_ms=host_ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, bound_ms_with_tables=bt_ms,
         bound_by_with_tables=bt_by, live_keys=live,
         visible_pairs=pairs, exponentials=exps,
         cover_scratch_mb=scratch / 1e6,
         cover_scratch_hbm_ms=2 * scratch / H100_BYTES_PER_S * 1e3)
+    if B > 1:
+        rec.update(batch=B, states=states, max_blocks=Nb,
+                   scalars=rc.scalars.tolist())
     if quant is None:
-        lib = sdpa_stream(args, n_local, Nb, S, Lv)
+        lib = sdpa_stream(args, n_local, Nb, S)
         rec.update(library_ms=cuda_ms(lib, 10),
                    library_max_rel_err=held(name, lib(), ref)["max_rel_err"])
     else:
@@ -356,16 +389,17 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
     return rec, args, kw, ref
 
 
-def stream_mask(args, n_local, Nb, S, Lv):
-    """The visible keys of a batch-1 stream_attention call, as the plain
-    version masks them: the cover's local pages, their slot offsets, and
-    the (T, n_init + Lc + n_init) mask over [init-local | cover |
-    init-far]."""
+def stream_mask(args, b, n_local, Nb, S):
+    """The visible keys of stream b of a stream_attention call, as the
+    plain version masks them: the cover's local pages, their slot
+    offsets, and the (T, n_init + Lc + n_init) mask over [init-local |
+    cover | init-far]."""
     from stc_tpu_torch.ops import stream_attention as sa
     q_rot, cc, kir, scalars = args[0], args[4], args[6], args[9]
     dev, T, n_init, Lc = q_rot.device, q_rot.shape[2], kir.shape[2], \
         cc.shape[1]
-    _, start_tile, total, init_active, offset = (int(x) for x in scalars[0])
+    Lv, start_tile, total, init_active, offset = (int(x) for x in
+                                                  scalars[b])
     page = start_tile * sa.pages_per_tile(S) + torch.arange(
         Lc, device=dev) // S
     off = torch.arange(Lc, device=dev) % S
@@ -381,60 +415,72 @@ def stream_mask(args, n_local, Nb, S, Lv):
         [m_init, m_win, m_far], dim=1)
 
 
-def sdpa_stream(args, n_local, Nb, S, Lv):
+def sdpa_stream(args, n_local, Nb, S):
     """Library yardstick of a 1a call: one SDPA over the concatenated
-    (rotated) keys, the two query angles packed side by side in a 2D
-    head."""
+    (rotated) keys of every stream, the two query angles packed side by
+    side in a 2D head."""
     from stc_tpu_torch.ops.rope import rotate
     q_rot, q_one, bk, bv, cc, sc, kir, vi, kiw, scalars = args
     D = q_rot.shape[-1]
-    _, pg, off, mask = stream_mask(args, n_local, Nb, S, Lv)
-    kw_ = rotate(bk[0][:, pg, off][None], cc[:, None], sc[:, None])
     z = torch.zeros_like
-    k_all = torch.cat([torch.cat([kir, z(kir)], -1),
-                       torch.cat([kw_, z(kw_)], -1),
-                       torch.cat([z(kiw), kiw], -1)], dim=2)
-    v_all = torch.cat([vi, bv[0][:, pg, off][None], vi], dim=2)
+    ks, vs, masks = [], [], []
+    for b in range(q_rot.shape[0]):
+        _, pg, off, mask = stream_mask(args, b, n_local, Nb, S)
+        kw_ = rotate(bk[b][:, pg, off][None], cc[b:b + 1, None],
+                     sc[b:b + 1, None])
+        ks.append(torch.cat([torch.cat([kir[b:b + 1], z(kir[b:b + 1])], -1),
+                             torch.cat([kw_, z(kw_)], -1),
+                             torch.cat([z(kiw[b:b + 1]), kiw[b:b + 1]], -1)],
+                            dim=2))
+        vs.append(torch.cat([vi[b:b + 1], bv[b][:, pg, off][None],
+                             vi[b:b + 1]], dim=2))
+        masks.append(mask[None, None])
+    k_all, v_all, mask = torch.cat(ks), torch.cat(vs), torch.cat(masks)
     q2 = torch.cat([q_rot, q_one], -1)
     F = torch.nn.functional
 
     def lib():
         return F.scaled_dot_product_attention(
-            q2, k_all, v_all, attn_mask=mask[None, None], scale=D ** -0.5,
+            q2, k_all, v_all, attn_mask=mask, scale=D ** -0.5,
             enable_gqa=True)
     return lib
 
 
 def decode_case(name, T, start, cursor, n_local, dev, gen, Hq=14, Hkv=2,
                 D=64, C=4352, return_m=False):
-    """One decode_attention call; returns the record, the wrapper's
-    arguments and the plain version's output."""
+    """One decode_attention call; start and cursor are ints (one stream)
+    or per-stream lists (B = their length).  Returns the record, the
+    wrapper's arguments and the plain version's output."""
     from stc_tpu_torch.ops import decode_attention as da
     bf = torch.bfloat16
+    starts = [start] if isinstance(start, int) else list(start)
+    cursors = [cursor] if isinstance(cursor, int) else list(cursor)
+    B = len(starts)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(bf)
 
-    q, k, v = rnd(1, Hq, T, D), rnd(1, Hkv, C, D), rnd(1, Hkv, C, D)
-    st = torch.tensor([start], dtype=torch.int32, device=dev)
-    cu = torch.tensor([cursor], dtype=torch.int32, device=dev)
+    q, k, v = rnd(B, Hq, T, D), rnd(B, Hkv, C, D), rnd(B, Hkv, C, D)
+    st = torch.tensor(starts, dtype=torch.int32, device=dev)
+    cu = torch.tensor(cursors, dtype=torch.int32, device=dev)
     args = (q, k, v, st, cu)
     kw = dict(n_local=n_local, return_m=return_m)
     got = da.decode_attention(*args, **kw)
     want = da.decode_attention_ref(*args, **kw)
     torch.cuda.synchronize()
     agree = held(name, got, want)
-    mask = decode_mask(start, T, cursor, n_local, C, dev)
-    pairs, live = int(mask.sum()), int(mask.any(dim=0).sum())
-    bytes_moved = (Hq * T * D * 2 + 2 * Hkv * live * D * 2 + Hq * T * D * 2
-                   + (Hq * T * 4 if return_m else 0))
+    mask = torch.stack([decode_mask(a, T, c, n_local, C, dev)
+                        for a, c in zip(starts, cursors)])
+    pairs, live = int(mask.sum()), int(mask.any(dim=1).sum())
+    bytes_moved = (B * Hq * T * D * 2 + 2 * Hkv * live * D * 2
+                   + B * Hq * T * D * 2 + (B * Hq * T * 4 if return_m else 0))
     flops, exps = 4 * Hq * D * pairs, Hq * pairs
     b_ms, b_by = bound(bytes_moved, flops, exps)
     F = torch.nn.functional
 
     def lib():
         return F.scaled_dot_product_attention(
-            q, k, v, attn_mask=mask[None, None], enable_gqa=True)
+            q, k, v, attn_mask=mask[:, None], enable_gqa=True)
 
     lib_err = held(name, lib(), want[0] if return_m else want)["max_rel_err"]
     ms, host_ms = cuda_times(lambda: da.decode_attention(*args, **kw), 20)
@@ -446,12 +492,14 @@ def decode_case(name, T, start, cursor, n_local, dev, gen, Hq=14, Hkv=2,
                library_ms=lib_ms,
                library_max_rel_err=lib_err, bound_ms=b_ms, bound_by=b_by,
                live_slots=live, visible_pairs=pairs, exponentials=exps)
+    if B > 1:
+        rec["batch"] = B
     return rec, args, kw, want
 
 
 def decode_mask(start, T, cursor, n_local, C, dev):
-    """(T, C) visible slots of a batch-1 decode call: query slot start + t
-    sees slot j when 0 <= start + t - j < n_local and j < cursor."""
+    """(T, C) visible slots of one stream's decode call: query slot start
+    + t sees slot j when 0 <= start + t - j < n_local and j < cursor."""
     slot = torch.arange(C, device=dev)
     dist = start + torch.arange(T, device=dev)[:, None] - slot[None]
     return (dist >= 0) & (dist < n_local) & (slot < cursor)[None]
@@ -543,6 +591,17 @@ def nibbles_swapped(p):
     return ((p & 0x0F) << 4) | (p >> 4)
 
 
+# the phase-2 cases of four streams at their own positions (phases 10-11's
+# shapes): per stream (pages before the append, page_offset), offsets of
+# 0, 56 and 112 pages as after host-tier evictions of 56 pages
+B4_STREAM = "stream B=4 0.5b heads, 1-frame appends, offsets 0/0/56/112"
+B4_STREAM_INT8 = ("stream int8 B=4 7B heads (28/4/128), 8-page appends, "
+                  "offsets 0/0/56/112")
+B4_DECODE = "decode B=4 token step, own cursors"
+B4_STATES_05B = [(10, 0), (250, 0), (330, 56), (400, 112)]
+B4_STATES_7B = [(20, 0), (290, 0), (340, 56), (400, 112)]
+
+
 def planted_faults(inputs) -> list:
     """Each kernel run on inputs with one planted fault, held against the
     plain version of the true inputs: the limits must reject every one."""
@@ -577,6 +636,23 @@ def planted_faults(inputs) -> list:
         return da.decode_attention(q, k, v, st, cu + cursor_delta,
                                    **kw), want
 
+    def stream0_scalars(case):
+        args, kw, ref = inputs[case]
+        sc = args[9][:1].expand_as(args[9]).contiguous()
+        return sa.stream_attention(*args[:9], sc, **kw), ref
+
+    def stream0_cursors(case):
+        (q, k, v, st, cu), kw, want = inputs[case]
+        return da.decode_attention(q, k, v, st[:1].expand_as(st).contiguous(),
+                                   cu[:1].expand_as(cu).contiguous(),
+                                   **kw), want
+
+    def offset_one_page(case, b):
+        args, kw, ref = inputs[case]
+        sc = args[9].clone()
+        sc[b, 4] += 1
+        return sa.stream_attention(*args[:9], sc, **kw), ref
+
     faults = [
         ("stream: third key group dropped (init_active 1 -> 0)",
          lambda: scalar("stream 300 pages init_active", 3, -1)),
@@ -592,6 +668,12 @@ def planted_faults(inputs) -> list:
          lambda: swapped_planes("stream int4 300 pages init_active")),
         ("decode_score: window one slot longer (n_local + 1)",
          lambda: score_window("decode_score expired window (n_local 64)")),
+        ("stream B=4: every stream reads stream 0's scalars",
+         lambda: stream0_scalars(B4_STREAM)),
+        ("stream int8 B=4: stream 3's page_offset one page off",
+         lambda: offset_one_page(B4_STREAM_INT8, 3)),
+        ("decode B=4: every stream reads stream 0's start and cursor",
+         lambda: stream0_cursors(B4_DECODE)),
     ]
     out = []
     for name, run in faults:
@@ -615,9 +697,10 @@ QWEN2_7B = dict(vocab_size=152064, hidden_size=3584, num_layers=28,
                 intermediate_size=18944, rope_base=1000000.0)
 
 
-def make_model(dev, seed, text=QWEN2_05B, vision_dtype=torch.float32):
+def make_model(dev, seed, text=QWEN2_05B, vision_dtype=torch.float32,
+               dtype=torch.bfloat16):
     """SigLIP 1152 x 27 at 384 px in vision_dtype and the Qwen2 of `text`
-    in bf16, random weights from a seeded torch.Generator."""
+    in dtype, random weights from a seeded torch.Generator."""
     from stc_tpu_torch.models import llava_onevision as lo
     from stc_tpu_torch.models import qwen2 as qw
     from stc_tpu_torch.models import siglip as sg
@@ -626,20 +709,23 @@ def make_model(dev, seed, text=QWEN2_05B, vision_dtype=torch.float32):
                              patch_size=14)
     cfg = lo.LlavaOVConfig(vision=vision, text=qw.Qwen2Config(**text))
     gen = torch.Generator(device=dev).manual_seed(seed)
-    model = lo.LlavaOV(cfg, dtype=torch.bfloat16, vision_dtype=vision_dtype,
+    model = lo.LlavaOV(cfg, dtype=dtype, vision_dtype=vision_dtype,
                        device=dev).init_random_params(gen)
     return model, cfg
 
 
 def session_cfg(n_local, topk, max_prompt, max_new, exc_frames, max_blocks,
-                kv_quant="none", weights_quant="none"):
+                kv_quant="none", weights_quant="none", host_kv_quant="int8",
+                max_rep_blocks=0):
     from stc_tpu_torch.config import (CacherConfig, PrunerConfig, ReKVConfig,
                                       SessionConfig)
     return SessionConfig(
         rekv=ReKVConfig(n_init=14, n_local=n_local, block_size=60,
                         exc_block_size=60 * exc_frames, topk=topk,
                         max_blocks=max_blocks, max_prompt_tokens=max_prompt,
-                        max_new_tokens=max_new, kv_quant=kv_quant),
+                        max_new_tokens=max_new, kv_quant=kv_quant,
+                        host_kv_quant=host_kv_quant,
+                        max_rep_blocks=max_rep_blocks),
         cacher=CacherConfig(strategy="cacher", update_token_ratio=0.25,
                             cache_interval=2),
         pruner=PrunerConfig(token_per_frame=60),
@@ -1027,6 +1113,622 @@ def loader_phase(card, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10 (llava-ov-7b width): the host tier; phase 11 (llava-ov-0.5b
+# width): ragged multi-stream sessions with slot churn
+# ---------------------------------------------------------------------------
+
+HOST_QUESTIONS = [(list(range(200, 212)), list(range(300, 316))),
+                  (list(range(400, 409)), list(range(500, 516)))]
+HOST_EXT_PAGES = [0, 1, 2, 3]     # evicted by the first eviction
+
+
+def p50(xs):
+    return float(np.median(xs)) if xs else None
+
+
+def host_tier_phase(card, dev) -> dict:
+    """Phase 10: cell E's widths (Qwen2 3584 x 28, bf16 SigLIP, bf16
+    weights and state), max_blocks 320 (a 264-page window, evictions of
+    56 pages), max_rep_blocks 512, 60 eight-frame chunks: three evictions,
+    168 host pages.  Reference: an all-device session (max_blocks 512) on
+    the same frames.  Settings:
+      (a) host_kv_quant none, pixels: answer ids and every layer's
+          retrieved blocks equal to the reference's, host pages bit-equal
+          to the reference's pages at the same absolute indices;
+      (b) host_kv_quant int8 (the default), (a)'s pruned features
+          replayed: host bytes 0.533x of (a)'s, answers reported;
+      (c) int8 device pages with the host tier against an all-device
+          int8-page session, features replayed: answers equal.
+    Every setting: host pages served, at most 2 rounds cold and 1 warm,
+    its launch counts from 0."""
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.ops import stream_attention as sa
+    t_phase = time.perf_counter()
+    model, cfg = make_model(dev, seed=10, text=QWEN2_7B,
+                            vision_dtype=torch.bfloat16)
+    L = cfg.text.num_layers
+    stop, n_chunks = [151645], 60
+
+    def frames(i):
+        return np.random.default_rng(1000 + i).integers(
+            0, 256, size=(8, 384, 384, 3), dtype=np.uint8)
+
+    def build(max_blocks, host="none", kv_quant="none"):
+        scfg = session_cfg(15000, 64, 256, 16, 8, max_blocks,
+                           kv_quant=kv_quant, host_kv_quant=host,
+                           max_rep_blocks=512)
+        sess = lo.build_session(model, scfg, state_dtype=torch.bfloat16,
+                                device=dev)
+        sess.encode_init_prompt(list(range(100, 114)))
+        return sess
+
+    def stream(sess, feats=None, record=None):
+        """60 chunks (pixels, or replayed features); per chunk seconds and
+        resident pages after it, and each eviction's stall (the host
+        clock around the eviction call, synchronized both sides)."""
+        stalls, chunk_s, resident = [], [], []
+
+        def evict_timed(f):
+            def g(E):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f(E)
+                torch.cuda.synchronize()
+                stalls.append(time.perf_counter() - t0)
+            return g
+
+        def rec(f):
+            def g(rekv, kvs, embeds, **kw):
+                if record is not None and not kw.get("is_init"):
+                    record.append(embeds.clone())
+                return f(rekv, kvs, embeds, **kw)
+            return g
+
+        with patched([(sess, "_evict", evict_timed),
+                      (sess.lm, "encode_step", rec)]):
+            for i in range(n_chunks):
+                x = frames(i) if feats is None else feats[i]
+                fn = sess.encode_video if feats is None else \
+                    sess.encode_video_features
+                _, dt = timed(lambda: fn(x))
+                chunk_s.append(dt)
+                resident.append(sess._total_blocks - sess._evicted_pages)
+        return chunk_s, resident, stalls
+
+    def ask_all(sess):
+        """Each question cold then warm, then the external-index question
+        at pages 0-3: answers, rounds, staged bytes, times, blocks, and the
+        H2D copies (bytes, device ms)."""
+        copies, out = [], []
+
+        def h2d_timed(f):
+            def g(buf):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                y = f(buf)
+                e1.record()
+                copies.append((buf.numel() * buf.element_size(), e0, e1))
+                return y
+            return g
+
+        asks = [(q, p, None, "cold") for q, p in HOST_QUESTIONS
+                ] + [(q, p, None, "warm") for q, p in HOST_QUESTIONS] + [
+            (HOST_QUESTIONS[0][0], HOST_QUESTIONS[0][1], HOST_EXT_PAGES,
+             "external")]
+        with patched([(sess, "_h2d", h2d_timed)]):
+            for q, p, ext, kind in asks:
+                h0 = sess.staged_bytes
+                f0 = sess.host_store.fetch_count
+                ans, dt = timed(lambda: sess.question_answering(
+                    q, p, stop, max_new_tokens=16, retrieved_indices=ext))
+                out.append(dict(kind=kind, answer=ans, s=dt,
+                                rounds=sess.qa_rounds,
+                                repair_layers=sess.repair_layers,
+                                staged_bytes=sess.staged_bytes - h0,
+                                fetched=sess.host_store.fetch_count - f0,
+                                indices=sess.last_retrieved_indices))
+        torch.cuda.synchronize()
+        links = [(b, e0.elapsed_time(e1)) for b, e0, e1 in copies]
+        return out, links
+
+    def forwards(asks):
+        """LM forwards of these questions: the retrieval forward of every
+        round, then prefill and the decoded tokens once."""
+        return sum(a["rounds"] + 1 + len(a["answer"]) for a in asks)
+
+    def summary(sess, name, chunk_s, resident, stalls, asks, links, counts,
+                kind):
+        hs = sess.host_store
+        W = sess._window_pages
+        full = [dt for dt, r in zip(chunk_s, resident) if r >= W]
+        ms = hs.transfer_ms()
+        cb = [sum(t.numel() * t.element_size() for t in
+                  ([hs.k_chunks[c], hs.v_chunks[c]]
+                   + ([hs.k_scales[c], hs.v_scales[c]] if hs.quantized
+                      else []))) for c in range(len(ms))]
+        want = {"stream_attention": {k: (L * n_chunks if k == kind else 0)
+                                     for k in sa.launches},
+                "decode_attention": L * forwards(asks), "decode_score": 0}
+        cold = [a for a in asks if a["kind"] != "warm"]
+        return {
+            "setting": name, "evictions": len(stalls),
+            "evicted_pages": sess._evicted_pages,
+            "host_pages": hs.total_pages, "host_bytes": hs.nbytes(),
+            "fetch_count": hs.fetch_count,
+            "rounds": {a["kind"] + str(i % 2): a["rounds"]
+                       for i, a in enumerate(asks)},
+            "repair_layers": [a["repair_layers"] for a in asks],
+            "answers": [a["answer"] for a in asks],
+            "eviction_stall_ms": [1e3 * x for x in stalls],
+            "d2h_ms": ms, "d2h_bytes": cb,
+            "d2h_gb_s": [b / m / 1e6 for b, m in zip(cb, ms)],
+            "h2d_gb_s": (sum(b for b, _ in links)
+                         / sum(m for _, m in links) / 1e6 if links
+                         else None),
+            "h2d_copies": len(links),
+            "staged_bytes_cold": [a["staged_bytes"] for a in cold],
+            "qa_s_cold_p50": p50([a["s"] for a in asks
+                                  if a["kind"] == "cold"]),
+            "qa_s_warm_p50": p50([a["s"] for a in asks
+                                  if a["kind"] == "warm"]),
+            "qa_s": [a["s"] for a in asks],
+            "ingest_fps_full_window": 8 * len(full) / sum(full),
+            "launches": counts, "expected": want,
+            "launches_ok": counts == want}
+
+    def protocol_ok(rec, asks):
+        return (rec["fetch_count"] > 0 and rec["evictions"] == 3
+                and rec["host_pages"] == 168
+                and all(a["rounds"] <= 2 for a in asks
+                        if a["kind"] == "cold")
+                and all(a["rounds"] == 1 for a in asks
+                        if a["kind"] == "warm")
+                and rec["launches_ok"])
+
+    # (a) and its all-device reference, on pixels
+    torch.cuda.reset_peak_memory_stats()
+    feats = []
+    sess = build(320)
+    reset_counts()
+    a_stream = stream(sess, record=feats)
+    a_asks, a_links = ask_all(sess)
+    a_counts = read_counts()
+    peak_a = torch.cuda.max_memory_allocated() / 2 ** 30
+    ref = build(512)
+    reset_counts()
+    r_stream = stream(ref)
+    r_asks, _ = ask_all(ref)
+    r_counts = read_counts()
+    rec_a = summary(sess, "a: host_kv_quant none", *a_stream, a_asks,
+                    a_links, a_counts, "float")
+    rec_a["peak_gib"] = peak_a
+    rec_r = summary(ref, "reference: all-device, max_blocks 512",
+                    *r_stream, r_asks, [], r_counts, "float")
+    rec_a["answers_equal_reference"] = all(
+        a["answer"] == r["answer"] for a, r in zip(a_asks, r_asks))
+    rec_a["indices_equal_reference"] = all(
+        a["indices"] == r["indices"] for a, r in zip(a_asks, r_asks))
+    E = sess.host_store.pages_per_chunk
+    rec_a["host_pages_bit_equal_reference"] = all(
+        torch.equal(hc.to(dev), rx[:, :, :, c * E:(c + 1) * E])
+        for chunks, rx in ((sess.host_store.k_chunks, ref.kvs.block_k),
+                           (sess.host_store.v_chunks, ref.kvs.block_v))
+        for c, hc in enumerate(chunks))
+    ok_a = (protocol_ok(rec_a, a_asks) and rec_r["launches_ok"]
+            and rec_a["answers_equal_reference"]
+            and rec_a["indices_equal_reference"]
+            and rec_a["host_pages_bit_equal_reference"])
+    a_bytes = sess.host_store.nbytes()
+    del sess, ref
+    torch.cuda.empty_cache()
+
+    # (b) host_kv_quant int8, replayed features
+    sess = build(320, host="int8")
+    reset_counts()
+    b_stream = stream(sess, feats=feats)
+    b_asks, b_links = ask_all(sess)
+    rec_b = summary(sess, "b: host_kv_quant int8", *b_stream, b_asks,
+                    b_links, read_counts(), "float")
+    rec_b["host_bytes_over_a"] = sess.host_store.nbytes() / a_bytes
+    rec_b["answers_equal_reference"] = [
+        b["answer"] == r["answer"] for b, r in zip(b_asks, r_asks)]
+    ok_b = (protocol_ok(rec_b, b_asks)
+            and abs(rec_b["host_bytes_over_a"] - (1 + 4 / 60) / 2) < 1e-3)
+    del sess
+    torch.cuda.empty_cache()
+
+    # (c) int8 device pages: host tier against all-device
+    sess, ref = build(320, kv_quant="int8"), build(512, kv_quant="int8")
+    reset_counts()
+    c_stream = stream(sess, feats=feats)
+    c_asks, c_links = ask_all(sess)
+    c_counts = read_counts()
+    stream(ref, feats=feats)
+    rc_asks, _ = ask_all(ref)
+    rec_c = summary(sess, "c: int8 device pages", *c_stream, c_asks,
+                    c_links, c_counts, "int8")
+    rec_c["answers_equal_reference"] = all(
+        a["answer"] == r["answer"] for a, r in zip(c_asks, rc_asks))
+    rec_c["indices_equal_reference"] = all(
+        a["indices"] == r["indices"] for a, r in zip(c_asks, rc_asks))
+    rec_c["reference_answers"] = [r["answer"] for r in rc_asks]
+    ok_c = (protocol_ok(rec_c, c_asks) and rec_c["answers_equal_reference"]
+            and rec_c["indices_equal_reference"])
+    del sess, ref, feats, model
+    torch.cuda.empty_cache()
+    rec = {"phase": "host tier llava-ov-7b", "card": card,
+           "frames": 8 * n_chunks, "max_blocks": 320,
+           "window_pages": 264, "evict_pages": E,
+           "settings": [rec_a, rec_b, rec_c], "reference": rec_r,
+           "seconds": time.perf_counter() - t_phase}
+    if not (ok_a and ok_b and ok_c):
+        raise RuntimeError(f"host tier phase failed (a {ok_a}, b {ok_b}, "
+                           f"c {ok_c}) {rec}")
+    return rec
+
+
+# an f32 near-tie: two compared values closer than this share of the
+# largest (the port's f32 tolerance for deep computations, DEEP_TOL of the
+# CPU tests); batch-4 and batch-1 f32 products differ by ~1e-6 of a value
+TIE_REL = 1e-4
+
+
+class VisionLog:
+    """What the vision path selected, call by call: each cached layer's
+    key similarities (one record per layer and stream) and each pruner
+    call's channel variances and order, combined token scores and keeps.
+    Used to find where a batch-4 slot and its batch-1 twin first part."""
+
+    def __init__(self):
+        self.sims, self.prunes = [], []
+
+    @contextlib.contextmanager
+    def capture(self):
+        from stc_tpu_torch.compress import pruner as pr
+        from stc_tpu_torch.models import llava_onevision as lo
+        from stc_tpu_torch.models import siglip as sg
+
+        def sims(f):
+            def g(k, ref_k):
+                out = f(k, ref_k)
+                self.sims.append(out.detach().clone())
+                return out
+            return g
+
+        def prune(f):
+            def g(features, state, keep_per_frame, channel_keep_ratio):
+                out = f(features, state, keep_per_frame=keep_per_frame,
+                        channel_keep_ratio=channel_keep_ratio)
+                # stc_prune's own steps, to keep its intermediate scores
+                B, F_, Tin, C = features.shape
+                k_ch = int(C * channel_keep_ratio)
+                flat = features.to(torch.float32).reshape(B, F_ * Tin, C)
+                var = flat.var(dim=1, unbiased=False)
+                ch = torch.topk(-var, k_ch, dim=-1).indices
+                sel = torch.gather(flat, 2, ch[:, None, :].expand(
+                    B, F_ * Tin, k_ch))
+                mem = (state.mean_sum + sel.mean(dim=1)) / (
+                    state.count + 1)[:, None].to(torch.float32)
+                fn = pr._l2norm(sel.reshape(B, F_, Tin, k_ch))
+                comb = (pr._gaussian_similarity(
+                    fn, pr._l2norm(mem)[:, None, None, :])
+                    + pr._gaussian_similarity(
+                        fn, fn.mean(dim=2, keepdim=True)))
+                self.prunes.append(dict(var=var, ch=ch, comb=comb,
+                                        keep=out[1]))
+                return out
+            return g
+
+        with patched([(sg, "key_similarity", sims),
+                      (lo, "stc_prune", prune)]):
+            yield
+
+
+def first_parting(steps, U, K):
+    """steps: for one stream, frame by frame, (sims_b4, sims_b1, prune_b4,
+    prune_b1) -- the cached layers' similarities of that frame (lists,
+    empty on the full path) and the pruner records, each already this
+    stream's.  Returns None when every selection agrees, else where the
+    two runs first select differently and whether the batch-1 run's own
+    scores put the disagreeing items within TIE_REL of the cut (a near-
+    tie) or not (a fault)."""
+    def cut(vals, chosen, other, n):
+        # the n-th smallest value is the cut; the items only one run chose
+        # must lie within TIE_REL of it
+        v = vals.reshape(-1)
+        c = v.sort().values[n - 1]
+        diff = set(chosen.reshape(-1).tolist()) ^ set(
+            other.reshape(-1).tolist())
+        gap = max(float((v[i] - c).abs()) for i in diff)
+        lim = TIE_REL * float(v.abs().max())
+        return gap, lim
+
+    for f, (s4, s1, p4, p1) in enumerate(steps):
+        for l, (a, b) in enumerate(zip(s4, s1)):
+            u4 = torch.topk(-a.reshape(-1), U).indices
+            u1 = torch.topk(-b.reshape(-1), U).indices
+            if set(u4.tolist()) != set(u1.tolist()):
+                gap, lim = cut(b, u1, u4, U)
+                return {"frame": f, "where": f"cacher layer {l}",
+                        "gap": gap, "limit": lim, "tie": gap <= lim}
+        if not torch.equal(p4["ch"], p1["ch"]):
+            j = int((p4["ch"] != p1["ch"]).nonzero()[0, 0])
+            v = p1["var"]
+            a, b = int(p4["ch"][j]), int(p1["ch"][j])
+            gap = float((v[a] - v[b]).abs())
+            lim = TIE_REL * float(v.abs().max())
+            return {"frame": f, "where": f"pruner channel order, rank {j}",
+                    "gap": gap, "limit": lim, "tie": gap <= lim}
+        if not torch.equal(p4["keep"], p1["keep"]):
+            gap, lim = cut(p1["comb"], p1["keep"], p4["keep"], K)
+            return {"frame": f, "where": "pruner keeps", "gap": gap,
+                    "limit": lim, "tie": gap <= lim}
+    return None
+
+
+def multistream_phase(card, dev) -> dict:
+    """Phase 11: llava-ov-0.5b width (Qwen2 896 x 24) with the LM and state
+    in float32 (TF32 off), float32 SigLIP, B = 4 slots of one-frame chunks,
+    cacher on (interval 2), pruner 60.  Slots tick every 1st, 2nd, 3rd
+    and 1st tick, so their cacher parities disagree (mixed ticks); after
+    tick 12 slot 2 is recycled for a new stream.  Then per-stream questions
+    (question_answering_batch), a shared one (all_streams) and one on
+    external blocks.  Reference: a batch-1 session per stream, the new
+    stream in a fresh one.
+
+    Batch-4 and batch-1 f32 products differ by ~1e-6 of a value, and the
+    vision path selects (the cacher's tokens, the pruner's channel order,
+    whose running memory is kept per rank, and its keeps), so a near-tie
+    there sends a stream down another path from that frame on.  Each
+    stream's selections are compared frame by frame: where they first
+    part, the batch-1 run's own scores must put the disagreeing items
+    within TIE_REL of the cut (a near-tie: counted, printed, and the
+    stream's later pages and answers reported, not held), else the phase
+    fails.  Held: integer state exact; each stream's pages before its
+    first near-tie within the agreement limits; for streams with none,
+    answer ids and every layer's blocks equal, or the batch-1 run's top
+    two logits (or topk-th and next block scores) within TIE_REL of the
+    largest at the first difference."""
+    from stc_tpu_torch.kvcache import engine
+    from stc_tpu_torch.models import llava_onevision as lo
+    t_phase = time.perf_counter()
+    model, cfg = make_model(dev, seed=11, dtype=torch.float32)
+    L = cfg.text.num_layers
+    scfg = session_cfg(15000, 64, 64, 16, 1, 256)
+    U = max(1, int(cfg.vision.num_tokens * scfg.cacher.update_token_ratio))
+    K = scfg.pruner.token_per_frame
+    B, rates, n_ticks, reset_tick = 4, [1, 2, 3, 1], 24, 12
+    stop = [151645]
+
+    def frame(stream_id, i):
+        return np.random.default_rng(5000 + 100 * stream_id + i).integers(
+            0, 256, size=(384, 384, 3), dtype=np.uint8)
+
+    def build(batch):
+        sess = lo.build_session(model, scfg, state_dtype=torch.float32,
+                                device=dev, batch=batch)
+        sess.encode_init_prompt(list(range(100, 114)))
+        return sess
+
+    sess = build(B)
+    slot_stream = [0, 1, 2, 3]
+    fed = {s: 0 for s in range(5)}          # frames fed per stream id
+    schedule = []                           # (tick, stream id) fed
+    tick_s, mixed = [], []
+    steps4 = {s: [] for s in range(5)}      # per stream: (sims, prune)
+    reset_counts()
+    for t in range(n_ticks):
+        if t == reset_tick:
+            sess.reset_streams([2])
+            slot_stream[2] = 4
+        act = [t % r == 0 for r in rates]
+        cached = sess._slot_chunk % 2 != 0
+        ticking = cached[np.asarray(act)]
+        mix = bool(ticking.any() and not ticking.all())
+        mixed.append(mix)
+        batch = np.zeros((B, 1, 384, 384, 3), np.uint8)
+        for b in range(B):
+            if act[b]:
+                sid = slot_stream[b]
+                batch[b, 0] = frame(sid, fed[sid])
+                fed[sid] += 1
+                schedule.append((t, sid))
+        log = VisionLog()
+        with log.capture():
+            _, dt = timed(lambda: sess.encode_video(batch, active=act))
+        tick_s.append((dt, sum(act)))
+        # each active slot's own records: the path it took this tick
+        # (mixed ticks run the full path first, then the cached one)
+        for b in range(B):
+            if not act[b]:
+                continue
+            on_cached = bool(cached[b]) and bool(ticking.any())
+            sims = ([log.sims[i * B + b] for i in range(len(log.sims) // B)]
+                    if on_cached else [])
+            pr_rec = log.prunes[-1] if on_cached or not mix else \
+                log.prunes[0]
+            steps4[slot_stream[b]].append(
+                (sims, {k: v[b] for k, v in pr_rec.items()}))
+    qs = [list(range(200, 212)), list(range(220, 229)),
+          list(range(240, 256)), list(range(260, 266))]
+    ps = [list(range(300, 316)), list(range(320, 330)),
+          list(range(340, 344)), list(range(360, 380))]
+    shared = (list(range(400, 409)), list(range(500, 516)))
+    ext = [0, 1, 2]
+    qa = []
+    ans, dt = timed(lambda: sess.question_answering_batch(
+        qs, ps, stop, max_new_tokens=16))
+    qa.append(("batch", ans, sess.last_retrieved_indices, dt))
+    ans, dt = timed(lambda: sess.question_answering(
+        *shared, stop, max_new_tokens=16, all_streams=True))
+    qa.append(("shared", ans, sess.last_retrieved_indices, dt))
+    ans, dt = timed(lambda: sess.question_answering(
+        *shared, stop, max_new_tokens=16, retrieved_indices=ext,
+        all_streams=True))
+    qa.append(("external", ans, sess.last_retrieved_indices, dt))
+    counts = read_counts()
+    want = {"stream_attention": {"float": L * n_ticks, "int8": 0,
+                                 "int4": 0},
+            "decode_attention": L * sum(2 + max(len(a) for a in ans_)
+                                        for _, ans_, _, _ in qa),
+            "decode_score": 0}
+
+    # the batch-1 reference sessions, one per stream in its slot at the end
+    solos, solo_s, parting = {}, [], {}
+    for sid in slot_stream:
+        solo = build(1)
+        steps = []
+        for t, s_ in schedule:
+            if s_ == sid:
+                f = frame(sid, solo._total_blocks)
+                log = VisionLog()
+                with log.capture():
+                    _, dt = timed(lambda: solo.encode_video(f[None]))
+                solo_s.append(dt)
+                steps.append((log.sims, {k: v[0] for k, v in
+                                         log.prunes[0].items()}))
+        solos[sid] = solo
+        parting[sid] = first_parting(
+            [(a[0], b[0], a[1], b[1]) for a, b in zip(steps4[sid], steps)],
+            U, K)
+
+    ints, pages = {}, {}
+    for b, sid in enumerate(slot_stream):
+        solo = solos[sid]
+        ints[b] = {
+            "num_blocks": (sess.kvs.num_blocks[:, b].tolist(),
+                           solo.kvs.num_blocks[:, 0].tolist()),
+            "length": (sess.kvs.length[:, b].tolist(),
+                       solo.kvs.length[:, 0].tolist()),
+            "page_offset": (sess.kvs.page_offset[:, b].tolist(),
+                            solo.kvs.page_offset[:, 0].tolist()),
+            "stream_blocks": (int(sess._stream_blocks[b]),
+                              solo._total_blocks),
+            "slot_chunk": (int(sess._slot_chunk[b]),
+                           int(solo._slot_chunk[0]))}
+        n = int(solo.kvs.num_blocks[0, 0])
+        if parting[sid] is not None:
+            n = parting[sid]["frame"]   # pages before the near-tie
+        pages[b] = {"pages_held": n, **({nm: held(
+            f"slot {b} {nm}", getattr(sess.kvs, nm)[:, b, :, :n],
+            getattr(solo.kvs, nm)[:, 0, :, :n])
+            for nm in ("block_k", "block_v")} if n else {})}
+    ints_ok = all(x == y for d in ints.values() for x, y in d.values())
+    pages_ok = all(r["agrees"] for d in pages.values()
+                   for k, r in d.items() if k != "pages_held")
+    vision_ok = all(p is None or p["tie"] for p in parting.values())
+
+    def solo_qa(sid, kind, b):
+        solo = solos[sid]
+        if kind == "batch":
+            q, p, e = qs[b], ps[b], None
+        else:
+            (q, p), e = shared, (ext if kind == "external" else None)
+        return (lambda: solo.question_answering(
+            q, p, stop, max_new_tokens=16, retrieved_indices=e)), solo
+
+    def near_tie(run, solo, got_idx, got_ans, want_ans, prompt_len):
+        """Rerun the batch-1 question capturing its block scores and
+        logits: is the first difference a near-tie?"""
+        scores, logits = [], []
+
+        def cap_scores(f):
+            def g(kv, q, rekv, q_valid=None):
+                lg, valid, _ = engine.score_block_logits(kv, q, rekv,
+                                                         q_valid)
+                scores.append(torch.where(valid, lg, float("-inf"))[0])
+                return f(kv, q, rekv, q_valid)
+            return g
+
+        def cap_logits(f):
+            def g(*a, **k):
+                out = f(*a, **k)
+                logits.append(out[0])
+                return out
+            return g
+
+        with patched([(engine, "score_blocks", cap_scores),
+                      (solo.lm, "decode_step", cap_logits)]):
+            run()
+        for l, (g, w) in enumerate(zip(got_idx,
+                                       solo.last_retrieved_indices)):
+            if g != w:
+                s = scores[l].sort(descending=True).values
+                k = scfg.rekv.topk
+                gap = float(s[k - 1] - s[k])
+                lim = TIE_REL * float(s[s.isfinite()].abs().max())
+                return {"where": f"layer {l} blocks", "gap": gap,
+                        "limit": lim, "tie": gap <= lim}
+        i = next(i for i, (x, y) in enumerate(zip(got_ans + [-1],
+                                                  want_ans + [-2]))
+                 if x != y)
+        # decode_step call 0 is the prompt prefill (its last valid row
+        # chose token 0), call i > 0 the token step that chose token i
+        lg = logits[i]
+        row = lg[0, -1] if i else lg[0, prompt_len - 1]
+        top = row.topk(2).values
+        gap = float(top[0] - top[1])
+        lim = TIE_REL * float(row.abs().max())
+        return {"where": f"token {i}", "gap": gap, "limit": lim,
+                "tie": gap <= lim}
+
+    compare, ties, fails = [], [], []
+    for kind, ans, idx, _ in qa:
+        for b, sid in enumerate(slot_stream):
+            run, solo = solo_qa(sid, kind, b)
+            solo_ans = run()
+            got_idx = [layer_idx[b] for layer_idx in idx]
+            same = ans[b] == solo_ans and \
+                got_idx == solo.last_retrieved_indices
+            entry = {"question": kind, "slot": b, "stream": sid,
+                     "answer": ans[b], "batch1_answer": solo_ans,
+                     "equal": same}
+            if not same and parting[sid] is not None:
+                entry["after_vision_near_tie"] = parting[sid]
+            elif not same:
+                plen = len(ps[b] if kind == "batch" else shared[1])
+                entry["near_tie"] = near_tie(run, solo, got_idx, ans[b],
+                                             solo_ans, plen)
+                (ties if entry["near_tie"]["tie"] else fails).append(entry)
+            compare.append(entry)
+    steady = [(dt, n) for dt, n in tick_s[2:]]
+    mixed_t = [dt for (dt, _), m in zip(tick_s[2:], mixed[2:]) if m]
+    uniform_t = [dt for (dt, _), m in zip(tick_s[2:], mixed[2:]) if not m]
+    vision_ties = {sid: p for sid, p in parting.items() if p is not None}
+    rec = {"phase": "multi-stream llava-ov-0.5b", "card": card,
+           "batch": B, "rates": rates, "ticks": n_ticks,
+           "reset_after_tick": reset_tick, "mixed_ticks": sum(mixed),
+           "frames_fed": dict(fed), "integer_state": ints,
+           "integer_state_exact": ints_ok, "pages": pages,
+           "pages_agree": pages_ok, "vision_partings": vision_ties,
+           "compare": compare, "answers_equal": sum(e["equal"]
+                                                    for e in compare),
+           "answers_compared": len(compare),
+           "near_ties": len(ties) + len(vision_ties),
+           "failures": len(fails), "launches": counts, "expected": want,
+           "ingest_fps_b4": (sum(n for _, n in steady)
+                             / sum(dt for dt, _ in steady)),
+           "ingest_fps_b1": len(solo_s) / sum(solo_s),
+           "tick_ms_mixed_p50": 1e3 * p50(mixed_t) if mixed_t else None,
+           "tick_ms_uniform_p50": (1e3 * p50(uniform_t) if uniform_t
+                                   else None),
+           "qa_s": [dt for *_, dt in qa],
+           "seconds": time.perf_counter() - t_phase}
+    for sid, p in vision_ties.items():
+        print(f"near-tie: stream {sid} vision {p}", flush=True)
+    for e in ties:
+        print(f"near-tie: {e['question']} slot {e['slot']} "
+              f"{e['near_tie']}", flush=True)
+    del sess, solos, model
+    torch.cuda.empty_cache()
+    if not (ints_ok and pages_ok and vision_ok and not fails
+            and counts == want and sum(mixed) > 0):
+        raise RuntimeError(f"multi-stream phase failed {rec}")
+    return rec
+
+
+# ---------------------------------------------------------------------------
 # phase 9: an HF checkpoint written here, read back through the loader
 # ---------------------------------------------------------------------------
 
@@ -1369,6 +2071,10 @@ def main() -> int:
                     480, 264, dev, gen, quant="int8"),
         stream_case("stream int4 7B heads (28/4/128), 264 pages", 28, 4, 128,
                     480, 264, dev, gen, quant="int4"),
+        stream_case(B4_STREAM, 14, 2, 64, 60, 0, dev, gen, Nb=320, exc=60,
+                    states=B4_STATES_05B),
+        stream_case(B4_STREAM_INT8, 28, 4, 128, 480, 0, dev, gen, Nb=320,
+                    quant="int8", states=B4_STATES_7B),
         decode_case("decode prefill T=256", 256, 3854, 3854 + 256, 15000,
                     dev, gen, return_m=True),
         decode_case("decode token T=1", 1, 4200, 4201, 15000, dev, gen),
@@ -1378,6 +2084,11 @@ def main() -> int:
                     return_m=True),
         decode_case("decode token T=1 7B heads (28/4/128)", 1, 4200, 4201,
                     15000, dev, gen, Hq=28, Hkv=4, D=128),
+        decode_case(B4_DECODE, 1, [900, 1500, 3000, 4200],
+                    [901, 1501, 3001, 4201], 15000, dev, gen),
+        decode_case("decode B=4 prefill T=64, own cursors, n_local 1024",
+                    64, [100, 900, 2500, 4288], [164, 964, 2564, 4352], 1024,
+                    dev, gen),
         score_case("decode_score prefill T=256 at slot 3854", 256, 3854,
                    3854 + 256, 15000, dev, gen, parts=parts),
         score_case("decode_score expired window (n_local 64)", 16, 2000,
@@ -1617,6 +2328,16 @@ def main() -> int:
     emit(p9)
     RECORD["phases"]["loader"] = p9
 
+    # ---- phase 10: the host tier at llava-ov-7b width ----
+    p10 = host_tier_phase(card, dev)
+    emit(p10)
+    RECORD["phases"]["host_tier"] = p10
+
+    # ---- phase 11: ragged multi-stream at llava-ov-0.5b width ----
+    p11 = multistream_phase(card, dev)
+    emit(p11)
+    RECORD["phases"]["multi_stream"] = p11
+
     # ---- the kernels line, then the device line ----
     def bound_by(c):
         """bound_by as one word; terms that tie are listed beside it."""
@@ -1632,7 +2353,7 @@ def main() -> int:
                 **({"f32_ms": c["f32_ms"]} if "f32_ms" in c else {})}
 
     def entry(name, source, replaces, main_case, n_launches, path,
-              also=()):
+              also=(), by_path=None):
         rows = [c for c in cases if c["kernel"] == name]
         m = next(c for c in rows if c["case"] == main_case)
         e = {"name": name, "route": "cuda", "source": source,
@@ -1649,6 +2370,8 @@ def main() -> int:
         for k in ("bf16_pages_ms", "f32_ms"):
             if k in m:
                 e[k] = m[k]
+        if by_path:
+            e["launches_by_path"] = by_path
         if also:
             e["also"] = [times(c) for c in rows if c["case"] in also]
         return e
@@ -1656,15 +2379,26 @@ def main() -> int:
     sa_src, sa_tpu = ("stc_tpu_torch/csrc/stream_attention.cu",
                       "stc_tpu/ops/stream_attention.py:307")
     da_src = "stc_tpu_torch/csrc/decode_attention.cu"
+    set_a, set_c = p10["settings"][0], p10["settings"][2]
     kernels = [
         entry("stream_attention", sa_src, sa_tpu,
               "stream 300 pages init_active",
               launches["stream_attention"]["float"], "phase 3",
               also=("stream 8-page append",
-                    "stream 8-page append 7B heads (28/4/128), 264 pages")),
+                    "stream 8-page append 7B heads (28/4/128), 264 pages",
+                    B4_STREAM),
+              by_path={"phase 3": launches["stream_attention"]["float"],
+                       "phase 10 (a)":
+                       set_a["launches"]["stream_attention"]["float"],
+                       "phase 11": p11["launches"]["stream_attention"][
+                           "float"]}),
         entry("stream_attention_int8", sa_src, sa_tpu,
               "stream int8 7B heads (28/4/128), 264 pages",
-              p6["launches"]["stream_attention"]["int8"], "phase 6"),
+              p6["launches"]["stream_attention"]["int8"], "phase 6",
+              also=(B4_STREAM_INT8,),
+              by_path={"phase 6": p6["launches"]["stream_attention"]["int8"],
+                       "phase 10 (c)":
+                       set_c["launches"]["stream_attention"]["int8"]}),
         entry("stream_attention_int4", sa_src, sa_tpu,
               "stream int4 7B heads (28/4/128), 264 pages",
               p7["launches"]["stream_attention"]["int4"], "phase 7"),
@@ -1673,7 +2407,10 @@ def main() -> int:
               launches["decode_attention"], "phase 3",
               also=("decode prefill T=256",
                     "decode prefill T=256 7B heads (28/4/128)",
-                    "decode token T=1 7B heads (28/4/128)")),
+                    "decode token T=1 7B heads (28/4/128)", B4_DECODE),
+              by_path={"phase 3": launches["decode_attention"],
+                       "phase 10 (a)": set_a["launches"]["decode_attention"],
+                       "phase 11": p11["launches"]["decode_attention"]}),
         entry("decode_score", "stc_tpu_torch/csrc/decode_score.cu",
               "stc_tpu/ops/decode_attention.py:244",
               "decode_score prefill T=256 at slot 3854", 0,

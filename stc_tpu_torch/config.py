@@ -1,7 +1,7 @@
 """Typed configuration of the PyTorch port.
 
-A copy of the fields of ``stc_tpu/config.py`` that the single-stream
-LLaVA-OneVision + ReKV session reads.  The port keeps its own copy (it
+A copy of the fields of ``stc_tpu/config.py`` that the LLaVA-OneVision +
+ReKV session reads.  The port keeps its own copy (it
 imports nothing of the JAX package) and drops ``decode_attn_backend``:
 attention on a CUDA tensor always runs the hand-written kernel, on a CPU
 tensor always its plain version.
@@ -31,7 +31,11 @@ class ReKVConfig:
     max_new_tokens: int = 128     # decode budget per question
     max_prompt_tokens: int = 512  # static prompt-prefill capacity for QA
     kv_quant: str = "none"        # device pages: 'none' | 'int8' | 'int4'
-    host_kv_quant: str = "int8"   # inert: the port has no host tier yet
+    # host-tier pages of a float store: 'int8' (half the bytes of bf16 in
+    # host memory and across the link, with f32 scales per page and dim)
+    # | 'int4' (packed nibbles, a quarter) | 'none' (exact round trips);
+    # a kv_quant store's pages go to the host as they are stored
+    host_kv_quant: str = "int8"
     # fields the port does not implement yet; kept so the port's config
     # takes every setting the JAX one does, and checked below
     retrieval_scorer: str = "mean_dot"

@@ -23,6 +23,13 @@ token rows; ``stream_attention`` reads them as they are stored and
 dequantizes inside the kernel; retrieval dequantizes the gathered pages.
 Rep keys come from the exact keys, so retrieval scoring does not see the
 quantization.
+
+Multi-stream state: ``append_stream(active=)`` leaves inactive streams
+bit-identical (ragged ingest), ``reset_streams`` recycles slots, and
+``external_blocks`` takes externally chosen blocks in place of the top-k.
+After host-tier evictions (``host_tier.py``) the store holds absolute
+pages from page_offset on; ``retrieve_blocks_hosttier`` serves the rest
+from the session's prefetch table of staged host pages.
 """
 
 from __future__ import annotations
@@ -103,6 +110,24 @@ def init_decode_kv(cfg: ReKVConfig, batch: int, n_kv_heads: int,
         cursor=torch.zeros(lead + (batch,), dtype=I32, device=device))
 
 
+def reset_streams(kv: StreamKV, reset: torch.Tensor, init_len: int,
+                  batch_axis: int = 0) -> StreamKV:
+    """Return the slots where reset (B,) bool is set to their just-after-
+    init-prompt state, in place: counters to zero (length to init_len),
+    rep keys to zero, page keep masks to ones.  The init tokens stay
+    (every slot shares the init prompt) and page data stays stale: every
+    reader gates by num_blocks and positions, and new appends overwrite
+    from slot 0.  batch_axis: 0 for a layer's state, 1 for the session's
+    layer-stacked one."""
+    idx = reset.nonzero().reshape(-1).to(kv.num_blocks.device)
+    kv.block_rep.index_fill_(batch_axis, idx, 0)
+    kv.page_keep.index_fill_(batch_axis, idx, True)
+    kv.num_blocks.index_fill_(batch_axis, idx, 0)
+    kv.page_offset.index_fill_(batch_axis, idx, 0)
+    kv.length.index_fill_(batch_axis, idx, init_len)
+    return kv
+
+
 # ---------------------------------------------------------------------------
 # RoPE tables and kernel scalars (shared by every layer of one append)
 # ---------------------------------------------------------------------------
@@ -169,22 +194,31 @@ def make_rope_cache(length: torch.Tensor, num_blocks: torch.Tensor, T: int,
 # Page quantization (kv_quant): the JAX engine's arithmetic, exactly
 # ---------------------------------------------------------------------------
 
+def _absmax_scale(x: torch.Tensor, qmax: float) -> torch.Tensor:
+    """max(max |x| over the S token rows (axis -2), 1e-8) / qmax in f32,
+    correctly rounded on every device: CUDA divides by a Python number
+    through its reciprocal, which can land an ulp away, so the divisor is a
+    tensor (as Qwen2's weight scales)."""
+    a = x.abs().amax(dim=-2).clamp(min=1e-8)
+    return a / torch.full_like(a, qmax)
+
+
 def _quantize_page(x: torch.Tensor):
-    """(B, Hkv, n, S, D) -> (int8 pages, f32 scales (B, Hkv, n, D)):
-    symmetric absmax over the S token rows, half-to-even rounding."""
+    """(..., n, S, D) -> (int8 pages, f32 scales (..., n, D)): symmetric
+    absmax over the S token rows, half-to-even rounding."""
     xf = x.to(torch.float32)
-    scale = xf.abs().amax(dim=3).clamp(min=1e-8) / 127.0
-    q = torch.round(xf / scale[:, :, :, None, :])
+    scale = _absmax_scale(xf, 127.0)
+    q = torch.round(xf / scale[..., None, :])
     return q.clamp(-127, 127).to(torch.int8), scale
 
 
 def _quantize_page_int4(x: torch.Tensor):
-    """(B, Hkv, n, S, D) -> (uint8 packed nibbles (..., S, D//2), f32
-    scales (B, Hkv, n, D)): absmax over the S rows onto [-7, 7], packed
-    split-plane (byte j holds dim j low, dim j + D/2 high)."""
+    """(..., n, S, D) -> (uint8 packed nibbles (..., S, D//2), f32 scales
+    (..., n, D)): absmax over the S rows onto [-7, 7], packed split-plane
+    (byte j holds dim j low, dim j + D/2 high)."""
     xf = x.to(torch.float32)
-    scale = xf.abs().amax(dim=3).clamp(min=1e-8) / 7.0
-    q = torch.round(xf / scale[:, :, :, None, :])
+    scale = _absmax_scale(xf, 7.0)
+    q = torch.round(xf / scale[..., None, :])
     return _pack_int4(q.clamp(-7, 7).to(torch.int8)), scale
 
 
@@ -210,7 +244,8 @@ def _dequant_pages(pages: torch.Tensor, scales: torch.Tensor,
 def append_stream(kv: StreamKV, q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor, cfg: ReKVConfig, *, is_init: bool,
                   rope_base: float = 10000.0,
-                  rope_cache: Optional[RopeCache] = None
+                  rope_cache: Optional[RopeCache] = None,
+                  active: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, StreamKV]:
     """One streaming append of T tokens; returns (attn_out, kv) with kv's
     tensors updated in place.
@@ -222,6 +257,12 @@ def append_stream(kv: StreamKV, q: torch.Tensor, k: torch.Tensor,
     window pages | init tokens at the one angle] through stream_attention.
     With kv_quant the pages are quantized on write (the rep keys come from
     the exact keys) and the kernel reads the quantized store.
+
+    active: optional (B,) bool ragged-ingest mask.  Inactive streams'
+    pages, scales, rep keys and counters stay bit-identical (each write
+    reads the current content back and writes it again there: the clipped
+    slot of a full store lands on live pages); their attention outputs are
+    garbage the caller ignores.
     """
     B, Hq, T, D = q.shape
     Hkv = k.shape[1]
@@ -260,21 +301,29 @@ def append_stream(kv: StreamKV, q: torch.Tensor, k: torch.Tensor,
     pages = slot.to(torch.int64)[:, None] + ar                  # (B, n_new)
     k_pages = k.reshape(B, Hkv, n_new, S, D)
     v_pages = v.reshape(B, Hkv, n_new, S, D)
+    def write(store, index, new):
+        if active is not None:  # inactive streams keep what they hold
+            am = active.reshape((B,) + (1,) * (new.dim() - 1))
+            new = torch.where(am, new, store[index])
+        store[index] = new
+
+    page_ix = (bidx, slice(None), pages)
     quant = cfg.kv_quant != "none"
     if quant:
         qfn = _quantize_page_int4 if cfg.kv_quant == "int4" else \
             _quantize_page
         (k_w, k_sc), (v_w, v_sc) = qfn(k_pages), qfn(v_pages)
-        kv.block_k_scale[bidx, :, pages] = k_sc.transpose(1, 2)
-        kv.block_v_scale[bidx, :, pages] = v_sc.transpose(1, 2)
+        write(kv.block_k_scale, page_ix, k_sc.transpose(1, 2))
+        write(kv.block_v_scale, page_ix, v_sc.transpose(1, 2))
     else:  # round into the store's dtype (the state dtype)
         k_w = k_pages.to(kv.block_k.dtype)
         v_w = v_pages.to(kv.block_v.dtype)
-    kv.block_k[bidx, :, pages] = k_w.transpose(1, 2)
-    kv.block_v[bidx, :, pages] = v_w.transpose(1, 2)
+    write(kv.block_k, page_ix, k_w.transpose(1, 2))
+    write(kv.block_v, page_ix, v_w.transpose(1, 2))
     rep = k_pages.to(torch.float32).mean(dim=3).transpose(1, 2)  # (B,n,H,D)
     rep_slot = kv.num_blocks.clamp(0, cfg.rep_cap - n_new).to(torch.int64)
-    kv.block_rep[bidx, rep_slot[:, None] + ar] = rep.to(kv.block_rep.dtype)
+    write(kv.block_rep, (bidx, rep_slot[:, None] + ar),
+          rep.to(kv.block_rep.dtype))
 
     # the kernel takes queries in the state dtype (a body computing in f32
     # over a bf16 state narrows here, as the Pallas kernel does); the page
@@ -290,8 +339,13 @@ def append_stream(kv: StreamKV, q: torch.Tensor, k: torch.Tensor,
         k_scales=kv.block_k_scale if quant else None,
         v_scales=kv.block_v_scale if quant else None).to(q.dtype)
 
-    kv.num_blocks.add_(n_new)
-    kv.length.add_(T)
+    if active is None:
+        kv.num_blocks.add_(n_new)
+        kv.length.add_(T)
+    else:
+        act = active.to(I32)
+        kv.num_blocks.add_(n_new * act)
+        kv.length.add_(T * act)
     return o, kv
 
 
@@ -342,6 +396,15 @@ def score_blocks(kv: StreamKV, q: torch.Tensor, cfg: ReKVConfig,
     return abs_idx, exists
 
 
+def external_blocks(kv: StreamKV, block_indices: torch.Tensor):
+    """Externally chosen blocks (B, topk) as (abs_idx int32, exists):
+    entries < 0 or >= num_blocks select nothing (stc_tpu's
+    retrieve_blocks(block_indices=))."""
+    abs_idx = block_indices.to(device=kv.num_blocks.device, dtype=I32)
+    exists = (abs_idx >= 0) & (abs_idx < kv.num_blocks[:, None])
+    return abs_idx, exists
+
+
 def retrieve_scored(kv: StreamKV, cfg: ReKVConfig, abs_idx: torch.Tensor,
                     exists: torch.Tensor):
     """Gather the selected device-resident blocks behind the init tokens,
@@ -365,7 +428,44 @@ def retrieve_blocks(kv: StreamKV, q: torch.Tensor, cfg: ReKVConfig,
     return retrieve_scored(kv, cfg, abs_idx, exists)
 
 
-def _gather_retrieved(kv: StreamKV, cfg: ReKVConfig, block_slot, sel_valid):
+def retrieve_blocks_hosttier(kv: StreamKV, cfg: ReKVConfig,
+                             abs_idx: torch.Tensor, exists: torch.Tensor,
+                             hp_k: torch.Tensor, hp_v: torch.Tensor,
+                             hp_ids: torch.Tensor):
+    """retrieve_scored over both tiers: device-resident pages come from the
+    store, evicted ones from the prefetch table (hp_k/hp_v (B, Hkv, M, S,
+    D) in the state dtype, hp_ids (B, M) absolute page ids in any order,
+    int32-max padded).  Selected pages in neither tier are reported in
+    `missing` and left out; the served ones come first in ascending
+    absolute order.  A forward whose every layer served every selection is
+    the all-device forward exactly.  Returns (ret_k, ret_v, token_valid,
+    valid_len, missing (B, topk))."""
+    B = abs_idx.shape[0]
+    resident = abs_idx >= kv.page_offset[:, None]
+    eq = hp_ids[:, None, :] == abs_idx[:, :, None]             # (B, topk, M)
+    found = eq.any(dim=-1) & ~resident
+    pos = eq.to(I32).argmax(dim=-1)                             # first match
+    served = exists & (resident | found)
+    missing = exists & ~resident & ~found
+    order_key = torch.where(served, abs_idx.to(torch.int64),
+                            torch.iinfo(torch.int32).max)
+    order = torch.argsort(order_key, dim=1, stable=True)
+    abs_s = torch.gather(abs_idx, 1, order)
+    sel_valid = torch.gather(served, 1, order)
+    res_s = torch.gather(resident, 1, order)
+    pos_s = torch.gather(pos, 1, order)
+    slot = (abs_s - kv.page_offset[:, None]).clamp(0, cfg.max_blocks - 1)
+    gk, gv = _gather_pages(kv, cfg, slot)
+    bidx = torch.arange(B, device=abs_idx.device)[:, None]
+    m = res_s[:, :, None, None, None]
+    gk = torch.where(m, gk, hp_k[bidx, :, pos_s])
+    gv = torch.where(m, gv, hp_v[bidx, :, pos_s])
+    return _pack_retrieved(kv, cfg, gk, gv, sel_valid) + (missing,)
+
+
+def _gather_pages(kv: StreamKV, cfg: ReKVConfig, block_slot):
+    """The pages at block_slot (B, topk) as (B, topk, Hkv, S, D) in the
+    state dtype, quantized ones dequantized with their scales."""
     B = block_slot.shape[0]
     bidx = torch.arange(B, device=block_slot.device)[:, None]
     slot = block_slot.to(torch.int64)
@@ -375,6 +475,11 @@ def _gather_retrieved(kv: StreamKV, cfg: ReKVConfig, block_slot, sel_valid):
         dt = kv.init_k.dtype
         gk = _dequant_pages(gk, kv.block_k_scale[bidx, :, slot], dt)
         gv = _dequant_pages(gv, kv.block_v_scale[bidx, :, slot], dt)
+    return gk, gv
+
+
+def _gather_retrieved(kv: StreamKV, cfg: ReKVConfig, block_slot, sel_valid):
+    gk, gv = _gather_pages(kv, cfg, block_slot)
     return _pack_retrieved(kv, cfg, gk, gv, sel_valid)
 
 

@@ -109,18 +109,24 @@ class LlavaOV(nn.Module):
 
 class LlavaOVVision(VisionPipeline):
     """SigLIP(+STC-Cacher) -> projector -> 2x bilinear pooling ->
-    STC-Pruner, for one stream."""
+    STC-Pruner, for B parallel streams: frames are stream-major on the
+    tower's batch axis; the cacher references (L, B, T, C) and the pruner's
+    running memory (B, ...) are per stream."""
 
-    def __init__(self, model: LlavaOV, scfg: SessionConfig):
+    def __init__(self, model: LlavaOV, scfg: SessionConfig, batch: int = 1):
         self.model = model
         self.cfg = model.cfg
         self.scfg = scfg
+        self.batch = batch
         self.dtype = model.projector.w1.dtype
         self.device = model.projector.w1.device
         self._pre = Preprocessor(self.cfg.vision.image_size, IMAGE_MEAN,
                                  IMAGE_STD, self.dtype)
 
     def preprocess(self, frames):
+        frames = np.asarray(frames)
+        if frames.ndim == 5:  # (B, F, H, W, 3) multi-stream
+            frames = frames.reshape((-1,) + frames.shape[2:])
         return self._pre.host(frames)
 
     def device_preprocess(self, pixels):
@@ -129,48 +135,69 @@ class LlavaOVVision(VisionPipeline):
     def init_state(self):
         n_sel = int(self.cfg.text.hidden_size
                     * self.scfg.pruner.channel_keep_ratio)
-        return (sg.init_cacher_state(self.cfg.vision, 1, self.dtype,
+        return (sg.init_cacher_state(self.cfg.vision, self.batch, self.dtype,
                                      device=self.device),
-                init_pruner_state(1, n_sel, torch.float32,
+                init_pruner_state(self.batch, n_sel, torch.float32,
                                   device=self.device))
 
+    def select_streams(self, vstate, pstate, old_vstate, old_pstate, mask):
+        """Per stream, the new state where mask (B,) is set, else the old:
+        cacher references on axis 1, pruner memory on axis 0."""
+        def sel(axis):
+            def f(n, o):
+                shape = [1] * n.dim()
+                shape[axis] = mask.shape[0]
+                return torch.where(mask.reshape(shape), n, o)
+            return f
+
+        return (type(vstate)(*map(sel(1), vstate, old_vstate)),
+                type(pstate)(*map(sel(0), pstate, old_pstate)))
+
+    def stream_axes(self):
+        return (1, 0)  # cacher refs (L, B, T, C); pruner memory (B, ...)
+
     def _post(self, feats, pstate):
+        B = self.batch
         feats = apply_pooling(self.model.projector(feats),
                               self.cfg.vision.grid)
-        F_, T, E = feats.shape
+        BF, T, E = feats.shape
+        feats = feats.reshape(B, BF // B, T, E)
         if not self.scfg.pruner.enabled:
-            return feats.reshape(1, F_ * T, E), pstate
+            return feats.reshape(B, -1, E), pstate
         pruned, _, pstate = stc_prune(
-            feats[None], pstate,
+            feats, pstate,
             keep_per_frame=self.scfg.pruner.token_per_frame,
             channel_keep_ratio=self.scfg.pruner.channel_keep_ratio)
-        return pruned.reshape(1, -1, E), pstate
+        return pruned.reshape(B, -1, E), pstate
 
     def full(self, pixels, vstate, pstate):
-        feats, vstate = self.model.vision.encode_full(pixels)
+        feats, vstate = self.model.vision.encode_full(pixels, self.batch)
         flat, pstate = self._post(feats, pstate)
         return flat, vstate, pstate
 
     def cached(self, pixels, vstate, pstate):
         feats, _ = self.model.vision.encode_cached(
-            pixels, vstate, self.scfg.cacher.update_token_ratio)
+            pixels, vstate, self.scfg.cacher.update_token_ratio, self.batch)
         flat, pstate = self._post(feats, pstate)
         return flat, vstate, pstate
 
 
 class LlavaOVSession(VLMSession):
     def __init__(self, model: LlavaOV, scfg: SessionConfig,
-                 state_dtype=torch.bfloat16):
+                 state_dtype=torch.bfloat16, batch: int = 1):
         self.model = model
-        super().__init__(model.text, scfg, LlavaOVVision(model, scfg),
-                         state_dtype=state_dtype)
+        super().__init__(model.text, scfg,
+                         LlavaOVVision(model, scfg, batch=batch),
+                         state_dtype=state_dtype, batch=batch)
 
 
 def build_session(model: LlavaOV, scfg: SessionConfig,
-                  state_dtype=torch.bfloat16, device="cuda") -> LlavaOVSession:
-    """A single-stream pixel session over `model`, moved to `device`."""
+                  state_dtype=torch.bfloat16, device="cuda",
+                  batch: int = 1) -> LlavaOVSession:
+    """A pixel session of `batch` streams over `model`, moved to
+    `device`."""
     model = model.to(resolve_device(device))
-    return LlavaOVSession(model, scfg, state_dtype=state_dtype)
+    return LlavaOVSession(model, scfg, state_dtype=state_dtype, batch=batch)
 
 
 @register_model("llava_ov_7b")

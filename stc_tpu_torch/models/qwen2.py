@@ -7,12 +7,20 @@ concatenated).  A Python loop over the layers replaces ``scan_layers``; the
 stacked stream and decode states are updated in place, layer slice by layer
 slice.  Entry points mirror the JAX call graph:
 
-  encode_step       streaming prefill of one append (init prompt or video)
-  qa_retrieve_step  question forward with per-layer top-k retrieval; the
-                    question's own KV are not kept
+  encode_step       streaming prefill of one append (init prompt or video),
+                    optionally for the active streams only
+  qa_retrieve_step  question forward with per-layer top-k (or external)
+                    retrieval, from the device store and, after evictions,
+                    a prefetch table of host pages; the question's own KV
+                    are not kept
   decode_step       prompt prefill / one-token decode over the decode cache
   greedy_decode     the answer loop, never emitting a stop token first
   answer_question   retrieval + prefill + greedy decode
+  answer_question_hosttier  one round of the two-tier QA: the retrieval
+                    forward, then prefill and decode only if every
+                    selected page was served (with `stage`, a layer whose
+                    selection missed has its pages staged before it goes
+                    on, so the round serves everything)
 
 ``Qwen2.quantize_int8`` turns the weights into int8 with float32 scales
 (``stc_tpu``'s ``quantize_params_int8``); every matmul then dequantizes its
@@ -269,9 +277,12 @@ class Qwen2(nn.Module):
     # ------------------------------------------------------------------ #
     @torch.no_grad()
     def encode_step(self, rekv: ReKVConfig, kvs: StreamKV,
-                    embeds: torch.Tensor, *, is_init: bool):
+                    embeds: torch.Tensor, *, is_init: bool,
+                    active: Optional[torch.Tensor] = None):
         """One streaming append of embeds (B, T, E) through every layer;
-        kvs is updated in place.  Returns (final hidden states, kvs)."""
+        kvs is updated in place.  active: optional (B,) bool ragged mask,
+        inactive streams' state untouched (engine.append_stream).  Returns
+        (final hidden states, kvs)."""
         c = self.cfg
         rc = None
         if not is_init:  # position tables are shared by every layer
@@ -283,18 +294,45 @@ class Qwen2(nn.Module):
             q, k, v = self._qkv(lp, rms_norm(h, lp.ln1, c.rms_eps))
             o, _ = engine.append_stream(layer(kvs, i), q, k, v, rekv,
                                         is_init=is_init,
-                                        rope_base=c.rope_base, rope_cache=rc)
+                                        rope_base=c.rope_base, rope_cache=rc,
+                                        active=active)
             h = self._finish_layer(lp, h, o)
         return h, kvs
 
     @torch.no_grad()
     def qa_retrieve_step(self, rekv: ReKVConfig, kvs: StreamKV,
                          dkvs: DecodeKV, embeds: torch.Tensor,
-                         n_tokens: Optional[torch.Tensor] = None):
+                         n_tokens: Optional[torch.Tensor] = None,
+                         retrieved_indices: Optional[torch.Tensor] = None):
         """Question forward with per-layer retrieval; installs each layer's
-        retrieved prefix into the decode cache (in place).  Returns (dkvs,
+        retrieved prefix into the decode cache (in place).
+        retrieved_indices: optional (B, topk) external block indices (-1
+        padded) used at every layer instead of the top-k.  Returns (dkvs,
         abs_idx (L, B, topk), exists (L, B, topk)): the blocks each layer
         selected, for observability."""
+        dkvs, abs_idx, exists, _ = self._qa_forward(
+            rekv, kvs, dkvs, embeds, n_tokens, retrieved_indices, None)
+        return dkvs, abs_idx, exists
+
+    @torch.no_grad()
+    def qa_retrieve_hosttier_step(self, rekv: ReKVConfig, kvs: StreamKV,
+                                  dkvs: DecodeKV, embeds: torch.Tensor,
+                                  n_tokens, hp_kv: torch.Tensor,
+                                  hp_ids: torch.Tensor,
+                                  retrieved_indices=None, stage=None):
+        """qa_retrieve_step over both KV tiers: evicted pages come from the
+        prefetch table hp_kv (2, L, B, Hkv, M, S, D), hp_ids (L, B, M).
+        stage: optional callable (layer, abs_idx, missing) -> (hp_kv,
+        hp_ids), called (after one host read of that layer's `missing`)
+        when a layer's selection missed: it stages the pages and returns
+        the table to gather from again.  Returns (dkvs, abs_idx, exists,
+        missing (L, B, topk)): selected pages in neither tier
+        (engine.retrieve_blocks_hosttier)."""
+        return self._qa_forward(rekv, kvs, dkvs, embeds, n_tokens,
+                                retrieved_indices, (hp_kv, hp_ids), stage)
+
+    def _qa_forward(self, rekv, kvs, dkvs, embeds, n_tokens,
+                    retrieved_indices, host_pages, stage=None):
         c = self.cfg
         B, T, _ = embeds.shape
         dev = embeds.device
@@ -308,10 +346,25 @@ class Qwen2(nn.Module):
         for i, lp in enumerate(self.layers):
             q, k, v = self._qkv(lp, rms_norm(h, lp.ln1, c.rms_eps))
             kv = layer(kvs, i)
-            abs_idx, exists = engine.score_blocks(kv, q, rekv, q_valid)
-            picked.append((abs_idx, exists))
-            ret_k, ret_v, _, valid_len = engine.retrieve_scored(
-                kv, rekv, abs_idx, exists)
+            if retrieved_indices is None:
+                abs_idx, exists = engine.score_blocks(kv, q, rekv, q_valid)
+            else:
+                abs_idx, exists = engine.external_blocks(kv,
+                                                         retrieved_indices)
+            if host_pages is None:
+                ret_k, ret_v, _, valid_len = engine.retrieve_scored(
+                    kv, rekv, abs_idx, exists)
+                missing = None
+            else:
+                def gather(hp_kv, hp_ids):
+                    return engine.retrieve_blocks_hosttier(
+                        kv, rekv, abs_idx, exists, hp_kv[0, i], hp_kv[1, i],
+                        hp_ids[i])
+                ret_k, ret_v, _, valid_len, missing = gather(*host_pages)
+                if stage is not None and bool(missing.any()):
+                    host_pages = stage(i, abs_idx, missing)
+                    ret_k, ret_v, _, valid_len, missing = gather(*host_pages)
+            picked.append((abs_idx, exists, missing))
             dkv = engine.decode_write(layer(dkvs, i), ret_k, ret_v, valid_len,
                                       at_start=True, rope_base=c.rope_base,
                                       raw_rows=raw_rows)
@@ -321,9 +374,11 @@ class Qwen2(nn.Module):
                                      rope_base=c.rope_base)
             dkvs.cursor[i] = valid_len
             h = self._finish_layer(lp, h, o)
-        abs_idx = torch.stack([a for a, _ in picked])
-        exists = torch.stack([e for _, e in picked])
-        return dkvs, abs_idx, exists
+        abs_idx, exists = (torch.stack([p[j] for p in picked])
+                           for j in (0, 1))
+        missing = (None if host_pages is None
+                   else torch.stack([p[2] for p in picked]))
+        return dkvs, abs_idx, exists, missing
 
     @torch.no_grad()
     def decode_step(self, rekv: ReKVConfig, dkvs: DecodeKV,
@@ -386,17 +441,51 @@ class Qwen2(nn.Module):
     def answer_question(self, rekv: ReKVConfig, kvs: StreamKV,
                         q_ids: torch.Tensor, q_len: torch.Tensor,
                         p_ids: torch.Tensor, p_len: torch.Tensor,
-                        stop_ids: torch.Tensor, max_new_tokens: int):
+                        stop_ids: torch.Tensor, max_new_tokens: int,
+                        retrieved_indices: Optional[torch.Tensor] = None):
         """Retrieval forward + prompt prefill + greedy decode.  Returns
         (tokens, n_generated, abs_idx (L, B, topk), exists)."""
         B = q_ids.shape[0]
         dkvs = self.init_decode_state(rekv, B, kvs.init_k.dtype)
         dkvs, abs_idx, exists = self.qa_retrieve_step(
-            rekv, kvs, dkvs, self.embed_tokens(q_ids), n_tokens=q_len)
-        logits, dkvs = self.decode_step(rekv, dkvs,
-                                        self.embed_tokens(p_ids), p_len)
+            rekv, kvs, dkvs, self.embed_tokens(q_ids), n_tokens=q_len,
+            retrieved_indices=retrieved_indices)
+        tokens, count = self._answer(rekv, dkvs, p_ids, p_len, stop_ids,
+                                     max_new_tokens)
+        return tokens, count, abs_idx, exists
+
+    @torch.no_grad()
+    def answer_question_hosttier(self, rekv: ReKVConfig, kvs: StreamKV,
+                                 q_ids, q_len, p_ids, p_len, stop_ids,
+                                 max_new_tokens: int, hp_kv, hp_ids,
+                                 retrieved_indices=None, stage=None):
+        """One round of the two-tier QA: the retrieval forward over the
+        store and the prefetch table (with `stage`, layer by layer, see
+        qa_retrieve_hosttier_step), then -- only when no layer missed a
+        selected page (one host read of `missing`) -- prompt prefill and
+        greedy decode; a miss round returns zero tokens.  Returns (tokens,
+        n_generated, abs_idx, exists, missing)."""
+        B = q_ids.shape[0]
+        dkvs = self.init_decode_state(rekv, B, kvs.init_k.dtype)
+        dkvs, abs_idx, exists, missing = self.qa_retrieve_hosttier_step(
+            rekv, kvs, dkvs, self.embed_tokens(q_ids), q_len, hp_kv, hp_ids,
+            retrieved_indices=retrieved_indices, stage=stage)
+        if bool(missing.any()):
+            z = torch.zeros((B, max_new_tokens), dtype=torch.int32,
+                            device=q_ids.device)
+            return z, z[:, 0], abs_idx, exists, missing
+        tokens, count = self._answer(rekv, dkvs, p_ids, p_len, stop_ids,
+                                     max_new_tokens)
+        return tokens, count, abs_idx, exists, missing
+
+    def _answer(self, rekv, dkvs, p_ids, p_len, stop_ids, max_new_tokens):
+        """Prompt prefill over the installed decode cache, then greedy
+        decode: (tokens, n_generated)."""
+        B = p_ids.shape[0]
+        logits, dkvs = self.decode_step(rekv, dkvs, self.embed_tokens(p_ids),
+                                        p_len)
         bidx = torch.arange(B, device=logits.device)
         last = logits[bidx, p_len.to(torch.int64) - 1]
         tokens, count, _ = self.greedy_decode(rekv, dkvs, last, stop_ids,
                                               max_new_tokens)
-        return tokens, count, abs_idx, exists
+        return tokens, count

@@ -9,6 +9,10 @@
       against the scattered V, attention and MLP outputs); every other token
       takes the reference outputs.
 
+With n_streams > 1 the frames of B streams ride the batch axis stream-major
+(B * F), each stream's references come from the last frame of its own part
+of the chunk, and each stream's cached frames gate against its own.
+
 The port runs sim_source='key', k_proxy_rank=0 and gathers rows by index
 (the JAX package's one-hot gather exists only for TPU costs).
 """
@@ -240,28 +244,39 @@ class Siglip(nn.Module):
         return x @ self.patch_w + self.patch_b + self.pos_embed
 
     @torch.no_grad()
-    def encode_full(self, pixels: torch.Tensor):
-        """Full chunk: returns (features (F, T, C) of the last layer, the
-        refreshed CacherState from the chunk's last frame)."""
+    def encode_full(self, pixels: torch.Tensor, n_streams: int = 1):
+        """Full chunk of (B * F) stream-major frames: returns (features
+        (B * F, T, C) of the last layer, the refreshed CacherState (L, B,
+        T, C) from each stream's last frame)."""
         h = self.patch_embed(pixels)
+        T, C = self.cfg.num_tokens, self.cfg.hidden_size
         refs = []
         for lp in self.layers:
             h, saved = lp.full(h, self.cfg)
-            refs.append([x[-1:] for x in saved])
+            refs.append([x.reshape(n_streams, -1, T, C)[:, -1]
+                         for x in saved])
         return h, CacherState(*(torch.stack([r[j] for r in refs])
                                 for j in range(4)))
 
     @torch.no_grad()
     def encode_cached(self, pixels: torch.Tensor, cacher: CacherState,
-                      update_ratio: float):
-        """Selective-recompute chunk: returns (features, selected token
-        indices (L, F, U)); the cacher state is unchanged."""
+                      update_ratio: float, n_streams: int = 1):
+        """Selective-recompute chunk of (B * F) stream-major frames, each
+        stream's against its own references: returns (features, selected
+        token indices (L, B * F, U)); the cacher state is unchanged."""
         T = self.cfg.num_tokens
         num_update = max(1, min(int(T * update_ratio), T))
         h = self.patch_embed(pixels)
+        F_ = h.shape[0] // n_streams
         sel = []
         for i, lp in enumerate(self.layers):
-            h, upd = lp.cached(h, tuple(x[i] for x in cacher), num_update,
-                               self.cfg)
-            sel.append(upd)
+            hs, ups = [], []
+            for b in range(n_streams):
+                hb, upd = lp.cached(h[b * F_:(b + 1) * F_],
+                                    tuple(x[i, b:b + 1] for x in cacher),
+                                    num_update, self.cfg)
+                hs.append(hb)
+                ups.append(upd)
+            h = hs[0] if n_streams == 1 else torch.cat(hs)
+            sel.append(ups[0] if n_streams == 1 else torch.cat(ups))
         return h, torch.stack(sel)

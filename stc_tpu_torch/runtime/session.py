@@ -1,25 +1,34 @@
-"""Streaming session runtime (port of ``stc_tpu/runtime/session.py``,
-main-path subset): the plug-and-play API
+"""Streaming session runtime (port of ``stc_tpu/runtime/session.py``): the
+plug-and-play API
 
     clear_cache() / encode_init_prompt(ids) / encode_video_features(feats)
-    / question_answering(...)
+    / question_answering(...) / question_answering_batch(...)
+    / reset_streams(slots)
 
-over one device-resident page store.  With ``weights_quant`` set, the
-session quantizes the LM it is given to int8 at build (in place).  Left
-out until their ROADMAP.md items land: the host tier (a stream past
-max_blocks raises), meshes, the serve router, speculative decode and
-external retrieval.
+over one device-resident page store for B streams, with a host tier behind
+it.  Streams may tick at different rates (``active`` masks: ragged
+ingest), slots may be recycled for new streams, and questions may differ
+per stream or name their blocks (external retrieval).  A stream past
+max_blocks offloads its oldest pages to host memory (kvcache/host_tier.py);
+a question whose top-k hits them stages them back and is answered in at
+most two retrieval rounds, exactly as an all-device session would answer.
+With ``weights_quant`` set, the session quantizes the LM it is given to
+int8 at build (in place).  Left out until their ROADMAP.md items land:
+meshes, the serve router, speculative decode and the layerwise ablation
+scorers.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from stc_tpu_torch.config import SessionConfig
+from stc_tpu_torch.kvcache import engine, host_tier
 from stc_tpu_torch.models.qwen2 import Qwen2
+from stc_tpu_torch.ops.stream_attention import dequant_rows
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -56,20 +65,41 @@ class StreamingSession:
                 f"{rc.n_init + rc.n_local}: retrieved blocks beyond the "
                 "local window can never be attended. Lower topk or raise "
                 "n_local.")
-        # per-layer block indices chosen by the last QA, stream 0
+        self._window_pages = engine.n_window_pages(rc)
+        # eviction quantum: a quarter of the store, but never so much that
+        # the local window would leave the device
+        self._evict_n = min(rc.max_blocks // 4,
+                            rc.max_blocks - self._window_pages)
+        # prefetch-table cap in columns per (layer, stream), checked when a
+        # question starts (a question's miss rounds may grow past it)
+        self._hp_cap = max(2 * rc.topk, 64)
+        # per-layer block indices chosen by the last QA: stream 0's list
+        # at batch 1, one list per stream above
         self.last_retrieved_indices = None
+        self.qa_rounds = 0       # retrieval forwards of the last QA
+        self.repair_layers = 0   # layers staged inside its second round
+        self.staged_bytes = 0    # host-tier bytes staged to the device
         self.kvs = None
         self.clear_cache()
 
     def clear_cache(self):
         self.kvs = self.lm.init_stream_state(self.rekv, self.batch,
                                              self.state_dtype)
-        self._total_blocks = 0
+        self.host_store = host_tier.HostBlockStore()
+        self._staged = None  # eviction staging buffers, made once
+        self.hp_reset()
+        self._total_blocks = 0   # the longest stream's blocks
+        self._init_len = 0       # n_init once the init prompt is encoded
+        # per-stream block counts of ragged ingest
+        self._stream_blocks = np.zeros(self.batch, dtype=np.int64)
+        self._ragged = False
+        self._evicted_pages = 0
 
     # ------------------------------------------------------------------ #
     def _check_rep_capacity(self, incoming_blocks: int):
-        """The rep keys score the FULL block history; past rep_cap new
-        blocks would overwrite the last rep slot.  Fail fast."""
+        """The rep keys score the FULL block history (host tier included);
+        past rep_cap new blocks would overwrite the last rep slot.  Fail
+        fast."""
         rc = self.rekv
         if self._total_blocks + incoming_blocks > rc.rep_cap:
             raise RuntimeError(
@@ -79,16 +109,79 @@ class StreamingSession:
                 "in the stream.")
 
     def _maybe_evict(self, incoming_blocks: int):
-        """Where the JAX session offloads the oldest pages to its host tier,
-        the port stops: the host tier is not ported yet."""
+        """Offload the oldest device pages to the host tier before they
+        would overflow the store.  Every ingest path funnels through here,
+        so the rep-capacity check lives here too."""
         self._check_rep_capacity(incoming_blocks)
-        if self._total_blocks + incoming_blocks > self.rekv.max_blocks:
-            raise RuntimeError(
-                f"stream of {self._total_blocks + incoming_blocks} blocks "
-                f"outgrows the device page store (max_blocks="
-                f"{self.rekv.max_blocks}) and the port has no host tier to "
-                "evict to yet (ROADMAP.md queue 1, 'Host tier'). Raise "
-                "max_blocks.")
+        rc = self.rekv
+        while (self._total_blocks - self._evicted_pages
+               + incoming_blocks > rc.max_blocks):
+            if self._ragged and np.ptp(self._stream_blocks) > 0:
+                raise RuntimeError(
+                    "host-tier eviction with diverged ragged streams is not "
+                    "supported: eviction shifts every stream's pages "
+                    "uniformly, which would evict unwritten slots of the "
+                    f"shorter streams (per-stream blocks: "
+                    f"{self._stream_blocks.tolist()}). Raise max_blocks to "
+                    "cover the longest stream.")
+            E = self._evict_n
+            resident = self._total_blocks - self._evicted_pages
+            if E <= 0 or resident - E < self._window_pages:
+                raise RuntimeError(
+                    f"max_blocks={rc.max_blocks} leaves no eviction margin "
+                    f"over the {self._window_pages}-page window")
+            self._evict(E)
+
+    def _evict(self, E: int):
+        kvs, rc = self.kvs, self.rekv
+        store = self.host_store
+        if rc.kv_quant == "none" and rc.host_kv_quant != "none":
+            # quantize on the device: the copy to the host is compressed
+            qfn = (host_tier.quantize_pages_int4
+                   if rc.host_kv_quant == "int4" else host_tier.quantize_pages)
+            kq, ks, vq, vs = qfn(kvs.block_k[:, :, :, :E],
+                                 kvs.block_v[:, :, :, :E])
+            host_tier.evict_pages(kvs, E, None)
+            store.append(kq, vq, ks, vs)
+        else:
+            # the pages as stored (a kv_quant store's with their scales)
+            src = [kvs.block_k, kvs.block_v]
+            if rc.kv_quant != "none":
+                src += [kvs.block_k_scale, kvs.block_v_scale]
+            if self._staged is None:
+                self._staged = [torch.empty_like(x[:, :, :, :E]) for x in src]
+            store.wait_copies()  # the last copy out of the staging is done
+            staged = host_tier.evict_pages(kvs, E, self._staged)
+            store.append(*staged)
+        self._evicted_pages += E
+
+    def _ensure_ragged(self):
+        """Adopt the uniform history as per-stream counters."""
+        if not self._ragged:
+            self._stream_blocks[:] = self._total_blocks
+            self._ragged = True
+
+    def _track_blocks(self, n: int, active=None):
+        if active is None:
+            self._total_blocks += n
+            self._stream_blocks += n
+            return
+        self._ensure_ragged()
+        self._stream_blocks += n * np.asarray(active, dtype=np.int64)
+        self._total_blocks = int(self._stream_blocks.max())
+
+    def _normalize_active(self, active):
+        """-> (device bool (B,) or None, numpy bool (B,) or None); an
+        all-True mask is the uniform path (None)."""
+        if active is None:
+            return None, None
+        a = np.asarray(active, dtype=bool).reshape(-1)
+        if a.shape != (self.batch,):
+            raise ValueError(f"active mask of shape {a.shape} for "
+                             f"{self.batch} streams")
+        if a.all():
+            return None, None
+        return torch.as_tensor(a, device=self.device), a
 
     def _ids(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.array(arr, np.int32), device=self.device)
@@ -103,36 +196,71 @@ class StreamingSession:
         self.lm.encode_step(self.rekv, self.kvs,
                             self.lm.embed_tokens(self._ids(ids)),
                             is_init=True)
+        self._init_len = self.rekv.n_init
 
-    def encode_video_features(self, feats):
+    def encode_video_features(self, feats, active=None):
         """feats: (B, n_frames * block_size, E) pruned visual features;
-        one attention call per exc_block_size tokens."""
+        one attention call per exc_block_size tokens.  active: optional
+        (B,) bool ragged mask: inactive streams' rows are ignored and their
+        state stays bit-identical.  Streams whose lengths diverged must
+        stay within the device store (eviction shifts every stream)."""
         feats = torch.as_tensor(feats, device=self.device).to(self.lm.dtype)
         B, T, E = feats.shape
         S, exc = self.rekv.block_size, self.rekv.exc_block_size
         if T % S:
             raise ValueError((T, S))
+        act_dev, act_np = self._normalize_active(active)
         self._check_rep_capacity(T // S)
         for i in range(0, T, exc):
             n = min(exc, T - i) // S
             self._maybe_evict(n)
             self.lm.encode_step(self.rekv, self.kvs, feats[:, i:i + n * S],
-                                is_init=False)
-            self._total_blocks += n
+                                is_init=False, active=act_dev)
+            self._track_blocks(n, act_np)
 
     # ------------------------------------------------------------------ #
     def question_answering(self, question_ids: Sequence[int],
                            prompt_ids: Sequence[int],
                            stop_token_ids: Sequence[int],
-                           max_new_tokens: int = 128) -> List[int]:
-        """Retrieve with question_ids, then greedy-decode from prompt_ids;
-        returns stream 0's answer ids."""
+                           max_new_tokens: int = 128,
+                           retrieved_indices: Optional[Sequence[int]] = None,
+                           all_streams: bool = False):
+        """Retrieve with question_ids (or the external block indices
+        retrieved_indices, padded or cut to topk), then greedy-decode from
+        prompt_ids.  Returns stream 0's answer ids, or with all_streams one
+        list per stream (the question is shared; retrieval and answers are
+        per stream)."""
         B = self.batch
         q_ids, q_len = self._pad_ids([question_ids] * B)
         p_ids, p_len = self._pad_ids([prompt_ids] * B)
         tokens, count = self._qa_run(q_ids, q_len, p_ids, p_len,
-                                     stop_token_ids, max_new_tokens)
+                                     stop_token_ids, max_new_tokens,
+                                     retrieved_indices)
+        if all_streams:
+            return [[int(t) for t in tokens[b, :int(count[b])]]
+                    for b in range(B)]
         return [int(t) for t in tokens[0, :int(count[0])]]
+
+    def question_answering_batch(
+            self, questions: Sequence[Sequence[int]],
+            prompts: Sequence[Sequence[int]], stop_token_ids: Sequence[int],
+            max_new_tokens: int = 128,
+            retrieved_indices: Optional[Sequence[int]] = None
+    ) -> List[List[int]]:
+        """One question and prompt per stream (lengths may differ; they are
+        right-padded to a shared bucket), answered in one batched QA.
+        Returns one answer list per stream."""
+        if len(questions) != self.batch or len(prompts) != self.batch:
+            raise ValueError(f"{len(questions)} questions and "
+                             f"{len(prompts)} prompts for {self.batch} "
+                             "streams")
+        q_ids, q_len = self._pad_ids(questions)
+        p_ids, p_len = self._pad_ids(prompts)
+        tokens, count = self._qa_run(q_ids, q_len, p_ids, p_len,
+                                     stop_token_ids, max_new_tokens,
+                                     retrieved_indices)
+        return [[int(t) for t in tokens[b, :int(count[b])]]
+                for b in range(self.batch)]
 
     def _pad_ids(self, seqs):
         """Right-pad B token sequences to a shared power-of-two bucket."""
@@ -146,14 +274,190 @@ class StreamingSession:
         return arr, lens
 
     def _qa_run(self, q_ids, q_len, p_ids, p_len, stop_token_ids,
-                max_new_tokens: int):
-        """Retrieval + prefill + greedy decode.  Returns (tokens (B, M),
-        count (B,)) as numpy."""
-        tokens, count, abs_idx, exists = self.lm.answer_question(
-            self.rekv, self.kvs, self._ids(q_ids), self._ids(q_len),
-            self._ids(p_ids), self._ids(p_len),
-            self._ids(_stop_arr(stop_token_ids)), max_new_tokens)
-        a, e = abs_idx[:, 0].cpu().numpy(), exists[:, 0].cpu().numpy()
-        self.last_retrieved_indices = [[int(i) for i in a[l][e[l]]]
-                                       for l in range(a.shape[0])]
+                max_new_tokens: int, retrieved_indices=None):
+        """Retrieval + prefill + greedy decode, from the device store alone
+        or, once pages were evicted, from both tiers.  Returns (tokens
+        (B, M), count (B,)) as numpy."""
+        rc, B = self.rekv, self.batch
+        ext = None
+        if retrieved_indices is not None:
+            arr = np.full((B, rc.topk), -1, dtype=np.int32)
+            ids = list(retrieved_indices)[:rc.topk]
+            arr[:, :len(ids)] = np.asarray(ids, dtype=np.int32)
+            ext = arr
+        args = (self._ids(q_ids), self._ids(q_len), self._ids(p_ids),
+                self._ids(p_len), self._ids(_stop_arr(stop_token_ids)),
+                max_new_tokens)
+        if self._evicted_pages > 0:
+            tokens, count, abs_idx, exists = self._qa_hosttier(args, ext)
+        else:
+            tokens, count, abs_idx, exists = self.lm.answer_question(
+                self.rekv, self.kvs, *args,
+                retrieved_indices=None if ext is None else self._ids(ext))
+            self.qa_rounds = 1
+        a, e = abs_idx.cpu().numpy(), exists.cpu().numpy()
+        per = [[[int(i) for i in a[l, b][e[l, b]]] for b in range(B)]
+               for l in range(a.shape[0])]
+        self.last_retrieved_indices = per if B > 1 else [p[0] for p in per]
         return tokens.cpu().numpy(), count.cpu().numpy()
+
+    # ------------------------------------------------------------------ #
+    def hp_reset(self):
+        """Drop the prefetch table (host pages staged on the device)."""
+        self._hp_cols = {}     # (layer, b) -> {abs page: table column}
+        self._hp_pending = []  # (layer, b, col, page, k, v, scales or None)
+        self._hp_dev = None    # (hp_kv (2, L, B, Hkv, M, S, D), hp_ids)
+
+    def _hp_fetch(self, layer: int, b: int, ids):
+        """Pull host pages, as stored, and queue them for the table."""
+        cols = self._hp_cols.setdefault((layer, b), {})
+        need = [int(i) for i in ids if int(i) not in cols]
+        if not need:
+            return
+        hk, hv, hks, hvs = self.host_store.fetch_raw(layer, b, need)
+        for j, p in enumerate(need):
+            col = len(cols)
+            cols[p] = col
+            sc = None if hks is None else torch.stack([hks[j], hvs[j]])
+            self._hp_pending.append((layer, b, col, p, hk[j], hv[j], sc))
+
+    def _to_device(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """Stack host tensors on the device: through one pinned buffer and
+        an asynchronous copy on the card."""
+        if self.device.type == "cpu":
+            out = torch.stack(parts)
+            self.staged_bytes += out.numel() * out.element_size()
+            return out
+        buf = torch.empty((len(parts),) + tuple(parts[0].shape),
+                          dtype=parts[0].dtype, pin_memory=True)
+        torch.stack(parts, out=buf)
+        self.staged_bytes += buf.numel() * buf.element_size()
+        return self._h2d(buf)
+
+    def _h2d(self, buf: torch.Tensor) -> torch.Tensor:
+        """The copy of a pinned host buffer to the device, on the current
+        stream (its own method, so a measurement can time it)."""
+        return buf.to(self.device, non_blocking=True)
+
+    def _hp_device(self):
+        """The prefetch table on the device, with the pending pages
+        scattered in (dequantized there): (hp_kv (2, L, B, Hkv, M, S, D),
+        hp_ids (L, B, M) int32, int32-max padded).  The table only grows;
+        M is bucketed to powers of two."""
+        rc, mc = self.rekv, self.mcfg
+        L, B = mc.num_layers, self.batch
+        S, Hkv, D = rc.block_size, mc.num_kv_heads, mc.head_dim
+        longest = max([len(c) for c in self._hp_cols.values()] or [0])
+        M = _bucket(max(longest, 1), 1 << 30)
+        dt, dev = self.kvs.init_k.dtype, self.device
+        imax = torch.iinfo(torch.int32).max
+        if self._hp_dev is None or M > self._hp_dev[1].shape[-1]:
+            kv = torch.zeros((2, L, B, Hkv, M, S, D), dtype=dt, device=dev)
+            ids = torch.full((L, B, M), imax, dtype=torch.int32, device=dev)
+            if self._hp_dev is not None:
+                old_kv, old_ids = self._hp_dev
+                m = old_ids.shape[-1]
+                kv[:, :, :, :, :m] = old_kv
+                ids[:, :, :m] = old_ids
+            self._hp_dev = (kv, ids)
+        kv, ids = self._hp_dev
+        if self._hp_pending:
+            pend = self._hp_pending
+            delta = self._to_device([torch.stack([k, v])
+                                     for (_, _, _, _, k, v, _) in pend])
+            coords = torch.as_tensor([(l, b, c, p) for (l, b, c, p, *_)
+                                      in pend], dtype=torch.int64,
+                                     device=dev)
+            if pend[0][6] is not None:  # quantized: dequantize here
+                scales = self._to_device([s for (*_, s) in pend])
+                delta = dequant_rows(delta, scales[:, :, :, None, :])
+            li, bi, ci = coords[:, 0], coords[:, 1], coords[:, 2]
+            kv[:, li, bi, :, ci] = delta.to(dt)     # (n, 2, Hkv, S, D)
+            ids[li, bi, ci] = coords[:, 3].to(torch.int32)
+            self._hp_pending = []
+        return kv, ids
+
+    def _qa_hosttier(self, args, ext=None):
+        """QA over the two-tier store in at most two rounds, each one
+        retrieval forward over the store and the prefetch table.  Round 1
+        is stc_tpu's speculative round: one forward with no host read
+        until its end; if every selection of every layer was served, it is
+        the all-device forward and its answer is exact.  Otherwise the
+        pages it missed are staged and round 2 runs with `stage`: a layer
+        whose selection still misses (its input changed once an earlier
+        layer was served) has its pages staged before it goes on, so round
+        2 serves every selection and is exact.  stc_tpu repeats the
+        speculative round instead, which at 28 layers takes 5-12 rounds
+        (PERF.md section 6).  The table persists across questions, so a
+        repeated question takes one round.  Returns (tokens, count,
+        abs_idx, exists)."""
+        B, L = self.batch, self.mcfg.num_layers
+        if max([len(c) for c in self._hp_cols.values()] or [0]) > \
+                self._hp_cap:
+            self.hp_reset()  # the table outgrew its budget: restage
+        if ext is not None:
+            # external indices are known up front: stage their host pages
+            for b in range(B):
+                need = [int(i) for i in ext[b]
+                        if 0 <= i < self._evicted_pages]
+                for l in range(L):
+                    self._hp_fetch(l, b, need)
+        ext_dev = None if ext is None else self._ids(ext)
+        self.repair_layers = 0
+        for r, stage in enumerate((None, self._stage_layer)):
+            hp_kv, hp_ids = self._hp_device()
+            tokens, count, abs_idx, exists, missing = \
+                self.lm.answer_question_hosttier(
+                    self.rekv, self.kvs, *args, hp_kv, hp_ids,
+                    retrieved_indices=ext_dev, stage=stage)
+            miss = missing.cpu().numpy()
+            if not miss.any():
+                self.qa_rounds = r + 1
+                return tokens, count, abs_idx, exists
+            self._fetch_missing(range(L), abs_idx.cpu().numpy(), miss)
+        raise RuntimeError("a staged two-tier round missed a page")
+
+    def _fetch_missing(self, layers, abs_idx, miss):
+        """Queue the missing pages of abs_idx / miss ((L|1, B, topk)
+        numpy) for the table, layer by layer and stream by stream."""
+        for j, l in enumerate(layers):
+            for b in range(self.batch):
+                if miss[j, b].any():
+                    self._hp_fetch(l, b, abs_idx[j, b][miss[j, b]])
+
+    def _stage_layer(self, layer, abs_idx, missing):
+        """Stage one layer's missing pages and return the table."""
+        self.repair_layers += 1
+        self._fetch_missing([layer], abs_idx.cpu().numpy()[None],
+                            missing.cpu().numpy()[None])
+        return self._hp_device()
+
+    # ------------------------------------------------------------------ #
+    def reset_streams(self, slots: Sequence[int]):
+        """Recycle stream slots: each slot in `slots` returns to its
+        just-after-init-prompt state (a fresh session's, for what it
+        ingests next) while the other slots' streams continue untouched.
+        Refused once pages were evicted: the host tier's pages are shared
+        by every stream."""
+        mask = np.zeros(self.batch, dtype=bool)
+        mask[list(slots)] = True
+        if not mask.any():
+            raise ValueError("reset_streams needs at least one slot")
+        if self._evicted_pages > 0:
+            raise RuntimeError(
+                "reset_streams with host-evicted pages is not supported: "
+                "the host tier's page ring is shared across streams. "
+                "clear_cache() the whole session, or size max_blocks to "
+                "keep serving sessions device-resident.")
+        engine.reset_streams(self.kvs, torch.as_tensor(mask),
+                             self._init_len, batch_axis=1)
+        self._ensure_ragged()
+        self._stream_blocks[mask] = 0
+        self._total_blocks = int(self._stream_blocks.max())
+
+    def kv_memory_bytes(self) -> int:
+        """Bytes of the pages the store holds for the longest stream."""
+        n = int(self.kvs.num_blocks.max())
+        blk = self.kvs.block_k
+        per_block = int(np.prod(blk.shape[2:])) * blk.element_size() * 2
+        return int(blk.shape[0] * n * per_block)

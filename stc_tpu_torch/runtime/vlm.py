@@ -2,10 +2,15 @@
 main-path subset).
 
 A VisionPipeline supplies the tower's two chunk paths (full and cacher);
-VLMSession runs pixels -> vision -> pruned features -> LM append, one chunk
-of encode_chunk_frames frames at a time, with the cacher schedule
-chunk_idx % cache_interval kept on the host.  Raw uint8 RGB frames go to
-the device as they are; normalisation happens there.
+VLMSession runs pixels -> vision -> pruned features -> LM append for B
+streams, one chunk of encode_chunk_frames frames at a time.  Each stream
+slot keeps its own cacher schedule (its chunk count % cache_interval, on
+the host): a tick where the ticking slots disagree runs both vision paths
+and takes each slot's from its own.  Streams may tick at different rates
+(``active``) and slots may be recycled (``reset_streams``); an inactive or
+recycled slot's cacher references and pruner memory stay its own.  Raw
+uint8 RGB frames go to the device as they are; normalisation happens
+there.
 """
 
 from __future__ import annotations
@@ -70,47 +75,93 @@ class VisionPipeline:
         """-> (flat_features, vstate, pstate)"""
         raise NotImplementedError
 
+    def select_streams(self, vstate, pstate, old_vstate, old_pstate, mask):
+        """Per stream, the new state where mask (B,) bool is set, else the
+        old (ragged ticks, mixed ticks, recycled slots)."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no per-stream vision state")
+
 
 class VLMSession(StreamingSession):
-    """Single-stream pixel session (multi-stream batches: ROADMAP.md
-    queue 1, 'Ragged multi-stream')."""
+    """Pixel session of `batch` streams."""
 
     def __init__(self, lm, scfg, vision: VisionPipeline,
-                 state_dtype=torch.bfloat16):
+                 state_dtype=torch.bfloat16, batch: int = 1):
         self.vision = vision
-        super().__init__(lm, scfg, batch=1, state_dtype=state_dtype)
+        super().__init__(lm, scfg, batch=batch, state_dtype=state_dtype)
 
     def clear_cache(self):
         super().clear_cache()
         self.chunk_idx = 0
+        # each slot's chunk count: its cacher parity is its own
+        self._slot_chunk = np.zeros(self.batch, dtype=np.int64)
         self._vstate, self._pstate = self.vision.init_state()
 
-    @torch.no_grad()
-    def encode_video(self, frames):
-        """frames: (n, H, W, 3) uint8, streamed encode_chunk_frames at a
-        time."""
-        frames = np.asarray(frames)
-        n = self.scfg.encode_chunk_frames
-        for s in range(0, frames.shape[0], n):
-            chunk = frames[s:s + n]
-            self._encode_chunk_pixels(self.vision.preprocess(chunk),
-                                      chunk.shape[0])
+    def reset_streams(self, slots):
+        """Slot recycling: also the recycled slots' cacher references,
+        pruner memory and chunk counts return to a fresh session's (their
+        next chunk takes the full path); the other slots keep theirs."""
+        super().reset_streams(slots)
+        mask = np.zeros(self.batch, dtype=bool)
+        mask[list(slots)] = True
+        fresh_v, fresh_p = self.vision.init_state()
+        self._vstate, self._pstate = self.vision.select_streams(
+            fresh_v, fresh_p, self._vstate, self._pstate,
+            torch.as_tensor(mask, device=self.device))
+        self._slot_chunk[mask] = 0
 
-    def _encode_chunk_pixels(self, pixels, n_frames: int):
+    @torch.no_grad()
+    def encode_video(self, frames, active=None):
+        """frames: (n, H, W, 3) uint8 of one stream, or (B, n, H, W, 3) of
+        the session's B streams, streamed encode_chunk_frames at a time.
+        active: optional (B,) bool ragged mask: inactive streams' frames
+        are ignored and their KV, cacher and pruner state stay
+        bit-identical."""
+        frames = np.asarray(frames)
+        if frames.ndim == 5:
+            if frames.shape[0] != self.batch:
+                raise ValueError(f"frames of {frames.shape[0]} streams for "
+                                 f"a {self.batch}-stream session")
+        elif self.batch > 1:
+            raise ValueError("a multi-stream session takes (B, n, H, W, 3) "
+                             "frames")
+        axis = frames.ndim - 4
+        n = self.scfg.encode_chunk_frames
+        for s in range(0, frames.shape[axis], n):
+            chunk = frames[:, s:s + n] if axis else frames[s:s + n]
+            self._encode_chunk_pixels(self.vision.preprocess(chunk),
+                                      chunk.shape[axis], active)
+
+    def _encode_chunk_pixels(self, pixels, n_frames: int, active=None):
+        act_dev, act_np = self._normalize_active(active)
         self._maybe_evict(n_frames)
         c = self.scfg.cacher
-        cached = c.enabled and self.chunk_idx % c.cache_interval != 0
-        px = self.vision.device_preprocess(
+        cached = c.enabled & (self._slot_chunk % c.cache_interval != 0)
+        ticking = cached if act_np is None else cached[act_np]
+        vis, vstate, pstate = self.vision, self._vstate, self._pstate
+        px = vis.device_preprocess(
             torch.as_tensor(pixels).to(self.device, non_blocking=True))
-        path = self.vision.cached if cached else self.vision.full
-        flat, self._vstate, self._pstate = path(px, self._vstate,
-                                                self._pstate)
+        if ticking.any() and not ticking.all():
+            # the ticking slots disagree: both paths, each slot its own
+            flat_f, v_f, p_f = vis.full(px, vstate, pstate)
+            flat_c, v_c, p_c = vis.cached(px, vstate, pstate)
+            need_full = torch.as_tensor(~cached, device=self.device)
+            flat = torch.where(need_full[:, None, None], flat_f, flat_c)
+            new_v, new_p = vis.select_streams(v_f, p_f, v_c, p_c, need_full)
+        else:
+            path = vis.cached if ticking.size and ticking.all() else vis.full
+            flat, new_v, new_p = path(px, vstate, pstate)
+        if act_dev is not None:
+            new_v, new_p = vis.select_streams(new_v, new_p, vstate, pstate,
+                                              act_dev)
+        self._vstate, self._pstate = new_v, new_p
         flat = flat.to(self.lm.dtype)
         S, exc = self.rekv.block_size, self.rekv.exc_block_size
         if flat.shape[1] % S:
             raise ValueError((flat.shape, S))
         for i in range(0, flat.shape[1], exc):
             self.lm.encode_step(self.rekv, self.kvs, flat[:, i:i + exc],
-                                is_init=False)
-        self._total_blocks += n_frames
+                                is_init=False, active=act_dev)
+        self._track_blocks(n_frames, act_np)
+        self._slot_chunk += 1 if act_np is None else act_np.astype(np.int64)
         self.chunk_idx += 1

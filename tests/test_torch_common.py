@@ -31,6 +31,21 @@ BF16_MAX_REL = 2 ** -6
 BF16_RMS_REL = 2 ** -7
 
 
+@pytest.fixture
+def one_thread():
+    """Run a test on one CPU thread, restoring the count after: the tiny
+    shapes of the port's session tests run several times faster so (torch's
+    thread pool costs more than the work) and the count does not leak into
+    the tests that run next in the same process.  Import it into a test
+    module as ``pytestmark = pytest.mark.usefixtures("one_thread")``."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 def assert_bf16_close(got, want, err_msg=""):
     """max |got - want| <= BF16_MAX_REL * max |want| and RMS(got - want) <=
     BF16_RMS_REL * RMS(want), in float64."""

@@ -430,3 +430,171 @@ def test_loader_on_card_reads_a_tiny_checkpoint(cuda_device, tmp_path):
     source = lo.build_session(model, _tiny_pixel_cfg(),
                               state_dtype=torch.bfloat16, device=cuda_device)
     assert _tiny_answers(loaded, 3) == _tiny_answers(source, 3)
+
+
+def _ragged_stream_operands(cfg, heads, T, states, seed, quant=None):
+    """The kernel operands of one append to B streams that sit each at its
+    own (blocks before the append, page_offset): per-stream L, start_tile,
+    total and init_active differ, and so do the offsets.  Random pages;
+    with quant, quantized by the engine's quantizer (the scales returned
+    beside)."""
+    hq, hkv, d = heads
+    B, S, Nb = len(states), cfg.block_size, cfg.max_blocks
+    gen = torch.Generator().manual_seed(seed)
+    nb = torch.tensor([s[0] for s in states], dtype=torch.int32)
+    off = torch.tensor([s[1] for s in states], dtype=torch.int32)
+    assert int((nb + T // S - off).max()) <= Nb  # resident pages fit
+    rc = engine.make_rope_cache(cfg.n_init + nb * S, nb, T, cfg, d, 1e4, off)
+    pages = [torch.randn((B, hkv, Nb, S, d), generator=gen)
+             for _ in range(2)]
+    kw = {}
+    if quant:
+        qfn = (engine._quantize_page_int4 if quant == "int4"
+               else engine._quantize_page)
+        (pages[0], ks), (pages[1], vs) = qfn(pages[0]), qfn(pages[1])
+        kw = dict(k_scales=ks, v_scales=vs)
+    q = torch.randn((B, hq, T, d), generator=gen)
+    ki, vi = (torch.randn((B, hkv, cfg.n_init, d), generator=gen)
+              for _ in range(2))
+    return [q, q.flip(2), pages[0], pages[1], rc.cos_cover, rc.sin_cover,
+            ki, vi, ki, rc.scalars], kw
+
+
+# (blocks before the append, page_offset) of four streams: an empty store,
+# an evicted mid-stream one, and two past the init-fill crossing
+RAGGED_STATES = [(3, 0), (20, 8), (60, 24), (70, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+@pytest.mark.parametrize("heads", TC_HEADS)
+def test_stream_attention_at_batch4_diverged_streams_on_card(
+        cuda_device, quant, heads):
+    """B = 4 streams with their own scalars and page offsets (> 0 after
+    evictions) in one launch, f32 and bf16 queries: the whole batch and
+    each stream against the plain version on that stream alone, so a
+    kernel that read stream 0's scalars for every stream fails."""
+    cfg = ReKVConfig(**dict(BASE, kv_quant=quant))
+    ops, kw = _ragged_stream_operands(cfg, heads, 8, RAGGED_STATES,
+                                      seed=sum(heads),
+                                      quant=None if quant == "none"
+                                      else quant)
+    sc = ops[9]
+    assert len(set(sc[:, 1].tolist())) > 1 and sc[:, 4].max() > 0
+    assert set(sc[:, 3].tolist()) == {0, 1}
+    kw = {k: v.to(cuda_device) for k, v in kw.items()}
+    keep = (4, 5, 9) if quant == "none" else (2, 3, 4, 5, 9)
+    kind = "float" if quant == "none" else quant
+    for dt in (torch.float32, torch.bfloat16):
+        a = [x.to(cuda_device, dt if i not in keep else x.dtype)
+             .contiguous() for i, x in enumerate(ops)]
+        before = sa.launches[kind]
+        got = sa.stream_attention(*a, n_local=cfg.n_local, **kw)
+        assert sa.launches[kind] == before + 1
+        assert_agrees(got, sa.stream_attention_ref(*a, n_local=cfg.n_local,
+                                                   **kw))
+        for b in range(len(RAGGED_STATES)):
+            one = [x[b:b + 1].contiguous() for x in a]
+            kw1 = {k: v[b:b + 1].contiguous() for k, v in kw.items()}
+            assert_agrees(got[b:b + 1], sa.stream_attention_ref(
+                *one, n_local=cfg.n_local, **kw1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", TC_HEADS)
+def test_decode_attention_at_batch4_diverged_cursors_on_card(cuda_device,
+                                                             heads):
+    """B = 4 decode caches with their own start and cursor (one past the
+    n_local window), f32 and bf16: against the plain version, whole and
+    stream by stream."""
+    hq, hkv, d = heads
+    T, C, n_local = 16, 512, 300
+    gen = torch.Generator(device=cuda_device).manual_seed(d)
+    cursor = torch.tensor([16, 137, 402, 512], dtype=torch.int32,
+                          device=cuda_device)
+    start = (cursor - T).to(torch.int32)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(dt)
+                   for s in ((4, hq, T, d), (4, hkv, C, d), (4, hkv, C, d)))
+        before = da.launches
+        got = da.decode_attention(q, k, v, start, cursor, n_local=n_local)
+        assert da.launches == before + 1
+        assert_agrees(got, da.decode_attention_ref(q, k, v, start, cursor,
+                                                   n_local=n_local))
+        for b in range(4):
+            s = slice(b, b + 1)
+            assert_agrees(got[s], da.decode_attention_ref(
+                q[s], k[s], v[s], start[s], cursor[s], n_local=n_local))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant,qmax", [("int8", 127.0), ("int4", 7.0)])
+def test_page_quantizer_scales_correctly_rounded_on_card(cuda_device, quant,
+                                                         qmax):
+    """On the card the page quantizers' scales (device pages and the host
+    tier's) are the correctly rounded f32 quotients max|x| / qmax, as
+    numpy divides, and the quantized pages equal the CPU's: dividing by a
+    Python number would multiply by its reciprocal there."""
+    from stc_tpu_torch.kvcache import host_tier
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(2, 2, 64, 8, 32))
+         * rng.uniform(1e-3, 1e3, size=(2, 2, 64, 1, 32))).astype(np.float32)
+    want = np.maximum(np.abs(x).max(axis=-2), np.float32(1e-8)) / \
+        np.float32(qmax)
+    qfn = engine._quantize_page_int4 if quant == "int4" else \
+        engine._quantize_page
+    hfn = host_tier.quantize_pages_int4 if quant == "int4" else \
+        host_tier.quantize_pages
+    xc = torch.from_numpy(x).to(cuda_device)
+    pages, scales = qfn(xc)
+    np.testing.assert_array_equal(scales.cpu().numpy(), want)
+    assert torch.equal(pages.cpu(), qfn(torch.from_numpy(x))[0])
+    kq, ks, vq, vs = hfn(xc[None], xc[None])
+    np.testing.assert_array_equal(ks[0].cpu().numpy(), want)
+    assert torch.equal(kq[0].cpu(), pages.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("host_quant", ["none", "int8"])
+def test_evicting_session_on_card_answers_as_all_device(cuda_device,
+                                                        host_quant):
+    """A tiny 2-stream pixel session streamed to 2.5x its 24-page store on
+    the card: its host chunks are pinned; with exact host pages its
+    answers and retrieved blocks equal its all-device twin's on the card;
+    the host pages equal the twin's device pages."""
+    import dataclasses
+    from stc_tpu_torch.models import llava_onevision as lo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    base = _tiny_pixel_cfg()
+    frames = np.random.default_rng(4).integers(0, 256, (2, 60, 56, 56, 3),
+                                               dtype=np.uint8)
+    model = lo.LlavaOV(lo.LlavaOVConfig.tiny(), dtype=torch.float32,
+                       device="cpu").init_random_params(
+                           torch.Generator().manual_seed(4))
+    runs = []
+    for mb in (24, 64):
+        scfg = dataclasses.replace(base, rekv=dataclasses.replace(
+            base.rekv, n_local=24, max_blocks=mb, host_kv_quant=host_quant))
+        sess = lo.build_session(model, scfg, state_dtype=torch.float32,
+                                device=cuda_device, batch=2)
+        sess.encode_init_prompt([1, 2, 3, 4])
+        sess.encode_video(frames)
+        answers = [sess.question_answering(q, q + [3], [0], max_new_tokens=6,
+                                           all_streams=True)
+                   for q in ([5, 6], [7, 8, 9])]
+        runs.append((sess, answers, sess.last_retrieved_indices))
+    (small, ans, idx), (big, ans_big, idx_big) = runs
+    assert small._evicted_pages == 36 and big._evicted_pages == 0
+    hs = small.host_store
+    assert all(c.is_pinned() for c in hs.k_chunks + hs.v_chunks
+               + hs.k_scales + hs.v_scales)
+    assert hs.fetch_count > 0 and len(hs.transfer_ms()) == 6
+    if host_quant == "none":
+        assert ans == ans_big and idx == idx_big
+        E = hs.pages_per_chunk
+        for c, chunk in enumerate(hs.k_chunks):
+            torch.testing.assert_close(
+                chunk, big.kvs.block_k[:, :, :, c * E:(c + 1) * E].cpu(),
+                rtol=1e-5, atol=1e-5)
+    else:
+        assert all(c.dtype == torch.int8 for c in hs.k_chunks)

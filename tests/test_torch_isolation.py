@@ -22,6 +22,7 @@ BLOCKED = ("jax", "stc_tpu", "safetensors", "transformers", "ml_dtypes")
 def test_sources_import_no_jax_and_no_stc_tpu():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
+    assert PKG / "kvcache" / "host_tier.py" in files
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
@@ -68,6 +69,23 @@ def test_importing_and_running_the_port_loads_no_jax():
         out = sess.question_answering([5, 6], [5, 6, 7], [0],
                                       max_new_tokens=4)
         assert 1 <= len(out) <= 4, out
+        # two streams past a 24-page store: the host tier evicts, and a
+        # question over the evicted pages is answered
+        assert "stc_tpu_torch.kvcache.host_tier" in mods
+        import dataclasses
+        scfg2 = dataclasses.replace(scfg, rekv=dataclasses.replace(
+            scfg.rekv, n_local=24, max_blocks=24))
+        sess2 = lo.build_session(model, scfg2, state_dtype=torch.float32,
+                                 device="cpu", batch=2)
+        sess2.encode_init_prompt([1, 2, 3, 4])
+        sess2.encode_video(np.random.default_rng(1).integers(
+            0, 256, (2, 30, 56, 56, 3), dtype=np.uint8))
+        assert sess2._evicted_pages > 0
+        out = sess2.question_answering([5, 6], [5, 6, 7], [0],
+                                       max_new_tokens=4,
+                                       retrieved_indices=[0, 1],
+                                       all_streams=True)
+        assert sess2.host_store.fetch_count > 0 and len(out) == 2, out
         # an HF checkpoint written by chip_smoke.py's writer loads back
         # through the port's own shard reader
         import tempfile

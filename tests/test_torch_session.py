@@ -154,9 +154,22 @@ def test_feature_session_matches_jax():
 
 
 def test_session_raises_where_the_jax_session_would_evict():
+    """Fast-forwarded to a full device store, the port session now evicts
+    to its host tier where the JAX session does (the same pages, the same
+    page_offset) instead of raising; fast-forwarded to the rep-key
+    capacity, both raise."""
     jsess, cfg = make(seed=1)
     tsess = _port_session(jsess, cfg, seed=1)
-    tsess.encode_init_prompt([1, 2, 3, 4])
-    tsess._total_blocks = tsess.rekv.max_blocks  # a full device store
-    with pytest.raises(RuntimeError, match="host tier"):
-        tsess.encode_video(np.zeros((1, 56, 56, 3), np.uint8))
+    frame = np.zeros((1, 56, 56, 3), np.uint8)
+    for s in (jsess, tsess):
+        s.encode_init_prompt([1, 2, 3, 4])
+        s._total_blocks = s.rekv.max_blocks  # a full device store
+        s.encode_video(frame)
+    assert tsess._evicted_pages == jsess._evicted_pages > 0
+    assert tsess.host_store.total_pages == jsess.host_store.total_pages
+    np.testing.assert_array_equal(tsess.kvs.page_offset.numpy(),
+                                  np.asarray(jsess.kvs.page_offset))
+    for s in (jsess, tsess):
+        s._total_blocks = s.rekv.rep_cap
+        with pytest.raises(RuntimeError, match="rep-key capacity"):
+            s.encode_video(frame)

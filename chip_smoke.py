@@ -22,13 +22,16 @@ each of which makes the script exit non-zero when it fails:
      its bf16 tile built and timed with each part switched off in turn);
      stream_attention and decode_attention also over four streams in one
      call, each at its own position, with page offsets of 0, 56 and 112
-     pages (0.5b heads on bf16 pages, 7B heads on int8 pages);
+     pages (0.5b heads on bf16 pages, 7B heads on int8 pages), and
+     decode_attention at the speculative decode's verify shape (5 queries
+     at each of four streams' own cursors);
      each bound counts bytes, products and exponentials at the data
      sheet's clock; then
      planted faults (a key group dropped, a mask one page or one slot off,
      the neighbouring page's scales, the int4 nibble planes swapped, every
      stream reading stream 0's scalars or cursors, one stream's page
-     offset one page off) that those limits must reject;
+     offset one page off, each query of a verify call seeing the draft
+     after it) that those limits must reject;
   3. the main path: the LLaVA-OV + ReKV session at llava-ov-0.5b width and
      depth (SigLIP 1152 x 27 layers at 384 px in float32, Qwen2 896 x 24
      layers in bf16, random weights from a seeded torch.Generator): init
@@ -77,7 +80,19 @@ each of which makes the script exit non-zero when it fails:
      2 recycled after tick 12, per-stream, shared and external-block
      questions, against a batch-1 session per stream: integer state
      exact, pages within the agreement limits, answers and blocks equal
-     unless the batch-1 run shows a near-tie (counted and printed).
+     unless the batch-1 run shows a near-tie (counted and printed);
+ 12. continuous-batching serving at llava-ov-0.5b width in bf16 (bf16
+     SigLIP): a ServingEngine over a 4-slot session, four ragged streams of
+     4-frame chunks asking every 4th chunk (encode-only, answer-only and
+     both ticks), a retired slot re-admitted, one stream migrated through
+     a stream checkpoint into a second engine; the traffic with greedy
+     decode, with speculative decode (K = 4) and through the session's
+     own calls: greedy equal to the session's calls and to the migrated
+     stream's answers, speculative equal to greedy but at near-ties (each
+     printed); frames/s, tick and QA times, tokens a verify round, launch
+     counts, the stream file's bytes and save / restore times.  Phase 8's
+     int8-weight session also asks three questions with speculation off
+     and on (QA p50, acceptance, rounds).
 
 Prints JSON lines; the line before the last holds one entry per kernel
 (route, source, the TPU kernel it replaces, launches on its path, error,
@@ -598,6 +613,12 @@ B4_STREAM = "stream B=4 0.5b heads, 1-frame appends, offsets 0/0/56/112"
 B4_STREAM_INT8 = ("stream int8 B=4 7B heads (28/4/128), 8-page appends, "
                   "offsets 0/0/56/112")
 B4_DECODE = "decode B=4 token step, own cursors"
+# the speculative decode's verify forward: K + 1 = 5 queries (tok0 and 4
+# drafts) at each stream's own cursor, causally masked; the rows past the
+# cursor (an earlier round's rejected drafts, random here) lie ahead of
+# every query
+VERIFY_DECODE = "decode verify T=5, B=4, own cursors"
+VERIFY_STARTS = [3854, 3901, 4017, 4203]
 B4_STATES_05B = [(10, 0), (250, 0), (330, 56), (400, 112)]
 B4_STATES_7B = [(20, 0), (290, 0), (340, 56), (400, 112)]
 
@@ -630,11 +651,11 @@ def planted_faults(inputs) -> list:
         args, kw, ref = inputs[case]
         return da.decode_score(*args, n_local=kw["n_local"] + 1), ref
 
-    def decode(case, cursor_delta=0, n_local_delta=0):
+    def decode(case, cursor_delta=0, n_local_delta=0, start_delta=0):
         (q, k, v, st, cu), kw, want = inputs[case]
         kw = dict(kw, n_local=kw["n_local"] + n_local_delta)
-        return da.decode_attention(q, k, v, st, cu + cursor_delta,
-                                   **kw), want
+        return da.decode_attention(q, k, v, st + start_delta,
+                                   cu + cursor_delta, **kw), want
 
     def stream0_scalars(case):
         args, kw, ref = inputs[case]
@@ -674,6 +695,8 @@ def planted_faults(inputs) -> list:
          lambda: offset_one_page(B4_STREAM_INT8, 3)),
         ("decode B=4: every stream reads stream 0's start and cursor",
          lambda: stream0_cursors(B4_DECODE)),
+        ("decode verify: each query sees the next draft (start + 1)",
+         lambda: decode(VERIFY_DECODE, start_delta=1)),
     ]
     out = []
     for name, run in faults:
@@ -752,7 +775,7 @@ def read_counts() -> dict:
 
 
 def stream_phase(model, cfg, scfg, name, n_chunks, questions, card, dev,
-                 gen) -> dict:
+                 gen, after=None) -> dict:
     """Phases 6-8: the pixel session of scfg (8-frame chunks) at the
     model's width, n_chunks chunks (past the full window and the init-fill
     crossing, asserted where each happens), then the questions.  Checks the
@@ -760,7 +783,8 @@ def stream_phase(model, cfg, scfg, name, n_chunks, questions, card, dev,
     kind), then holds stream_attention, decode_attention and decode_score
     against their plain versions on the session's own state.  Building the
     session quantizes the model's LM in place when scfg.weights_quant is
-    set."""
+    set.  after(sess), if given, runs once the launch counts are checked;
+    its result is the record's "after"."""
     from stc_tpu_torch.kvcache import engine
     from stc_tpu_torch.kvcache.state import layer
     from stc_tpu_torch.models import llava_onevision as lo
@@ -826,6 +850,7 @@ def stream_phase(model, cfg, scfg, name, n_chunks, questions, card, dev,
     for a in answers:
         if not a or not all(0 <= t < tc.vocab_size for t in a):
             raise RuntimeError(f"bad answer {a}")
+    extra = {} if after is None else {"after": after(sess)}
 
     # the kernels on the session's own state, a middle layer: the next
     # append over the full window, and the decode cache of the last question
@@ -902,7 +927,7 @@ def stream_phase(model, cfg, scfg, name, n_chunks, questions, card, dev,
            "init_active_on_state": int(rc.scalars[0, 3]),
            "decode_attention_vs_plain_on_decode_cache": decode_check,
            "decode_score_vs_plain_on_decode_cache": score_check,
-           "time_split_full_window_chunk": split}
+           "time_split_full_window_chunk": split, **extra}
     del sess, captured, args, kw, dargs, got, sargs
     torch.cuda.empty_cache()
     rec["seconds"] = time.perf_counter() - t_phase
@@ -956,14 +981,15 @@ def cosine(a, b) -> float:
     return float(a @ b / (a.norm() * b.norm()))
 
 
-def weights_phase(wq, questions, card, dev, gen) -> dict:
+def weights_phase(wq, questions, card, dev, gen, after=None) -> dict:
     """Phase 8: bench.py's 7b mode on the port.  A fresh seeded llava-ov-7b
     width model with the tower in bf16: its prompt logits (256 tokens) and
     one decode step on bf16 weights, recording every LM matmul's input and
     output and the prompt's embedding rows on the way; then the session of
     bench.py's settings (weights_quant=wq quantizes the LM at build; bf16
     pages and state, max_blocks 768) streams phase 6's 40 chunks and
-    answers phase 6's questions; then the same on int8 weights.
+    answers phase 6's questions; then the same on int8 weights.  after:
+    stream_phase's hook on that session.
 
     tests/test_quant.py's criteria (cosine > 0.999, top-1 agreement > 0.9)
     are held per quantized product: each recorded matmul replayed on its
@@ -1012,7 +1038,7 @@ def weights_phase(wq, questions, card, dev, gen) -> dict:
     bf16_bytes = lm_bytes(lm)
     rec = stream_phase(model, cfg, scfg,
                        f"{wq} weights, bf16 vision, bf16 pages", 40,
-                       questions, card, dev, gen)
+                       questions, card, dev, gen, after=after)
     if lm.int8_group != scfg.weights_quant_group:
         raise RuntimeError(f"{wq}: the session did not quantize the LM")
     per = {"embed": cosine(lm.embed_tokens(ids), rows)}
@@ -1388,6 +1414,7 @@ class VisionLog:
         from stc_tpu_torch.compress import pruner as pr
         from stc_tpu_torch.models import llava_onevision as lo
         from stc_tpu_torch.models import siglip as sg
+        from stc_tpu_torch.ops.topk import topk_lowest
 
         def sims(f):
             def g(k, ref_k):
@@ -1405,7 +1432,7 @@ class VisionLog:
                 k_ch = int(C * channel_keep_ratio)
                 flat = features.to(torch.float32).reshape(B, F_ * Tin, C)
                 var = flat.var(dim=1, unbiased=False)
-                ch = torch.topk(-var, k_ch, dim=-1).indices
+                ch = topk_lowest(-var, k_ch)[1]
                 sel = torch.gather(flat, 2, ch[:, None, :].expand(
                     B, F_ * Tin, k_ch))
                 mem = (state.mean_sum + sel.mean(dim=1)) / (
@@ -1444,10 +1471,11 @@ def first_parting(steps, U, K):
         lim = TIE_REL * float(v.abs().max())
         return gap, lim
 
+    from stc_tpu_torch.ops.topk import topk_lowest
     for f, (s4, s1, p4, p1) in enumerate(steps):
         for l, (a, b) in enumerate(zip(s4, s1)):
-            u4 = torch.topk(-a.reshape(-1), U).indices
-            u1 = torch.topk(-b.reshape(-1), U).indices
+            u4 = topk_lowest(-a.reshape(-1), U)[1]
+            u1 = topk_lowest(-b.reshape(-1), U)[1]
             if set(u4.tolist()) != set(u1.tolist()):
                 gap, lim = cut(b, u1, u4, U)
                 return {"frame": f, "where": f"cacher layer {l}",
@@ -1726,6 +1754,414 @@ def multistream_phase(card, dev) -> dict:
             and counts == want and sum(mixed) > 0):
         raise RuntimeError(f"multi-stream phase failed {rec}")
     return rec
+
+
+# ---------------------------------------------------------------------------
+# phase 12 (llava-ov-0.5b width): continuous-batching serving, speculative
+# decode and stream migration; and phase 8's 7B session with speculation
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4          # draft tokens a verify round (T = K + 1 queries)
+SPEC_HISTORY = 64   # draft-history tokens per stream
+
+
+def spec_departure(sess, questions, prompts, b, got, want) -> dict:
+    """Where stream b's speculative answer `got` first departs from the
+    greedy answer `want`, both over sess's current state for these
+    per-stream questions and prompts: greedy's top-2 logit gap there, and
+    the largest logit difference between T = 1 forwards (greedy's steps)
+    and T = K + 1 forwards (verify rounds) over the rows of the common
+    prefix up to that position.  cuBLAS may pick another GEMM algorithm at
+    M = B than at M = B (K + 1), so a near-tie (gap <= 2 x that
+    difference) may flip; anything else is a fault."""
+    from stc_tpu_torch.ops.topk import topk_lowest
+    lm, rc = sess.lm, sess.rekv
+    i = next(j for j, (x, y) in enumerate(zip(got + [-1], want + [-2]))
+             if x != y)
+    q_ids, q_len = sess._pad_ids(questions)
+    p_ids, p_len = sess._pad_ids(prompts)
+    q_ids, q_len, p_ids, p_len = (sess._ids(x) for x in (q_ids, q_len,
+                                                         p_ids, p_len))
+    B, dev = q_ids.shape[0], q_ids.device
+    rows = torch.arange(B, device=dev)
+
+    def prefilled():
+        d = lm.init_decode_state(rc, B, sess.kvs.init_k.dtype)
+        d, _, _ = lm.qa_retrieve_step(rc, sess.kvs, d,
+                                      lm.embed_tokens(q_ids), n_tokens=q_len)
+        lg, d = lm.decode_step(rc, d, lm.embed_tokens(p_ids), p_len)
+        return lg[rows, p_len.long() - 1][b].float(), d
+
+    def tokens(ids):
+        return torch.tensor(ids, device=dev)[None].expand(B, -1)
+
+    first, d = prefilled()
+    one, wide = [first], [first]      # position 0: the prefill's row
+    for t in want[:i]:
+        lg, d = lm.decode_step(rc, d, lm.embed_tokens(tokens([t])),
+                               torch.ones((B,), dtype=torch.int32,
+                                          device=dev))
+        one.append(lg[b, 0].float())
+    _, d = prefilled()
+    for s0 in range(0, i, SPEC_K + 1):
+        chunk = want[s0:s0 + SPEC_K + 1]
+        start = d.cursor.clone()
+        lg, d = lm.decode_step(rc, d, lm.embed_tokens(tokens(
+            chunk + [0] * (SPEC_K + 1 - len(chunk)))), torch.full(
+            (B,), SPEC_K + 1, dtype=torch.int32, device=dev))
+        wide += [lg[b, t].float() for t in range(len(chunk))]
+        d.cursor.copy_(start + len(chunk))
+    diff = max(float((x - y).abs().max()) for x, y in zip(one, wide))
+    top = topk_lowest(one[i], 2)[0]
+    gap = float(top[0] - top[1])
+    return {"position": i, "top2_gap": gap, "t1_vs_wide_logit_diff": diff,
+            "near_tie": gap <= 2 * diff}
+
+
+def spec_counters(lm) -> tuple:
+    return lm.spec_rounds, lm.spec_stream_rounds, lm.spec_tokens
+
+
+def spec_rates(lm, before, qa_calls) -> dict:
+    """lookahead_decode's counters since `before`: verify rounds, live
+    streams summed over them, tokens committed; tokens a stream commits
+    per verify round, and rounds per QA call."""
+    r, sr, tok = (a - b for a, b in zip(spec_counters(lm), before))
+    return {"verify_rounds": r, "stream_rounds": sr, "tokens": tok,
+            "tokens_per_verify_round": tok / sr if sr else None,
+            "rounds_per_qa_call": r / qa_calls if qa_calls else None}
+
+
+def spec_session_questions(sess, questions, stop) -> dict:
+    """The questions asked on sess with speculation off and then on
+    (K = SPEC_K, a SPEC_HISTORY-token history), each QA timed: answers
+    equal or parted at a near-tie (spec_departure), QA p50 both ways,
+    tokens committed per verify round and rounds per answer.  The session
+    is left with speculation off."""
+    lm = sess.lm
+    runs = {}
+    for draft in (0, SPEC_K):
+        sess.set_spec_decode(draft, SPEC_HISTORY if draft else None)
+        before = spec_counters(lm)
+        answers, qa_s = [], []
+        for q, p in questions:
+            out, dt = timed(lambda: sess.question_answering(
+                q, p, stop, max_new_tokens=16))
+            answers.append(out)
+            qa_s.append(dt)
+        runs[draft] = {"answers": answers, "qa_s": qa_s,
+                       "qa_p50_s": p50(qa_s)}
+        if draft:
+            runs[draft]["spec"] = spec_rates(lm, before, len(questions))
+    sess.set_spec_decode(0)
+    departures = [{"question": n, **spec_departure(sess, [q], [p], 0, got,
+                                                   want)}
+                  for n, ((q, p), want, got) in enumerate(zip(
+                      questions, runs[0]["answers"],
+                      runs[SPEC_K]["answers"])) if got != want]
+    for d in departures:
+        print(f"spec departure (7B, question {d['question']}): {d}",
+              flush=True)
+    return {"greedy": runs[0], "speculative": runs[SPEC_K],
+            "departures": departures,
+            "ok": all(d["near_tie"] for d in departures)}
+
+
+# the serving traffic: stream -> (4-frame chunks, first tick, tick rate,
+# ticks from its last chunk to its last question); stream 4 takes stream
+# 2's slot once stream 2 retires
+SERVE_STREAMS = {0: (16, 0, 1, 1), 1: (12, 2, 1, 2), 2: (8, 0, 2, None),
+                 3: (10, 6, 1, 2), 4: (8, 18, 1, 1)}
+SERVE_SLOT = {0: 0, 1: 1, 2: 2, 3: 3, 4: 2}
+SERVE_RETIRE = (15, 2)          # after this tick, stream 2 retires
+SERVE_MIGRATE = (8, 1)          # after this tick, stream 1 is saved
+SERVE_FRAMES = 4
+
+
+def serving_traffic() -> list:
+    """Tick by tick, the [(stream, chunk index)] fed and the [(stream,
+    question index)] asked.  Each stream asks after every 4th of its own
+    chunks (stream 2, which ticks every other tick, on its next tick) and
+    a last question after its last chunk; stream 4 starts at tick 18, so
+    ticks 16, 17 and 26 only answer, and ticks without a question only
+    encode."""
+    feed, asks = {}, {}
+    for sid, (n, t0, rate, last) in SERVE_STREAMS.items():
+        q = 0
+        for k in range(n):
+            t = t0 + k * rate
+            feed.setdefault(t, []).append((sid, k))
+            if (k + 1) % 4 == 0:
+                asks.setdefault(t + rate - 1, []).append((sid, q))
+                q += 1
+        if last:
+            asks.setdefault(t + last, []).append((sid, q))
+    return [(feed.get(t, []), asks.get(t, []))
+            for t in range(max(list(feed) + list(asks)) + 1)]
+
+
+def serve_question(sid, q):
+    """Stream sid's question q: 12 question and 16 prompt tokens, so every
+    QA of the traffic pads to one bucket."""
+    base = 2000 + 300 * sid + 40 * q
+    return list(range(base, base + 12)), list(range(base + 12, base + 28))
+
+
+def serving_phase(card, dev) -> dict:
+    """Phase 12: a ServingEngine over a 4-slot VLMSession at llava-ov-0.5b
+    width (Qwen2 896 x 24, 14/2 heads of 64; SigLIP 1152 x 27 at 384 px;
+    bf16 weights, vision, pages and state), n_local 15000, block 60, topk
+    64, exc 480, max_blocks 512, cacher 0.25 / interval 2, pruner 60, 256
+    prompt tokens, 16 new tokens.  Streams of 64, 48, 32 and 40 frames in
+    4-frame chunks (serving_traffic); stream 2 retires after tick 15 and a
+    fifth 32-frame stream is admitted into its slot.  The same traffic
+    goes through (a) the engine, (b) the engine with speculative decode
+    (K = 4, ngram 3, a 64-token history) and (c) one session driven tick
+    by tick with encode_video(active=) and question_answering_batch
+    (asked=).  In (a), stream 1 is saved after tick 8 (save_stream_state)
+    and restored into a free slot of a second engine of the same configs,
+    which answers its later questions beside (a).
+
+    Gates: (a) equals (c) id for id (the same kernels at the same shapes);
+    the migrated stream answers as it does unmigrated; (b) equals (a) but
+    where a departure is a near-tie (spec_departure, on (b)'s state right
+    after the tick), each departure printed; each run's launch counts are
+    the layer count times its LM forwards, none zero."""
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.runtime.serving import ServingEngine
+    from stc_tpu_torch.utils.checkpoint import (load_stream_state,
+                                                save_stream_state)
+    t_phase = time.perf_counter()
+    model, cfg = make_model(dev, seed=12, vision_dtype=torch.bfloat16)
+    lm, L = model.text, cfg.text.num_layers
+    scfg = session_cfg(15000, 64, 256, 16, 8, 512)
+    stop, B, M = [151645], 4, 16
+    traffic = serving_traffic()
+    mig_slot = 2
+
+    def frames(sid, k):
+        return np.random.default_rng(12000 + 100 * sid + k).integers(
+            0, 256, size=(SERVE_FRAMES, 384, 384, 3), dtype=np.uint8)
+
+    def build():
+        sess = lo.build_session(model, scfg, state_dtype=torch.bfloat16,
+                                device=dev, batch=B)
+        sess.encode_init_prompt(list(range(100, 114)))
+        return sess
+
+    def migrate(sess):
+        """Stream 1's slot to a file, restored into a second engine's
+        freed slot; the file's bytes and the save and restore times."""
+        d = tempfile.mkdtemp(prefix="stc_tpu_torch_stream_")
+        path = os.path.join(d, "stream.npz")
+        try:
+            _, save_s = timed(lambda: save_stream_state(
+                sess, SERVE_SLOT[SERVE_MIGRATE[1]], path))
+            nbytes = os.path.getsize(path)
+            sess2 = build()
+            eng2 = ServingEngine(sess2, stop, max_new_tokens=M)
+            eng2.retire(mig_slot)
+            slot = eng2.admit()
+            _, load_s = timed(lambda: load_stream_state(sess2, slot, path))
+        finally:
+            shutil.rmtree(d)
+        return {"engine": eng2, "slot": slot, "npz_bytes": nbytes,
+                "save_ms": 1e3 * save_s, "restore_ms": 1e3 * load_s}
+
+    calls = {"encode_step": 0, "_qa_forward": 0, "decode_step": 0}
+
+    def counting(name):
+        def wrap(f):
+            def g(*a, **k):
+                # an init-prompt append launches no stream_attention
+                calls[name] += not k.get("is_init", False)
+                return f(*a, **k)
+            return g
+        return wrap
+
+    def recording(last):
+        """Keep the questions and prompts of a session's QA call."""
+        def wrap(f):
+            def g(*a, **k):
+                i = 2 if f.__name__ == "serve" else 0
+                last["qp"] = (a[i], a[i + 1])
+                return f(*a, **k)
+            return g
+        return wrap
+
+    def run(kind, check=None):
+        """The traffic through kind 'greedy' (a), 'spec' (b) or
+        'reference' (c).  check(sess, questions, prompts, slot, key,
+        tokens), if given, runs after each tick on each answer, outside
+        the tick's time.  Returns (record, answers by (stream, question),
+        migrated answers)."""
+        sess = build()
+        if kind == "spec":
+            sess.set_spec_decode(SPEC_K, SPEC_HISTORY)
+        eng = None if kind == "reference" else ServingEngine(
+            sess, stop, max_new_tokens=M)
+        answers, mig_answers, ticks, mig, last = {}, {}, [], {}, {}
+        for c in calls:
+            calls[c] = 0
+        before = spec_counters(lm)
+        reset_counts()
+        with patched([(lm, c, counting(c)) for c in calls]
+                     + [(sess, f, recording(last)) for f in (
+                         "serve", "question_answering_batch")]):
+            for t, (feed, asks) in enumerate(traffic):
+                t0 = time.perf_counter()
+                if eng is None:
+                    reference_tick(sess, feed, asks, frames, stop, M,
+                                   answers)
+                    done = []
+                else:
+                    done = engine_tick(eng, feed, asks, frames, answers)
+                torch.cuda.synchronize()
+                ticks.append({"tick": t, "kind": ("both" if feed and asks
+                                                  else "encode" if feed
+                                                  else "qa"),
+                              "active": len(feed), "asked": len(asks),
+                              "s": time.perf_counter() - t0})
+                if mig:   # the migrated stream's tick, not timed
+                    engine_tick(mig["engine"], [
+                        f for f in feed if f[0] == SERVE_MIGRATE[1]], [
+                        a for a in asks if a[0] == SERVE_MIGRATE[1]],
+                        frames, mig_answers, {SERVE_MIGRATE[1]: mig["slot"]})
+                for key, tok in done:
+                    if check:
+                        check(sess, *last["qp"], SERVE_SLOT[key[0]], key,
+                              tok)
+                if t == SERVE_RETIRE[0]:
+                    slot = SERVE_SLOT[SERVE_RETIRE[1]]
+                    if eng is None:
+                        sess.reset_streams([slot])
+                    else:
+                        eng.retire(slot)
+                        if eng.admit() != slot:
+                            raise RuntimeError("admitted into another slot")
+                if t == SERVE_MIGRATE[0] and kind == "greedy":
+                    mig = migrate(sess)
+        counts = read_counts()
+        want = {"stream_attention": {"float": L * calls["encode_step"],
+                                     "int8": 0, "int4": 0},
+                "decode_attention": L * (calls["_qa_forward"]
+                                         + calls["decode_step"]),
+                "decode_score": 0}
+        by_kind = {k: [tk["s"] for tk in ticks if tk["kind"] == k]
+                   for k in ("encode", "qa", "both")}
+        frames_in = SERVE_FRAMES * sum(tk["active"] for tk in ticks)
+        enc = [tk for tk in ticks if tk["kind"] == "encode"]
+        rec = {"launches": counts, "expected": want,
+               "launches_ok": counts == want and all(
+                   calls[c] for c in ("encode_step", "_qa_forward")),
+               "lm_calls": dict(calls), "ticks": ticks,
+               "active_frames": frames_in,
+               # the ingest rate: frames over the ticks that only encode
+               "frames_per_s_encode_only": SERVE_FRAMES * sum(
+                   tk["active"] for tk in enc) / sum(tk["s"] for tk in enc),
+               # every frame over every tick that encodes, the QA of the
+               # ticks that also answer included
+               "frames_per_s_encode_ticks_qa_included": frames_in / sum(
+                   tk["s"] for tk in ticks if tk["active"]),
+               "tick_ms_p50": {k: 1e3 * p50(v) if v else None
+                               for k, v in by_kind.items()},
+               "answers": {f"{s}.{q}": a for (s, q), a in
+                           sorted(answers.items())}}
+        if kind == "spec":
+            rec["spec"] = spec_rates(lm, before, sum(
+                1 for tk in ticks if tk["asked"]))
+        if eng is not None:
+            rec["stats"] = dataclasses.asdict(eng.stats)
+            rec["route_decisions"] = eng.route_decisions
+        if mig:
+            rec["migration"] = {k: v for k, v in mig.items()
+                                if k != "engine"}
+        return rec, answers, mig_answers
+
+    rec_a, ans_a, mig_answers = run("greedy")
+    torch.cuda.empty_cache()
+    rec_c, ans_c, _ = run("reference")
+    torch.cuda.empty_cache()
+    departures = []
+
+    def check(sess, questions, prompts, slot, key, tok):
+        if tok != ans_a[key]:
+            d = {"stream": key[0], "question": key[1], "got": tok,
+                 "greedy": ans_a[key], **spec_departure(
+                     sess, questions, prompts, slot, tok, ans_a[key])}
+            print(f"spec departure (phase 12): {d}", flush=True)
+            departures.append(d)
+
+    rec_b, ans_b, _ = run("spec", check)
+    torch.cuda.empty_cache()
+    migrated = {f"{s}.{q}": (a, ans_a[(s, q)])
+                for (s, q), a in sorted(mig_answers.items())}
+    rec = {"phase": "serving llava-ov-0.5b", "card": card,
+           "ticks": len(traffic), "questions": len(ans_a),
+           "a_greedy": rec_a, "b_speculative": rec_b, "c_reference": rec_c,
+           "a_equals_c": ans_a == ans_c,
+           "migrated_answers": migrated,
+           "migrated_equal": bool(migrated) and all(
+               x == y for x, y in migrated.values()),
+           "spec_departures": departures,
+           "spec_equal": sum(ans_b[k] == ans_a[k] for k in ans_a),
+           "qa_tick_ms_p50_spec_off_on": [rec_a["tick_ms_p50"]["qa"],
+                                          rec_b["tick_ms_p50"]["qa"]],
+           "both_tick_ms_p50_spec_off_on": [rec_a["tick_ms_p50"]["both"],
+                                            rec_b["tick_ms_p50"]["both"]],
+           "seconds": time.perf_counter() - t_phase}
+    del model, lm
+    torch.cuda.empty_cache()
+    if not (rec["a_equals_c"] and rec["migrated_equal"]
+            and len(ans_b) == len(ans_a)
+            and all(d["near_tie"] for d in departures)
+            and all(r["launches_ok"] for r in (rec_a, rec_b, rec_c))):
+        raise RuntimeError(f"serving phase failed {rec}")
+    return rec
+
+
+def engine_tick(eng, feed, asks, frames, answers, slots=None) -> list:
+    """Submit one tick's chunks and questions to the engine and step it
+    once; answers[(stream, question)] gets each answer.  slots: stream ->
+    slot where it differs from SERVE_SLOT.  Returns [(key, tokens)]."""
+    slot = {**SERVE_SLOT, **(slots or {})}
+    rids = {}
+    for sid, k in feed:
+        eng.submit_chunk(slot[sid], frames(sid, k))
+    for sid, q in asks:
+        rids[eng.submit_question(slot[sid], *serve_question(sid, q))] = \
+            (sid, q)
+    done = []
+    if eng.pending:
+        for rid, r in eng.step().items():
+            answers[rids[rid]] = r["tokens"]
+            done.append((rids[rid], r["tokens"]))
+    if eng.pending:
+        raise RuntimeError("a tick left work queued")
+    return done
+
+
+def reference_tick(sess, feed, asks, frames, stop, M, answers) -> None:
+    """The same tick on the session itself: a ragged encode_video of the
+    fed slots, then question_answering_batch of the asking ones."""
+    B = sess.batch
+    if feed:
+        batch = np.zeros((B, SERVE_FRAMES, 384, 384, 3), np.uint8)
+        active = [False] * B
+        for sid, k in feed:
+            batch[SERVE_SLOT[sid]] = frames(sid, k)
+            active[SERVE_SLOT[sid]] = True
+        sess.encode_video(batch, active=active)
+    if asks:
+        qs, ps, asked = [[0]] * B, [[0]] * B, [False] * B
+        for sid, q in asks:
+            b = SERVE_SLOT[sid]
+            qs[b], ps[b] = serve_question(sid, q)
+            asked[b] = True
+        out = sess.question_answering_batch(qs, ps, stop, max_new_tokens=M,
+                                            asked=asked)
+        for sid, q in asks:
+            answers[(sid, q)] = out[SERVE_SLOT[sid]]
 
 
 # ---------------------------------------------------------------------------
@@ -2018,6 +2454,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_script = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card, flush=True)
@@ -2047,7 +2484,8 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
     RECORD["phases"]["build"] = {"build_s": build_s, "ptxas": regs,
                                  "instances": tcore, "card": card,
-                                 "rates": rates}
+                                 "rates": rates,
+                                 "seconds": time.perf_counter() - t0}
 
     # ---- phase 2: kernels vs plain, then planted faults ----
     t_phase = time.perf_counter()
@@ -2089,6 +2527,8 @@ def main() -> int:
         decode_case("decode B=4 prefill T=64, own cursors, n_local 1024",
                     64, [100, 900, 2500, 4288], [164, 964, 2564, 4352], 1024,
                     dev, gen),
+        decode_case(VERIFY_DECODE, 5, VERIFY_STARTS,
+                    [s + 5 for s in VERIFY_STARTS], 15000, dev, gen),
         score_case("decode_score prefill T=256 at slot 3854", 256, 3854,
                    3854 + 256, 15000, dev, gen, parts=parts),
         score_case("decode_score expired window (n_local 64)", 16, 2000,
@@ -2317,11 +2757,21 @@ def main() -> int:
     del model7
     torch.cuda.empty_cache()
 
-    # ---- phase 8: bench.py's 7b mode: int8 weights, bf16 vision ----
+    # ---- phase 8: bench.py's 7b mode: int8 weights, bf16 vision; on
+    # int8 (cell E1) three questions with speculation off and on ----
+    three_questions = two_questions + [(list(range(600, 612)),
+                                        list(range(700, 716)))]
     for wq in ("int8", "int8_g128"):
-        p8 = weights_phase(wq, two_questions, card, dev, gen)
+        p8 = weights_phase(wq, two_questions, card, dev, gen, after=(
+            (lambda s: spec_session_questions(s, three_questions, [151645]))
+            if wq == "int8" else None))
         emit(p8)
         RECORD["phases"][f"session_7b_{wq}_weights"] = p8
+        if "after" in p8 and not p8["after"]["ok"]:
+            raise RuntimeError(f"7B speculative answers part from greedy "
+                               f"away from a near-tie {p8['after']}")
+        if "after" in p8:
+            spec7 = p8["after"]
 
     # ---- phase 9: the HF loader at llava-ov-0.5b width ----
     p9 = loader_phase(card, dev)
@@ -2337,6 +2787,29 @@ def main() -> int:
     p11 = multistream_phase(card, dev)
     emit(p11)
     RECORD["phases"]["multi_stream"] = p11
+
+    # ---- phase 12: serving, speculative decode, migration (0.5b) ----
+    p12 = serving_phase(card, dev)
+    emit({k: v for k, v in p12.items() if k not in (
+        "a_greedy", "b_speculative", "c_reference")})
+    RECORD["phases"]["serving"] = p12
+    a12, b12 = p12["a_greedy"], p12["b_speculative"]
+    emit({"phase": "serving summary", "card": card,
+          "seconds": p12["seconds"],
+          "frames_per_s_encode_only": a12["frames_per_s_encode_only"],
+          "frames_per_s_encode_ticks_qa_included": a12[
+              "frames_per_s_encode_ticks_qa_included"],
+          "tick_ms_p50_spec_off": a12["tick_ms_p50"],
+          "tick_ms_p50_spec_on": b12["tick_ms_p50"],
+          "spec": b12["spec"], "stats": a12["stats"],
+          "decode_attention_launches": {
+              "a": a12["launches"]["decode_attention"],
+              "b": b12["launches"]["decode_attention"]},
+          "migration": a12["migration"],
+          "spec_7b": {"qa_p50_s_off_on": [spec7["greedy"]["qa_p50_s"],
+                                          spec7["speculative"]["qa_p50_s"]],
+                      "spec": spec7["speculative"]["spec"],
+                      "departures": len(spec7["departures"])}})
 
     # ---- the kernels line, then the device line ----
     def bound_by(c):
@@ -2391,6 +2864,8 @@ def main() -> int:
                        "phase 10 (a)":
                        set_a["launches"]["stream_attention"]["float"],
                        "phase 11": p11["launches"]["stream_attention"][
+                           "float"],
+                       "phase 12 (a)": a12["launches"]["stream_attention"][
                            "float"]}),
         entry("stream_attention_int8", sa_src, sa_tpu,
               "stream int8 7B heads (28/4/128), 264 pages",
@@ -2407,10 +2882,13 @@ def main() -> int:
               launches["decode_attention"], "phase 3",
               also=("decode prefill T=256",
                     "decode prefill T=256 7B heads (28/4/128)",
-                    "decode token T=1 7B heads (28/4/128)", B4_DECODE),
+                    "decode token T=1 7B heads (28/4/128)", B4_DECODE,
+                    VERIFY_DECODE),
               by_path={"phase 3": launches["decode_attention"],
                        "phase 10 (a)": set_a["launches"]["decode_attention"],
-                       "phase 11": p11["launches"]["decode_attention"]}),
+                       "phase 11": p11["launches"]["decode_attention"],
+                       "phase 12 (a)": a12["launches"]["decode_attention"],
+                       "phase 12 (b)": b12["launches"]["decode_attention"]}),
         entry("decode_score", "stc_tpu_torch/csrc/decode_score.cu",
               "stc_tpu/ops/decode_attention.py:244",
               "decode_score prefill T=256 at slot 3854", 0,
@@ -2424,6 +2902,10 @@ def main() -> int:
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
         json.dump(RECORD, f, indent=1)
+    emit({"phase": "timing", "card": card,
+          "phase_seconds": {k: v["seconds"] for k, v in
+                            RECORD["phases"].items() if "seconds" in v},
+          "script_seconds": time.perf_counter() - t_script})
     print(card, flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu",

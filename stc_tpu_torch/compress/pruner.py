@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from stc_tpu_torch.ops.topk import topk_lowest
+
 ALPHAS = tuple(2.0 ** k for k in range(-3, 2))
 
 
@@ -45,7 +47,7 @@ def stc_prune(features: torch.Tensor, state: PrunerState,
     k_ch = int(C * channel_keep_ratio)
     flat = features.to(torch.float32).reshape(B, F_ * Tin, C)
     var = flat.var(dim=1, unbiased=False)
-    ch_idx = torch.topk(-var, k_ch, dim=-1).indices
+    _, ch_idx = topk_lowest(-var, k_ch)
     sel = torch.gather(flat, 2, ch_idx[:, None, :].expand(B, F_ * Tin, k_ch))
     chunk_mean = sel.mean(dim=1)
     mean_sum = state.mean_sum + chunk_mean
@@ -58,7 +60,7 @@ def stc_prune(features: torch.Tensor, state: PrunerState,
     memory_score = _gaussian_similarity(
         feat_n, _l2norm(memory_mean)[:, None, None, :])
     combined = memory_score + frame_score
-    idx = torch.topk(-combined, keep_per_frame, dim=-1).indices
+    _, idx = topk_lowest(-combined, keep_per_frame)
     idx = torch.sort(idx, dim=-1).values
     pruned = torch.gather(features, 2, idx[..., None].expand(
         B, F_, keep_per_frame, C))

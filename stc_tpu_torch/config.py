@@ -36,14 +36,17 @@ class ReKVConfig:
     # | 'int4' (packed nibbles, a quarter) | 'none' (exact round trips);
     # a kv_quant store's pages go to the host as they are stored
     host_kv_quant: str = "int8"
+    # prompt-lookup speculative decode: draft tokens a round (0: plain
+    # greedy), the n-gram it matches, and the tokens of earlier questions
+    # and answers kept per stream as draft material
+    spec_decode_draft: int = 0
+    spec_decode_ngram: int = 3
+    spec_history_tokens: int = 0
     # fields the port does not implement yet; kept so the port's config
     # takes every setting the JAX one does, and checked below
     retrieval_scorer: str = "mean_dot"
     retrieved_kv_compression: str = "none"
     window_kv_compression: str = "none"
-    spec_decode_draft: int = 0
-    spec_decode_ngram: int = 3
-    spec_history_tokens: int = 0
 
     def __post_init__(self):
         assert self.exc_block_size <= self.n_local
@@ -66,7 +69,6 @@ class ReKVConfig:
             "retrieved_kv_compression": (self.retrieved_kv_compression,
                                          "none"),
             "window_kv_compression": (self.window_kv_compression, "none"),
-            "spec_decode_draft": (self.spec_decode_draft, 0),
         }
         for name, (value, main) in unported.items():
             if value != main:

@@ -46,6 +46,7 @@ from stc_tpu_torch.ops.rope import apply_rope, rope_cos_sin, rotate
 from stc_tpu_torch.ops.stream_attention import (dequant_rows, pages_per_tile,
                                                 stream_attention)
 from stc_tpu_torch.ops.stream_attention import unpack_int4 as _unpack_int4
+from stc_tpu_torch.ops.topk import topk_lowest
 
 I32 = torch.int32
 
@@ -386,7 +387,7 @@ def score_blocks(kv: StreamKV, q: torch.Tensor, cfg: ReKVConfig,
     cnt = blk_valid.reshape(B, Rc // cs, cs).sum(dim=-1)
     chunk_score = torch.where(cnt > 0, lg.sum(dim=-1) / cnt.clamp(min=1),
                               float("-inf"))
-    _, chunk_idx = torch.topk(chunk_score, cfg.topk // cs, dim=1)
+    _, chunk_idx = topk_lowest(chunk_score, cfg.topk // cs, dim=1)
     chunk_valid = torch.gather(cnt > 0, 1, chunk_idx)
     sort_key = torch.where(chunk_valid, chunk_idx, Rc // cs + 1)
     chunk_idx = torch.sort(sort_key, dim=1).values

@@ -14,7 +14,11 @@ slice.  Entry points mirror the JAX call graph:
                     a prefetch table of host pages; the question's own KV
                     are not kept
   decode_step       prompt prefill / one-token decode over the decode cache
-  greedy_decode     the answer loop, never emitting a stop token first
+  greedy_decode     the answer loop, never emitting a stop token first;
+                    with ReKVConfig.spec_decode_draft > 0 and a lookup
+                    context, lookahead_decode instead
+  lookahead_decode  prompt-lookup speculative decode: the same tokens as
+                    greedy_decode, up to K + 1 of them per LM forward
   answer_question   retrieval + prefill + greedy decode
   answer_question_hosttier  one round of the two-tier QA: the retrieval
                     forward, then prefill and decode only if every
@@ -40,6 +44,7 @@ from stc_tpu_torch.config import ReKVConfig
 from stc_tpu_torch.device import resolve_device
 from stc_tpu_torch.kvcache import engine
 from stc_tpu_torch.kvcache.state import DecodeKV, StreamKV, layer
+from stc_tpu_torch.ops.topk import argmax_lowest, top2_lowest
 
 
 @dataclasses.dataclass(frozen=True)
@@ -143,6 +148,12 @@ class Qwen2(nn.Module):
         # None: weights in the model dtype; else quantize_int8's group size
         # (0: int8 per output channel)
         self.int8_group: Optional[int] = None
+        # lookahead_decode's verify rounds, the live streams summed over
+        # those rounds and the tokens they committed, since this module was
+        # built (observability: tokens per verify round)
+        self.spec_rounds = 0
+        self.spec_stream_rounds = 0
+        self.spec_tokens = 0
 
     @property
     def dtype(self):
@@ -404,12 +415,20 @@ class Qwen2(nn.Module):
     @torch.no_grad()
     def greedy_decode(self, rekv: ReKVConfig, dkvs: DecodeKV,
                       last_logits: torch.Tensor, stop_ids: torch.Tensor,
-                      max_new_tokens: int):
+                      max_new_tokens: int,
+                      ctx_ids: Optional[torch.Tensor] = None,
+                      ctx_len: Optional[torch.Tensor] = None):
         """Greedy decode from the prompt's last logits (B, V); step 0 never
         emits a stop token (top-2 fallback).  stop_ids: (n,) int32, -1
         padded.  Returns (tokens (B, max_new_tokens) int32, n_generated
         (B,) int32, dkvs); every loop step runs one decode_step, and the
-        loop stops once every stream has emitted a stop token."""
+        loop stops once every stream has emitted a stop token.  With
+        rekv.spec_decode_draft > 0 and a lookup context ctx_ids / ctx_len
+        (build_spec_ctx), lookahead_decode runs instead: the same tokens
+        in fewer forwards."""
+        if rekv.spec_decode_draft > 0 and ctx_ids is not None:
+            return self.lookahead_decode(rekv, dkvs, last_logits, stop_ids,
+                                         max_new_tokens, ctx_ids, ctx_len)
         B = last_logits.shape[0]
         dev = last_logits.device
         stop_ids = stop_ids.to(dev)
@@ -420,7 +439,7 @@ class Qwen2(nn.Module):
         ones = torch.ones((B,), dtype=torch.int32, device=dev)
         logits = last_logits
         for i in range(max_new_tokens):
-            top2 = torch.topk(logits, 2, dim=-1).indices.to(torch.int32)
+            top2 = top2_lowest(logits).to(torch.int32)
             tok = top2[:, 0]
             if i == 0:
                 first_stop = (tok[:, None] == stop_ids[None, :]).any(dim=1)
@@ -438,33 +457,125 @@ class Qwen2(nn.Module):
         return tokens, count, dkvs
 
     @torch.no_grad()
+    def lookahead_decode(self, rekv: ReKVConfig, dkvs: DecodeKV,
+                         last_logits: torch.Tensor, stop_ids: torch.Tensor,
+                         max_new_tokens: int, ctx_ids: torch.Tensor,
+                         ctx_len: torch.Tensor):
+        """Greedy decode by prompt lookup (stc_tpu's lookahead_decode).
+        Each round commits the next greedy token tok0, drafts K =
+        rekv.spec_decode_draft tokens by the longest-suffix n-gram match
+        over the lookup context (_spec_draft), runs ONE decode_step over
+        the K + 1 tokens, and commits the longest draft prefix equal to
+        the model's own greedy choices, cut at a stop token and at the
+        budget.  Every layer's cursor then rewinds to start + committed:
+        the rejected rows stay in the cache past the cursor, where the
+        next round writes its own K + 1 rows before it attends; a row
+        still past those lies ahead of every query (causal mask) and past
+        the cursor (`slot < cursor`).  The tokens equal greedy_decode's,
+        the anti-stop rule at step 0 included.  One host read a round
+        (are any streams live, and the round's counters).  Returns (tokens
+        (B, max_new_tokens) int32, n_generated (B,) int32, dkvs)."""
+        B = last_logits.shape[0]
+        K, N = rekv.spec_decode_draft, rekv.spec_decode_ngram
+        dev = last_logits.device
+        C = ctx_ids.shape[1]
+        i32 = torch.int32
+        stop_ids = stop_ids.to(dev)
+        bidx = torch.arange(B, device=dev)
+
+        def is_stop(tok):
+            return (tok[:, None] == stop_ids[None, :]).any(dim=1)
+
+        def put(buf, at, val, where):
+            """buf[b, at[b]] = val[b] where `where`, per stream."""
+            buf[bidx, at] = torch.where(where, val, buf[bidx, at])
+
+        tokens = torch.zeros((B, max_new_tokens), dtype=i32, device=dev)
+        pos = torch.zeros((B,), dtype=i32, device=dev)
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        ctx = ctx_ids.to(device=dev, dtype=i32).clone()
+        cl = ctx_len.to(device=dev, dtype=i32).clone()
+        n_tok = torch.full((B,), K + 1, dtype=i32, device=dev)
+        logits, n_live = last_logits, B
+        for _ in range(max_new_tokens):
+            self.spec_rounds += 1
+            self.spec_stream_rounds += n_live
+            top2 = top2_lowest(logits).to(i32)
+            tok0 = torch.where((pos == 0) & is_stop(top2[:, 0]), top2[:, 1],
+                               top2[:, 0])
+            # tok0 joins the lookup context, so the draft follows it
+            put(ctx, cl.clamp(0, C - 1), tok0, ~done)
+            cl = cl + (~done).to(i32)
+            draft = _spec_draft(ctx, cl, K, N)
+            seq = torch.cat([tok0[:, None], draft], dim=1)        # (B, K+1)
+            start = dkvs.cursor.clone()
+            logits_all, dkvs = self.decode_step(
+                rekv, dkvs, self.embed_tokens(seq), n_tok)
+            y = argmax_lowest(logits_all).to(i32)                 # (B, K+1)
+            n_draft = torch.cumprod((draft == y[:, :K]).to(i32),
+                                    dim=1).sum(dim=1)
+            # the committed run seq[0 .. n_draft], cut at the first stop
+            # token and at the budget; accepted drafts join the context
+            committed = torch.zeros((B,), dtype=i32, device=dev)
+            d = done
+            for t in range(K + 1):
+                tk = seq[:, t]
+                can = (~d) & (t <= n_draft) & (pos + committed
+                                               < max_new_tokens)
+                put(tokens, (pos + committed).clamp(0, max_new_tokens - 1),
+                    tk, can)
+                if t > 0:
+                    put(ctx, cl.clamp(0, C - 1), tk, can)
+                    cl = cl + can.to(i32)
+                committed = committed + can.to(i32)
+                d = d | (can & is_stop(tk))
+            # the next round follows the last committed token
+            logits = logits_all[bidx, (committed - 1).clamp(0, K)]
+            dkvs.cursor.copy_(start + committed[None, :])
+            pos, done = pos + committed, d
+            # the round's one host read
+            n_live, n_new = torch.stack([(~done & (pos < max_new_tokens))
+                                         .sum(), committed.sum()]).tolist()
+            self.spec_tokens += n_new
+            if not n_live:
+                break
+        return tokens, pos, dkvs
+
+    @torch.no_grad()
     def answer_question(self, rekv: ReKVConfig, kvs: StreamKV,
                         q_ids: torch.Tensor, q_len: torch.Tensor,
                         p_ids: torch.Tensor, p_len: torch.Tensor,
                         stop_ids: torch.Tensor, max_new_tokens: int,
-                        retrieved_indices: Optional[torch.Tensor] = None):
-        """Retrieval forward + prompt prefill + greedy decode.  Returns
+                        retrieved_indices: Optional[torch.Tensor] = None,
+                        hist_ids: Optional[torch.Tensor] = None,
+                        hist_len: Optional[torch.Tensor] = None):
+        """Retrieval forward + prompt prefill + greedy decode.  hist_ids
+        (B, H) / hist_len (B,): earlier questions and answers per stream,
+        draft material of the speculative decode (never output).  Returns
         (tokens, n_generated, abs_idx (L, B, topk), exists)."""
         B = q_ids.shape[0]
         dkvs = self.init_decode_state(rekv, B, kvs.init_k.dtype)
         dkvs, abs_idx, exists = self.qa_retrieve_step(
             rekv, kvs, dkvs, self.embed_tokens(q_ids), n_tokens=q_len,
             retrieved_indices=retrieved_indices)
-        tokens, count = self._answer(rekv, dkvs, p_ids, p_len, stop_ids,
-                                     max_new_tokens)
+        tokens, count = self._answer(rekv, dkvs, q_ids, q_len, p_ids, p_len,
+                                     stop_ids, max_new_tokens, hist_ids,
+                                     hist_len)
         return tokens, count, abs_idx, exists
 
     @torch.no_grad()
     def answer_question_hosttier(self, rekv: ReKVConfig, kvs: StreamKV,
                                  q_ids, q_len, p_ids, p_len, stop_ids,
                                  max_new_tokens: int, hp_kv, hp_ids,
-                                 retrieved_indices=None, stage=None):
+                                 retrieved_indices=None, stage=None,
+                                 hist_ids=None, hist_len=None):
         """One round of the two-tier QA: the retrieval forward over the
         store and the prefetch table (with `stage`, layer by layer, see
         qa_retrieve_hosttier_step), then -- only when no layer missed a
         selected page (one host read of `missing`) -- prompt prefill and
-        greedy decode; a miss round returns zero tokens.  Returns (tokens,
-        n_generated, abs_idx, exists, missing)."""
+        greedy decode (hist_ids / hist_len as in answer_question); a miss
+        round returns zero tokens.  Returns (tokens, n_generated, abs_idx,
+        exists, missing)."""
         B = q_ids.shape[0]
         dkvs = self.init_decode_state(rekv, B, kvs.init_k.dtype)
         dkvs, abs_idx, exists, missing = self.qa_retrieve_hosttier_step(
@@ -474,18 +585,89 @@ class Qwen2(nn.Module):
             z = torch.zeros((B, max_new_tokens), dtype=torch.int32,
                             device=q_ids.device)
             return z, z[:, 0], abs_idx, exists, missing
-        tokens, count = self._answer(rekv, dkvs, p_ids, p_len, stop_ids,
-                                     max_new_tokens)
+        tokens, count = self._answer(rekv, dkvs, q_ids, q_len, p_ids, p_len,
+                                     stop_ids, max_new_tokens, hist_ids,
+                                     hist_len)
         return tokens, count, abs_idx, exists, missing
 
-    def _answer(self, rekv, dkvs, p_ids, p_len, stop_ids, max_new_tokens):
+    def _answer(self, rekv, dkvs, q_ids, q_len, p_ids, p_len, stop_ids,
+                max_new_tokens, hist_ids=None, hist_len=None):
         """Prompt prefill over the installed decode cache, then greedy
-        decode: (tokens, n_generated)."""
+        decode (speculative over [history | question | prompt] when
+        rekv.spec_decode_draft > 0): (tokens, n_generated)."""
         B = p_ids.shape[0]
         logits, dkvs = self.decode_step(rekv, dkvs, self.embed_tokens(p_ids),
                                         p_len)
         bidx = torch.arange(B, device=logits.device)
         last = logits[bidx, p_len.to(torch.int64) - 1]
+        ctx = {}
+        if rekv.spec_decode_draft > 0:
+            c_ids, c_len = build_spec_ctx(q_ids, q_len, p_ids, p_len,
+                                          max_new_tokens, hist_ids, hist_len)
+            ctx = dict(ctx_ids=c_ids, ctx_len=c_len)
         tokens, count, _ = self.greedy_decode(rekv, dkvs, last, stop_ids,
-                                              max_new_tokens)
+                                              max_new_tokens, **ctx)
         return tokens, count
+
+
+def build_spec_ctx(q_ids: torch.Tensor, q_len: torch.Tensor,
+                   p_ids: torch.Tensor, p_len: torch.Tensor,
+                   max_new_tokens: int,
+                   hist_ids: Optional[torch.Tensor] = None,
+                   hist_len: Optional[torch.Tensor] = None):
+    """The per-stream lookup context of the speculative decode: [history |
+    question | prompt], compacted (padding dropped), with room for the
+    generated tokens.  hist_ids (B, H): recent question and answer tokens
+    of the stream's earlier questions.  Returns (ctx (B, C) int32, ctx_len
+    (B,) int32), C = H + Tq + Tp + max_new_tokens + 2."""
+    B, Tq = q_ids.shape
+    Tp = p_ids.shape[1]
+    H = 0 if hist_ids is None else hist_ids.shape[1]
+    dev, i32 = q_ids.device, torch.int32
+    C = H + Tq + Tp + max_new_tokens + 2
+    ctx = torch.zeros((B, C), dtype=i32, device=dev)
+    bidx = torch.arange(B, device=dev)[:, None]
+    base = torch.zeros((B,), dtype=i32, device=dev)
+    q_len = torch.as_tensor(q_len, device=dev).to(i32)
+    p_len = torch.as_tensor(p_len, device=dev).to(i32)
+    if H:
+        hist_len = torch.as_tensor(hist_len, device=dev).to(i32)
+        jh = torch.arange(H, device=dev)[None, :]
+        ctx[:, :H] = torch.where(jh < hist_len[:, None], hist_ids.to(i32), 0)
+        base = hist_len
+    for ids, n, off in ((q_ids, q_len, base), (p_ids, p_len, base + q_len)):
+        j = torch.arange(ids.shape[1], device=dev)[None, :]
+        ctx[bidx, off[:, None] + j] = torch.where(j < n[:, None],
+                                                  ids.to(i32), 0)
+    return ctx, base + q_len + p_len
+
+
+def _spec_draft(ctx: torch.Tensor, ctx_len: torch.Tensor, K: int, N: int):
+    """K draft tokens per stream: the continuation of the most recent
+    position whose trailing n-gram (up to N tokens) equals the committed
+    suffix of ctx[:, :ctx_len] (the longest match first, then the latest,
+    as argmax(score * C + t)); zeros where nothing matches.  A bad draft
+    costs nothing but its rows: it is committed only where it equals the
+    model's own greedy choice."""
+    B, C = ctx.shape
+    dev = ctx.device
+    bidx = torch.arange(B, device=dev)[:, None]
+    # g[:, j] = the (j+1)-th-last committed token
+    gpos = ctx_len[:, None] - 1 - torch.arange(N, device=dev)[None, :]
+    g = ctx[bidx, gpos.clamp(0, C - 1)]
+    gvalid = gpos >= 0
+    score = torch.zeros((B, C), dtype=torch.int32, device=dev)
+    run = torch.ones((B, C), dtype=torch.bool, device=dev)
+    for j in range(N):
+        shifted = torch.cat([torch.zeros_like(ctx[:, :j]), ctx[:, :C - j]],
+                            dim=1)                                # ctx[t-j]
+        run = run & (shifted == g[:, j:j + 1]) & gvalid[:, j:j + 1]
+        score = score + run.to(torch.int32)
+    t = torch.arange(C, device=dev)[None, :]
+    # neither the committed suffix itself nor anything at or after the end
+    score = torch.where(t < ctx_len[:, None] - 1, score, 0)
+    best = (score * C + t).argmax(dim=1)
+    has = score.gather(1, best[:, None]) > 0
+    dpos = best[:, None] + 1 + torch.arange(K, device=dev)[None, :]
+    draft = ctx[bidx, dpos.clamp(0, C - 1)]
+    return torch.where(has & (dpos < C), draft, 0)

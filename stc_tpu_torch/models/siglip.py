@@ -27,6 +27,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from stc_tpu_torch.device import resolve_device
+from stc_tpu_torch.ops.topk import topk_lowest
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +168,7 @@ class SiglipLayer(nn.Module):
         hn = layer_norm(h, self.ln1_w, self.ln1_b, eps)
         k_full = hn @ self.wk + self.bk
         sim = key_similarity(k_full, ref_k)
-        upd = torch.topk(-sim, num_update, dim=-1).indices
+        _, upd = topk_lowest(-sim, num_update)
         upd = torch.sort(upd, dim=-1).values                    # (F, U)
         frow = torch.arange(F_, device=h.device)[:, None]
 

@@ -3,7 +3,7 @@ plug-and-play API
 
     clear_cache() / encode_init_prompt(ids) / encode_video_features(feats)
     / question_answering(...) / question_answering_batch(...)
-    / reset_streams(slots)
+    / reset_streams(slots) / serve(...) / set_spec_decode(...)
 
 over one device-resident page store for B streams, with a host tier behind
 it.  Streams may tick at different rates (``active`` masks: ragged
@@ -13,13 +13,20 @@ max_blocks offloads its oldest pages to host memory (kvcache/host_tier.py);
 a question whose top-k hits them stages them back and is answered in at
 most two retrieval rounds, exactly as an all-device session would answer.
 With ``weights_quant`` set, the session quantizes the LM it is given to
-int8 at build (in place).  Left out until their ROADMAP.md items land:
-meshes, the serve router, speculative decode and the layerwise ablation
-scorers.
+int8 at build (in place).  ``serve`` runs a serving tick: a ragged encode
+and per-stream questions over the state after it (the ServingEngine of
+runtime/serving.py drives it).  With ReKVConfig.spec_decode_draft > 0 the
+answers decode speculatively by prompt lookup (the same tokens as greedy),
+drafting also from each stream's earlier questions and answers
+(spec_history_tokens).  Left out until their ROADMAP.md items land: meshes
+and the layerwise ablation scorers.  stc_tpu's measured-cost router between
+one merged XLA program and two is a TPU dispatch mechanism the port does not
+keep: ``serve`` always takes its serve path where that path is eligible.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -79,6 +86,8 @@ class StreamingSession:
         self.qa_rounds = 0       # retrieval forwards of the last QA
         self.repair_layers = 0   # layers staged inside its second round
         self.staged_bytes = 0    # host-tier bytes staged to the device
+        # whether the last serve() took the serve path (observability)
+        self.last_serve_fused = False
         self.kvs = None
         self.clear_cache()
 
@@ -94,6 +103,13 @@ class StreamingSession:
         self._stream_blocks = np.zeros(self.batch, dtype=np.int64)
         self._ragged = False
         self._evicted_pages = 0
+        # the speculative decode's draft history: the most recent
+        # spec_history_tokens question, prompt and answer tokens of each
+        # stream (draft material only, never output)
+        H = self.rekv.spec_history_tokens if self.rekv.spec_decode_draft \
+            else 0
+        self._qa_hist = np.zeros((self.batch, H), dtype=np.int32)
+        self._qa_hist_len = np.zeros(self.batch, dtype=np.int32)
 
     # ------------------------------------------------------------------ #
     def _check_rep_capacity(self, incoming_blocks: int):
@@ -245,11 +261,13 @@ class StreamingSession:
             self, questions: Sequence[Sequence[int]],
             prompts: Sequence[Sequence[int]], stop_token_ids: Sequence[int],
             max_new_tokens: int = 128,
-            retrieved_indices: Optional[Sequence[int]] = None
-    ) -> List[List[int]]:
+            retrieved_indices: Optional[Sequence[int]] = None,
+            asked=None) -> List[List[int]]:
         """One question and prompt per stream (lengths may differ; they are
         right-padded to a shared bucket), answered in one batched QA.
-        Returns one answer list per stream."""
+        asked: optional (B,) bool, the streams that really asked (the
+        others' placeholder rows stay out of the draft history).  Returns
+        one answer list per stream."""
         if len(questions) != self.batch or len(prompts) != self.batch:
             raise ValueError(f"{len(questions)} questions and "
                              f"{len(prompts)} prompts for {self.batch} "
@@ -258,9 +276,45 @@ class StreamingSession:
         p_ids, p_len = self._pad_ids(prompts)
         tokens, count = self._qa_run(q_ids, q_len, p_ids, p_len,
                                      stop_token_ids, max_new_tokens,
-                                     retrieved_indices)
+                                     retrieved_indices, hist_rows=asked)
         return [[int(t) for t in tokens[b, :int(count[b])]]
                 for b in range(self.batch)]
+
+    def serve(self, feats, active, questions, prompts, stop_token_ids,
+              max_new_tokens: int = 128, asked=None):
+        """A serving tick: encode `feats` (B, T, E) into the `active`
+        streams ((B,) bool or None for all; inactive rows are ignored), then
+        answer per-stream `questions` / `prompts` over the state after the
+        encode, so a stream may encode, answer, both or neither.  Streams
+        that asked nothing still get rows, to be ignored; asked (B,) bool
+        keeps those rows out of the draft history.  last_serve_fused
+        reports whether the tick was one stc_tpu would fuse into one
+        program (one attention call of the encode, T <= exc_block_size;
+        the mean_dot scorer; nothing evicted; room in the store); the port
+        runs the same calls either way.  Returns (tokens (B, M), count
+        (B,)) as numpy."""
+        feats = torch.as_tensor(feats, device=self.device).to(self.lm.dtype)
+        T = feats.shape[1]
+        if T % self.rekv.block_size:
+            raise ValueError((T, self.rekv.block_size))
+        self.last_serve_fused = self._serve_eligible(
+            T, T // self.rekv.block_size)
+        self.encode_video_features(feats, active=active)
+        return self._qa_tick(questions, prompts, stop_token_ids,
+                             max_new_tokens, asked)
+
+    def _qa_tick(self, questions, prompts, stop_token_ids, max_new_tokens,
+                 asked):
+        q_ids, q_len = self._pad_ids(questions)
+        p_ids, p_len = self._pad_ids(prompts)
+        return self._qa_run(q_ids, q_len, p_ids, p_len, stop_token_ids,
+                            max_new_tokens, hist_rows=asked)
+
+    def _serve_eligible(self, T: int, n: int) -> bool:
+        rc = self.rekv
+        return (T <= rc.exc_block_size and rc.retrieval_scorer == "mean_dot"
+                and self._evicted_pages == 0
+                and self._total_blocks + n <= rc.max_blocks)
 
     def _pad_ids(self, seqs):
         """Right-pad B token sequences to a shared power-of-two bucket."""
@@ -274,10 +328,12 @@ class StreamingSession:
         return arr, lens
 
     def _qa_run(self, q_ids, q_len, p_ids, p_len, stop_token_ids,
-                max_new_tokens: int, retrieved_indices=None):
+                max_new_tokens: int, retrieved_indices=None,
+                hist_rows=None):
         """Retrieval + prefill + greedy decode, from the device store alone
-        or, once pages were evicted, from both tiers.  Returns (tokens
-        (B, M), count (B,)) as numpy."""
+        or, once pages were evicted, from both tiers.  hist_rows: optional
+        (B,) bool, the streams whose question joins the draft history (all
+        when None).  Returns (tokens (B, M), count (B,)) as numpy."""
         rc, B = self.rekv, self.batch
         ext = None
         if retrieved_indices is not None:
@@ -293,13 +349,74 @@ class StreamingSession:
         else:
             tokens, count, abs_idx, exists = self.lm.answer_question(
                 self.rekv, self.kvs, *args,
-                retrieved_indices=None if ext is None else self._ids(ext))
+                retrieved_indices=None if ext is None else self._ids(ext),
+                **self._hist_kw())
             self.qa_rounds = 1
         a, e = abs_idx.cpu().numpy(), exists.cpu().numpy()
         per = [[[int(i) for i in a[l, b][e[l, b]]] for b in range(B)]
                for l in range(a.shape[0])]
         self.last_retrieved_indices = per if B > 1 else [p[0] for p in per]
-        return tokens.cpu().numpy(), count.cpu().numpy()
+        tokens, count = tokens.cpu().numpy(), count.cpu().numpy()
+        self._hist_append(q_ids, q_len, p_ids, p_len, tokens, count,
+                          rows=hist_rows)
+        return tokens, count
+
+    # ------------------------------------------------------------------ #
+    def set_spec_decode(self, draft: int,
+                        history_tokens: Optional[int] = None):
+        """Turn prompt-lookup speculative decoding on (draft tokens a
+        round) or off (0) on the live session, stream state untouched: the
+        answers are greedy's either way.  history_tokens: the draft
+        history's length per stream (None keeps the config's).  The
+        history ring is resized; its most recent tokens survive."""
+        kw = dict(spec_decode_draft=draft)
+        if history_tokens is not None:
+            kw["spec_history_tokens"] = history_tokens
+        self.rekv = rc = dataclasses.replace(self.rekv, **kw)
+        self.scfg = dataclasses.replace(self.scfg, rekv=rc)
+        H = rc.spec_history_tokens if draft else 0
+        if H != self._qa_hist.shape[1]:
+            old, old_len = self._qa_hist, self._qa_hist_len
+            self._qa_hist = np.zeros((self.batch, H), dtype=np.int32)
+            self._qa_hist_len = np.zeros(self.batch, dtype=np.int32)
+            keep = min(H, old.shape[1])
+            if keep:
+                for b in range(self.batch):
+                    n = min(int(old_len[b]), keep)
+                    self._qa_hist[b, :n] = old[b, int(old_len[b]) - n:
+                                               int(old_len[b])]
+                    self._qa_hist_len[b] = n
+
+    def _hist_kw(self):
+        """The draft history for the QA calls ({} when it is off)."""
+        if self._qa_hist.shape[1] == 0:
+            return {}
+        return dict(hist_ids=self._ids(self._qa_hist),
+                    hist_len=self._ids(self._qa_hist_len))
+
+    def _hist_append(self, q_ids, q_len, p_ids, p_len, tokens, count,
+                     rows=None):
+        """Record each stream's question, prompt and answer tokens in its
+        draft history, most recent kept; rows: optional (B,) bool mask of
+        the streams to record."""
+        H = self._qa_hist.shape[1]
+        if H == 0:
+            return
+        q_len, p_len = np.asarray(q_len), np.asarray(p_len)
+        for b in range(self.batch):
+            if rows is not None and not rows[b]:
+                continue
+            seq = np.concatenate([
+                np.asarray(q_ids[b, :q_len[b]], np.int32),
+                np.asarray(p_ids[b, :p_len[b]], np.int32),
+                np.asarray(tokens[b, :int(count[b])], np.int32)])[-H:]
+            n, L = len(seq), int(self._qa_hist_len[b])
+            if L + n > H:
+                shift = L + n - H
+                self._qa_hist[b, :L - shift] = self._qa_hist[b, shift:L]
+                L -= shift
+            self._qa_hist[b, L:L + n] = seq
+            self._qa_hist_len[b] = L + n
 
     # ------------------------------------------------------------------ #
     def hp_reset(self):
@@ -409,7 +526,8 @@ class StreamingSession:
             tokens, count, abs_idx, exists, missing = \
                 self.lm.answer_question_hosttier(
                     self.rekv, self.kvs, *args, hp_kv, hp_ids,
-                    retrieved_indices=ext_dev, stage=stage)
+                    retrieved_indices=ext_dev, stage=stage,
+                    **self._hist_kw())
             miss = missing.cpu().numpy()
             if not miss.any():
                 self.qa_rounds = r + 1
@@ -454,6 +572,9 @@ class StreamingSession:
         self._ensure_ragged()
         self._stream_blocks[mask] = 0
         self._total_blocks = int(self._stream_blocks.max())
+        # a recycled slot drafts nothing from its previous stream
+        self._qa_hist[mask] = 0
+        self._qa_hist_len[mask] = 0
 
     def kv_memory_bytes(self) -> int:
         """Bytes of the pages the store holds for the longest stream."""

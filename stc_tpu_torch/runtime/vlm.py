@@ -8,9 +8,12 @@ slot keeps its own cacher schedule (its chunk count % cache_interval, on
 the host): a tick where the ticking slots disagree runs both vision paths
 and takes each slot's from its own.  Streams may tick at different rates
 (``active``) and slots may be recycled (``reset_streams``); an inactive or
-recycled slot's cacher references and pruner memory stay its own.  Raw
-uint8 RGB frames go to the device as they are; normalisation happens
-there.
+recycled slot's cacher references and pruner memory stay its own.  A
+serving tick (``serve``) runs one chunk's vision and ragged append, then
+per-stream questions over the state after it.  A slot's vision state can
+leave with its stream and come back in another slot or session
+(``extract_stream`` / ``restore_stream``, utils/checkpoint.py).  Raw uint8
+RGB frames go to the device as they are; normalisation happens there.
 """
 
 from __future__ import annotations
@@ -81,6 +84,33 @@ class VisionPipeline:
         raise NotImplementedError(
             f"{type(self).__name__} has no per-stream vision state")
 
+    def stream_axes(self):
+        """(vstate axis, pstate axis) of the stream dim of every leaf."""
+        raise NotImplementedError(
+            f"{type(self).__name__} has no per-stream vision state axis")
+
+    def extract_stream(self, vstate, pstate, slot: int):
+        """One slot's vision and pruner state, as host tensors of the same
+        NamedTuple types (a stream's checkpoint)."""
+        va, pa = self.stream_axes()
+        return (type(vstate)(*(x.select(va, slot).cpu() for x in vstate)),
+                type(pstate)(*(x.select(pa, slot).cpu() for x in pstate)))
+
+    def restore_stream(self, vstate, pstate, slot: int, v_blob, p_blob):
+        """The live state with extract_stream's blobs written into
+        `slot`; returns (vstate, pstate)."""
+        va, pa = self.stream_axes()
+
+        def put(axis, state, blob):
+            out = []
+            for cur, new in zip(state, blob):
+                cur = cur.clone()
+                cur.select(axis, slot).copy_(torch.as_tensor(new))
+                out.append(cur)
+            return type(state)(*out)
+
+        return put(va, vstate, v_blob), put(pa, pstate, p_blob)
+
 
 class VLMSession(StreamingSession):
     """Pixel session of `batch` streams."""
@@ -131,6 +161,25 @@ class VLMSession(StreamingSession):
             chunk = frames[:, s:s + n] if axis else frames[s:s + n]
             self._encode_chunk_pixels(self.vision.preprocess(chunk),
                                       chunk.shape[axis], active)
+
+    @torch.no_grad()
+    def serve(self, frames, active, questions, prompts, stop_token_ids,
+              max_new_tokens: int = 128, asked=None):
+        """A serving tick on pixels: frames (B, n, H, W, 3) uint8 (inactive
+        rows ignored) through encode_video, each slot on its own cacher
+        schedule, then the per-stream questions over the state after it.
+        Other arguments, last_serve_fused and the return as
+        StreamingSession.serve."""
+        frames = np.asarray(frames)
+        if frames.ndim != 5 or frames.shape[0] != self.batch:
+            raise ValueError(f"serve takes (B={self.batch}, n, H, W, 3) "
+                             f"frames, got {frames.shape}")
+        n_frames = frames.shape[1]
+        self.last_serve_fused = self._serve_eligible(
+            n_frames * self.rekv.block_size, n_frames)
+        self.encode_video(frames, active=active)
+        return self._qa_tick(questions, prompts, stop_token_ids,
+                             max_new_tokens, asked)
 
     def _encode_chunk_pixels(self, pixels, n_frames: int, active=None):
         act_dev, act_np = self._normalize_active(active)

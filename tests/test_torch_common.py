@@ -110,9 +110,10 @@ def test_port_configs_match_jax_derived_sizes():
     assert tcfg.MODEL_SPECS["llava_ov"].tokens_per_frame == 196
 
 
-@pytest.mark.parametrize("kw", [dict(window_kv_compression="select_top_half"),
-                                dict(retrieval_scorer="aks"),
-                                dict(spec_decode_draft=2)])
+@pytest.mark.parametrize("kw", [
+    dict(window_kv_compression="select_top_half"),
+    dict(retrieval_scorer="aks"),
+    dict(retrieved_kv_compression="filter_tokens_top_half")])
 def test_unported_settings_raise(kw):
     with pytest.raises(NotImplementedError):
         tcfg.ReKVConfig(**kw).check_main_path()

@@ -598,3 +598,96 @@ def test_evicting_session_on_card_answers_as_all_device(cuda_device,
                 rtol=1e-5, atol=1e-5)
     else:
         assert all(c.dtype == torch.int8 for c in hs.k_chunks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", TC_HEADS)
+def test_decode_attention_at_the_verify_shape_on_card(cuda_device, heads):
+    """The speculative decode's verify forward: K + 1 = 5 queries at each
+    of four streams' own cursors, f32 and bf16, against the plain version;
+    the rows past each cursor (rejected drafts) do not reach the output:
+    zeroing them leaves it bit for bit unchanged."""
+    hq, hkv, d = heads
+    C, n_local = 512, 300
+    gen = torch.Generator(device=cuda_device).manual_seed(d + 5)
+    start = torch.tensor([0, 37, 301, 507], dtype=torch.int32,
+                         device=cuda_device)
+    cursor = (start + 5).to(torch.int32)
+    for dt in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(dt)
+                   for s in ((4, hq, 5, d), (4, hkv, C, d), (4, hkv, C, d)))
+        before = da.launches
+        got = da.decode_attention(q, k, v, start, cursor, n_local=n_local)
+        assert da.launches == before + 1
+        assert_agrees(got, da.decode_attention_ref(q, k, v, start, cursor,
+                                                   n_local=n_local))
+        past = torch.arange(C, device=cuda_device)[None] >= cursor[:, None]
+        k0, v0 = (x.masked_fill(past[:, None, :, None], 0) for x in (k, v))
+        assert torch.equal(got, da.decode_attention(q, k0, v0, start, cursor,
+                                                    n_local=n_local))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_tie_rule_on_card(cuda_device, dtype):
+    """topk_lowest, top2_lowest and argmax_lowest on card tensors give the
+    CPU's indices (lax.top_k's tie order) on tie-heavy rows and on a
+    151936-word logit row with a planted three-way tie."""
+    from stc_tpu_torch.ops.topk import argmax_lowest, top2_lowest, \
+        topk_lowest
+    vals = torch.tensor([-float("inf"), -1.0, -0.0, 0.0, 0.5, 1.0,
+                         float("inf")])
+    gen = torch.Generator().manual_seed(0)
+    x = vals[torch.randint(0, 7, (64, 37), generator=gen)].to(dtype)
+    row = torch.randn((2, 151936), generator=gen).to(dtype)
+    row[:, [7, 4000, 151000]] = row.max() + 1
+    for t in (x, row):
+        c = t.to(cuda_device)
+        for k in (1, 2, 5):
+            assert torch.equal(topk_lowest(c, k)[1].cpu(),
+                               topk_lowest(t, k)[1])
+        assert torch.equal(top2_lowest(c).cpu(), top2_lowest(t))
+        assert torch.equal(argmax_lowest(c).cpu(), argmax_lowest(t))
+    assert top2_lowest(row.to(cuda_device))[0].tolist() == [7, 4000]
+
+
+@pytest.mark.cuda
+def test_spec_decode_equals_greedy_on_card(cuda_device):
+    """A small bf16 model (Qwen2 tiny widths, 4096-word vocab) on the card,
+    two streams: the speculative session (K = 4, a 32-token history)
+    answers every question as the greedy one, or parts from it only at a
+    near-tie (chip_smoke.spec_departure: greedy's top-2 gap within twice
+    the T = 1 / T = 5 logit difference)."""
+    import dataclasses
+    import sys
+    from stc_tpu_torch.models import qwen2 as qw
+    from stc_tpu_torch.runtime.session import StreamingSession
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).parents[1]))
+    import chip_smoke
+    lm = qw.Qwen2(qw.Qwen2Config.tiny(vocab=4096), dtype=torch.bfloat16,
+                  device=cuda_device).init_random_params(
+                      torch.Generator(device=cuda_device).manual_seed(3))
+    rc = ReKVConfig(**dict(BASE, n_local=192, max_new_tokens=16))
+    feats = torch.randn((2, 64, 64), generator=torch.Generator().manual_seed(
+        3)).to(torch.bfloat16)
+    sessions = []
+    for r in (rc, dataclasses.replace(rc, spec_decode_draft=4,
+                                      spec_history_tokens=32)):
+        s = StreamingSession(lm, SessionConfig(rekv=r), batch=2,
+                             state_dtype=torch.bfloat16)
+        s.encode_init_prompt([1, 2, 3, 4])
+        s.encode_video_features(feats)
+        sessions.append(s)
+    rounds = lm.spec_rounds
+    for n in range(4):
+        qs = [[5 + n, 6, 7], [9, 10 + n]]
+        ps = [[5, 6, 7, 8 + n], [9 + n, 10, 11]]
+        want, got = (s.question_answering_batch(qs, ps, [0],
+                                                max_new_tokens=16)
+                     for s in sessions)
+        for b in range(2):
+            if got[b] != want[b]:
+                dep = chip_smoke.spec_departure(sessions[0], qs, ps, b,
+                                                got[b], want[b])
+                assert dep["near_tie"], dep
+    assert lm.spec_rounds > rounds

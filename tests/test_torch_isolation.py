@@ -1,6 +1,7 @@
 """The port stands alone: stc_tpu_torch (and chip_smoke.py) import neither
 JAX nor any module of the JAX package stc_tpu, nor safetensors,
-transformers or ml_dtypes (the card machine has none of them)."""
+transformers or ml_dtypes (the card machine has none of them); its own
+serving engine and checkpoints included."""
 
 import pathlib
 import re
@@ -22,7 +23,9 @@ BLOCKED = ("jax", "stc_tpu", "safetensors", "transformers", "ml_dtypes")
 def test_sources_import_no_jax_and_no_stc_tpu():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
-    assert PKG / "kvcache" / "host_tier.py" in files
+    for f in (("kvcache", "host_tier.py"), ("runtime", "serving.py"),
+              ("utils", "checkpoint.py")):
+        assert PKG.joinpath(*f) in files, f
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
     assert not bad, bad
@@ -86,9 +89,33 @@ def test_importing_and_running_the_port_loads_no_jax():
                                        retrieved_indices=[0, 1],
                                        all_streams=True)
         assert sess2.host_store.fetch_count > 0 and len(out) == 2, out
+        # a serving engine over a speculative 2-stream session, and a
+        # stream checkpoint restored into its recycled slot
+        import tempfile
+        assert "stc_tpu_torch.runtime.serving" in mods
+        assert "stc_tpu_torch.utils.checkpoint" in mods
+        from stc_tpu_torch.runtime.serving import ServingEngine
+        from stc_tpu_torch.utils import checkpoint
+        scfg3 = dataclasses.replace(scfg, rekv=dataclasses.replace(
+            scfg.rekv, spec_decode_draft=2))
+        sess3 = lo.build_session(model, scfg3, state_dtype=torch.float32,
+                                 device="cpu", batch=2)
+        sess3.encode_init_prompt([1, 2, 3, 4])
+        eng = ServingEngine(sess3, [0], max_new_tokens=4)
+        px = np.random.default_rng(2).integers(0, 256, (1, 56, 56, 3),
+                                               dtype=np.uint8)
+        eng.submit_chunk(0, px)
+        eng.submit_chunk(1, px)
+        rid = eng.submit_question(0, [5, 6], [5, 6, 7])
+        res = eng.run()
+        assert sess3.last_serve_fused and 1 <= len(res[rid]["tokens"]) <= 4
+        with tempfile.TemporaryDirectory() as d:
+            checkpoint.save_stream_state(sess3, 0, d + "/s.npz")
+            eng.retire(1)
+            checkpoint.load_stream_state(sess3, eng.admit(), d + "/s.npz")
+        assert sess3._stream_blocks.tolist() == [1, 1]
         # an HF checkpoint written by chip_smoke.py's writer loads back
         # through the port's own shard reader
-        import tempfile
         sys.path.insert(0, ".")
         import chip_smoke
         chip_smoke.tie_head_and_round_vision(model)

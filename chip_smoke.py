@@ -24,14 +24,19 @@ each of which makes the script exit non-zero when it fails:
      call, each at its own position, with page offsets of 0, 56 and 112
      pages (0.5b heads on bf16 pages, 7B heads on int8 pages), and
      decode_attention at the speculative decode's verify shape (5 queries
-     at each of four streams' own cursors);
+     at each of four streams' own cursors), and stream_attention with a
+     page_keep mask (window compression: half of every older page dropped)
+     on an 8-page append over the 264-page window, at 0.5b heads on bf16
+     pages and 7B heads on int8 pages, its library SDPA with the same
+     boolean mask;
      each bound counts bytes, products and exponentials at the data
      sheet's clock; then
      planted faults (a key group dropped, a mask one page or one slot off,
      the neighbouring page's scales, the int4 nibble planes swapped, every
      stream reading stream 0's scalars or cursors, one stream's page
      offset one page off, each query of a verify call seeing the draft
-     after it) that those limits must reject;
+     after it, each page reading its neighbour's keep row) that those
+     limits must reject;
   3. the main path: the LLaVA-OV + ReKV session at llava-ov-0.5b width and
      depth (SigLIP 1152 x 27 layers at 384 px in float32, Qwen2 896 x 24
      layers in bf16, random weights from a seeded torch.Generator): init
@@ -92,7 +97,24 @@ each of which makes the script exit non-zero when it fails:
      printed); frames/s, tick and QA times, tokens a verify round, launch
      counts, the stream file's bytes and save / restore times.  Phase 8's
      int8-weight session also asks three questions with speculation off
-     and on (QA p50, acceptance, rounds).
+     and on (QA p50, acceptance, rounds);
+ 13. the ablation paths and YUV ingest at llava-ov-0.5b width (phase 3's
+     model, bf16 LM and pages, float32 SigLIP): (a) window_kv_compression
+     = 'select_top_half', 48 frames in 8-frame chunks, every append through
+     stream_attention with page_keep (launches = appends x layers), the
+     masked kernel against its plain version on the session's own state at
+     a middle layer with the keep rows held where the score gap at the cut
+     exceeds twice the outputs' difference, three questions, ingest
+     frames/s beside phase 3's; (b) every retrieved_kv_compression
+     strategy on one 80-frame stream (decode_attention launches, QA p50);
+     (c) the aks, dpc_knn and l2norm scorers through layerwise QA, each
+     layer's blocks equal to select_blocks recomputed on the host from the
+     logits and rep keys the device produced; (d) the cacher with
+     sim_source='value' and k_proxy_rank=64 against 'key' (vision ms of an
+     8-frame cached chunk); (e) 16 frames through ingest_format='yuv420',
+     answers equal to an RGB session fed the numpy reconstruction of the
+     same planes, H2D bytes a frame, and stream_encode's prefetcher
+     against synchronous staging (frames/s).
 
 Prints JSON lines; the line before the last holds one entry per kernel
 (route, source, the TPU kernel it replaces, launches on its path, error,
@@ -293,8 +315,23 @@ def held(name, got, want) -> dict:
 PAGE_BYTES = {None: 2.0, "int8": 1.0, "int4": 0.5}  # per page element
 
 
+def half_keep(states, n_new, Nb, S, dev, gen):
+    """window_kv_compression's page_keep for stream_case: every page
+    written before this append keeps a random half of its S rows (as
+    select_top_half leaves it), the new pages and the unwritten slots keep
+    all."""
+    B = len(states)
+    keep = torch.ones((B, Nb, S), dtype=torch.bool, device=dev)
+    for b, (nb, off) in enumerate(states):
+        old = nb - off
+        order = torch.rand((old, S), generator=gen, device=dev).argsort(-1)
+        keep[b, :old].scatter_(1, order[:, S // 2:], False)
+    return keep
+
+
 def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
-                Nb=1024, n_init=14, exc=480, quant=None, states=None):
+                Nb=1024, n_init=14, exc=480, quant=None, states=None,
+                keep=False):
     """One stream_attention call of the main path's configuration
     (exc_block_size 480: a 264-page window cover), T new tokens with
     `pages` pages in the store after their write.  With states, a call
@@ -303,8 +340,11 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
     and offset differ.  With quant ('int8' or 'int4') the store is
     quantized by the engine's own quantizer from float pages whose
     magnitudes differ from page to page (gain 4 ** (page % 3 - 1)), so a
-    page read with another page's scales shows.  Returns the record, the
-    wrapper's arguments and keywords, and the plain version's output."""
+    page read with another page's scales shows.  With keep, the call reads
+    a page_keep mask that drops half of every older page (half_keep), and
+    the library is SDPA with the same boolean mask (on dequantized bf16
+    pages where quantized).  Returns the record, the wrapper's arguments
+    and keywords, and the plain version's output."""
     from stc_tpu_torch.config import ReKVConfig
     from stc_tpu_torch.kvcache import engine
     from stc_tpu_torch.ops import stream_attention as sa
@@ -336,6 +376,8 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
             qfn(torch.randn((B, Hkv, Nb, S, D), generator=gen, device=dev)
                 * gain[:, None, None]) for _ in range(2))
         kw.update(k_scales=ks, v_scales=vs)
+    if keep:
+        kw["page_keep"] = half_keep(states, n_new, Nb, S, dev, gen)
     args = (rnd(B, Hq, T, D), rnd(B, Hq, T, D), bk, bv, rc.cos_cover,
             rc.sin_cover, rnd(B, Hkv, n_init, D), rnd(B, Hkv, n_init, D),
             rnd(B, Hkv, n_init, D), rc.scalars)
@@ -349,7 +391,8 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
     # pages, stream by stream
     pairs = live = live_pages = 0
     for b in range(B):
-        page, _, _, mask = stream_mask(args, b, n_local, Nb, S)
+        page, _, _, mask = stream_mask(args, b, n_local, Nb, S,
+                                       kw.get("page_keep"))
         m_win = mask[:, n_init:n_init + page.numel()]
         pairs += int(mask.sum())
         seen = m_win.any(dim=0)
@@ -361,7 +404,8 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
     need = (B * (2 * Hq * T * D * 2 + 3 * Hkv * n_init * D * 2
                  + Hq * T * D * 2)
             + 2 * Hkv * live * D * PAGE_BYTES[quant]
-            + (2 * Hkv * live_pages * D * 4 if quant else 0))
+            + (2 * Hkv * live_pages * D * 4 if quant else 0)
+            + (live_pages * S if keep else 0))   # the keep bytes
     flops, exps = 4 * Hq * D * pairs, Hq * pairs
     b_ms, b_by = bound(need, flops, exps)
     # what this design reads besides: f32 cos and sin rows per live key
@@ -373,8 +417,9 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
     # values: written by the pre-pass and read back at least once
     Lc = rc.cos_cover.shape[1]
     scratch = 2 * B * Hkv * Lc * D * 2
-    rec = dict(case=name, kernel="stream_attention" + (
-        f"_{quant}" if quant else ""), Hq=Hq, Hkv=Hkv, D=D, T=T, pages=pages,
+    rec = dict(case=name, kernel="stream_attention_page_keep" if keep else
+               "stream_attention" + (f"_{quant}" if quant else ""),
+        Hq=Hq, Hkv=Hkv, D=D, T=T, pages=pages,
         window_pages=engine.n_window_pages(cfg),
         init_active=init_active[0] if B == 1 else init_active,
         **agree, kernel_ms=ms, host_ms=host_ms, plain_ms=plain_ms,
@@ -386,8 +431,14 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
     if B > 1:
         rec.update(batch=B, states=states, max_blocks=Nb,
                    scalars=rc.scalars.tolist())
-    if quant is None:
-        lib = sdpa_stream(args, n_local, Nb, S)
+    if keep:
+        rec["kept_window_keys"] = live
+    if quant is None or keep:
+        largs = list(args)
+        if quant:  # SDPA over the same cover dequantized to bf16 pages
+            largs[2:4] = (engine._dequant_pages(x, s, bf) for x, s in (
+                (bk, kw["k_scales"]), (bv, kw["v_scales"])))
+        lib = sdpa_stream(largs, n_local, Nb, S, kw.get("page_keep"))
         rec.update(library_ms=cuda_ms(lib, 10),
                    library_max_rel_err=held(name, lib(), ref)["max_rel_err"])
     else:
@@ -404,11 +455,11 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
     return rec, args, kw, ref
 
 
-def stream_mask(args, b, n_local, Nb, S):
+def stream_mask(args, b, n_local, Nb, S, keep=None):
     """The visible keys of stream b of a stream_attention call, as the
-    plain version masks them: the cover's local pages, their slot
-    offsets, and the (T, n_init + Lc + n_init) mask over [init-local |
-    cover | init-far]."""
+    plain version masks them (with keep, its page_keep): the cover's local
+    pages, their slot offsets, and the (T, n_init + Lc + n_init) mask over
+    [init-local | cover | init-far]."""
     from stc_tpu_torch.ops import stream_attention as sa
     q_rot, cc, kir, scalars = args[0], args[4], args[6], args[9]
     dev, T, n_init, Lc = q_rot.device, q_rot.shape[2], kir.shape[2], \
@@ -423,6 +474,8 @@ def stream_mask(args, b, n_local, Nb, S):
     d = qp[:, None] - pos[None, :]
     m_win = (d >= 0) & (d < n_local) & (page < Nb)[None] & (
         (page + offset) < total)[None]
+    if keep is not None:
+        m_win = m_win & keep[b, page.clamp(max=Nb - 1), off][None]
     di = qp[:, None] - torch.arange(n_init, device=dev)[None]
     m_init = (di >= 0) & (di < n_local)
     m_far = torch.full((T, n_init), bool(init_active), device=dev)
@@ -430,17 +483,18 @@ def stream_mask(args, b, n_local, Nb, S):
         [m_init, m_win, m_far], dim=1)
 
 
-def sdpa_stream(args, n_local, Nb, S):
+def sdpa_stream(args, n_local, Nb, S, keep=None):
     """Library yardstick of a 1a call: one SDPA over the concatenated
     (rotated) keys of every stream, the two query angles packed side by
-    side in a 2D head."""
+    side in a 2D head, with the call's boolean mask (keep: its
+    page_keep)."""
     from stc_tpu_torch.ops.rope import rotate
     q_rot, q_one, bk, bv, cc, sc, kir, vi, kiw, scalars = args
     D = q_rot.shape[-1]
     z = torch.zeros_like
     ks, vs, masks = [], [], []
     for b in range(q_rot.shape[0]):
-        _, pg, off, mask = stream_mask(args, b, n_local, Nb, S)
+        _, pg, off, mask = stream_mask(args, b, n_local, Nb, S, keep)
         kw_ = rotate(bk[b][:, pg, off][None], cc[b:b + 1, None],
                      sc[b:b + 1, None])
         ks.append(torch.cat([torch.cat([kir[b:b + 1], z(kir[b:b + 1])], -1),
@@ -620,6 +674,12 @@ B4_DECODE = "decode B=4 token step, own cursors"
 VERIFY_DECODE = "decode verify T=5, B=4, own cursors"
 VERIFY_STARTS = [3854, 3901, 4017, 4203]
 B4_STATES_05B = [(10, 0), (250, 0), (330, 56), (400, 112)]
+# window_kv_compression's masked kernel: an 8-page append over the full
+# 264-page window, half of every older page dropped
+KEEP_05B = ("stream page_keep 8-page append (T 480), 264 pages, half of "
+            "every older page dropped")
+KEEP_7B_INT8 = ("stream int8 page_keep 7B heads (28/4/128), 8-page append, "
+                "264 pages, half of every older page dropped")
 B4_STATES_7B = [(20, 0), (290, 0), (340, 56), (400, 112)]
 
 
@@ -668,6 +728,11 @@ def planted_faults(inputs) -> list:
                                    cu[:1].expand_as(cu).contiguous(),
                                    **kw), want
 
+    def neighbour_keep(case):
+        args, kw, ref = inputs[case]
+        kw = dict(kw, page_keep=kw["page_keep"].roll(1, dims=1).contiguous())
+        return sa.stream_attention(*args, **kw), ref
+
     def offset_one_page(case, b):
         args, kw, ref = inputs[case]
         sc = args[9].clone()
@@ -697,6 +762,8 @@ def planted_faults(inputs) -> list:
          lambda: stream0_cursors(B4_DECODE)),
         ("decode verify: each query sees the next draft (start + 1)",
          lambda: decode(VERIFY_DECODE, start_delta=1)),
+        ("stream page_keep: each page reads its neighbour's keep row",
+         lambda: neighbour_keep(KEEP_05B)),
     ]
     out = []
     for name, run in faults:
@@ -704,6 +771,309 @@ def planted_faults(inputs) -> list:
         rec = {"fault": name, **held(name, got, want)}
         rec["rejected"] = not rec.pop("agrees")
         out.append(rec)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the ablation paths and YUV ingest at llava-ov-0.5b width
+# ---------------------------------------------------------------------------
+
+ABL_STOP = [151645]
+ABL_QUESTIONS = [(list(range(200, 212)), list(range(300, 316))),
+                 (list(range(400, 409)), list(range(500, 516))),
+                 (list(range(600, 612)), list(range(700, 716)))]
+ABL_COMPRESSIONS = ("filter_tokens_simple", "filter_tokens_percentile",
+                    "filter_tokens_magnitude",
+                    "filter_tokens_euclidean_distance",
+                    "filter_tokens_inverse_cosine", "filter_tokens_top_half",
+                    "filter_tokens_random")
+ABL_SCORERS = ("aks", "dpc_knn", "l2norm")
+
+
+def with_rekv(sess, **kw):
+    """The live session with its ReKV settings replaced (the retrieval-time
+    ablations are read per question; the stream state stays)."""
+    sess.rekv = dataclasses.replace(sess.rekv, **kw)
+    sess.scfg = dataclasses.replace(sess.scfg, rekv=sess.rekv)
+
+
+def yuv_reconstruction(packed, h, w):
+    """numpy reconstruction of packed 4:2:0 planes: nearest 2x2 chroma and
+    the BT.601 full-range matrix in float32, clipped to [0, 255]."""
+    n = packed.shape[0]
+    y = packed[:, :h * w].reshape(n, h, w).astype(np.float32)
+    u = packed[:, h * w:h * w + h * w // 4].reshape(n, h // 2, w // 2)
+    v = packed[:, h * w + h * w // 4:].reshape(n, h // 2, w // 2)
+
+    def up(c):
+        return c.repeat(2, axis=1).repeat(2, axis=2).astype(np.float32)
+
+    uf, vf = up(u) - np.float32(128), up(v) - np.float32(128)
+    return np.clip(np.stack([y + np.float32(1.402) * vf,
+                             y - np.float32(0.344136) * uf
+                             - np.float32(0.714136) * vf,
+                             y + np.float32(1.772) * uf], axis=-1), 0, 255)
+
+
+def keep_rule(got, ref, S):
+    """The keep rows select_top_half would take from the kernel's and the
+    plain version's outputs (B, Hq, T, D) of one append: per page the
+    ceil(S/2) tokens of largest head-and-dim mean.  With d the largest
+    difference of the two packages' scores, a token whose plain score lies
+    more than 2 d from the page's cut (the midpoint of the k-th and
+    (k+1)-th plain scores) is held: it must be kept by both or by neither;
+    the tokens within 2 d of the cut are near-ties and are counted.  A
+    page whose gap at the cut exceeds 2 d is held whole."""
+    from stc_tpu_torch.ops.topk import topk_lowest
+    k = -(-S // 2)
+    sg, sr = (o.float().mean(dim=(1, 3)).reshape(-1, S) for o in (got, ref))
+    diff = float((sg - sr).abs().max())
+    srt = sr.sort(dim=-1, descending=True).values
+    gap = srt[:, k - 1] - srt[:, k]
+    cut = (srt[:, k - 1] + srt[:, k]) / 2
+    rows = [torch.zeros_like(x, dtype=torch.bool).scatter_(
+        1, topk_lowest(x, k)[1], True) for x in (sg, sr)]
+    same = rows[0] == rows[1]
+    held = (sr - cut[:, None]).abs() > 2 * diff
+    held_pages = gap > 2 * diff
+    return {"pages": int(sg.shape[0]), "tokens": int(sg.numel()),
+            "held_tokens": int(held.sum()),
+            "rows_equal_where_held": bool(same[held].all()),
+            "near_tie_pairs": int((~held).sum()),
+            "near_tie_pairs_differing": int((~same).sum()),
+            "held_pages": int(held_pages.sum()),
+            "rows_equal_all": bool(same.all()), "max_score_diff": diff}
+
+
+def ablation_phase(card, dev, gen, ingest_fps_phase3) -> dict:
+    """Phase 13 at llava-ov-0.5b width (phase 3's model): (a) window
+    compression, (b) retrieved-KV compression, (c) the host-side block
+    scorers through layerwise QA, (d) the cacher's variants, (e) YUV 4:2:0
+    ingest and the frame prefetcher.  Each path's launch counts are read
+    from 0 around it."""
+    from stc_tpu_torch import native
+    from stc_tpu_torch.compress.scoring import select_blocks
+    from stc_tpu_torch.kvcache import engine
+    from stc_tpu_torch.kvcache.state import layer
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.ops import stream_attention as sa
+    from stc_tpu_torch.runtime.pipeline import stream_encode
+    t_phase = time.perf_counter()
+    model, cfg = make_model(dev, seed=0)
+    tc = cfg.text
+    L, V, G = tc.num_layers, tc.vocab_size, tc.num_heads // tc.num_kv_heads
+    hw = cfg.vision.image_size
+    frames = np.random.default_rng(13).integers(
+        0, 256, size=(48, hw, hw, 3), dtype=np.uint8)
+    base = session_cfg(15000, 64, 256, 16, 8, 1024)
+    S = base.rekv.block_size
+    out = {"phase": "ablations llava-ov-0.5b", "card": card}
+
+    def build(scfg):
+        return lo.build_session(model, scfg, state_dtype=torch.bfloat16,
+                                device=dev)
+
+    def qa(sess, questions):
+        answers, secs = [], []
+        for q, p in questions:
+            a, dt = timed(lambda: sess.question_answering(
+                q, p, ABL_STOP, max_new_tokens=16))
+            if not a or not all(0 <= t < V for t in a):
+                raise RuntimeError(f"phase 13: bad answer {a}")
+            answers.append(a)
+            secs.append(dt)
+        return answers, secs
+
+    def want_counts(appends, answers, masked=0):
+        return {"stream_attention": {"float": L * appends, "int8": 0,
+                                     "int4": 0},
+                "decode_attention": L * sum(2 + len(a) for a in answers),
+                "decode_score": 0, "stream_attention_page_keep": masked}
+
+    def check(counts, want, where):
+        if counts != want:
+            raise RuntimeError(f"phase 13 {where}: launch counts {counts} "
+                               f"!= expected {want}")
+
+    # (a) window compression: every append through the masked kernel
+    sess = build(dataclasses.replace(base, rekv=dataclasses.replace(
+        base.rekv, window_kv_compression="select_top_half")))
+    reset_counts()
+    sess.encode_init_prompt(list(range(100, 114)))
+    chunk_s = [timed(lambda: sess.encode_video(frames[8 * c:8 * c + 8]))[1]
+               for c in range(6)]
+    answers, secs = qa(sess, ABL_QUESTIONS)
+    counts = read_counts()
+    check(counts, want_counts(6, answers, masked=6 * L), "(a)")
+    kept = sess.kvs.page_keep[:, 0, :48].sum(-1)
+    if not bool((kept == -(-S // 2)).all()):
+        raise RuntimeError(f"(a): keep rows hold {kept.unique().tolist()}")
+    kv = layer(sess.kvs, L // 2)
+    T = 8 * S
+    rc = engine.make_rope_cache(kv.length, kv.num_blocks, T, sess.rekv,
+                                tc.head_dim, tc.rope_base, kv.page_offset)
+    q = torch.randn((1, tc.num_heads, T, tc.head_dim), generator=gen,
+                    device=dev).bfloat16()
+    args = (q, q.flip(2).contiguous(), kv.block_k, kv.block_v,
+            rc.cos_cover, rc.sin_cover, kv.init_k, kv.init_v, kv.init_k,
+            rc.scalars)
+    kw = dict(n_local=sess.rekv.n_local, page_keep=kv.page_keep)
+    got, ref = sa.stream_attention(*args, **kw), sa.stream_attention_ref(
+        *args, **kw)
+    state = held("(a) session state", got, ref)
+    rule = keep_rule(got, ref, S)
+    if not state["agrees"] or not rule["rows_equal_where_held"]:
+        raise RuntimeError(f"(a): masked kernel on the session's state "
+                           f"{state} {rule}")
+    out["a_window_compression"] = {
+        "frames": 48, "appends": 6, "answers": answers,
+        "launches": counts, "kernel_vs_plain_layer": L // 2,
+        "kernel_vs_plain": state, "keep_rows": rule,
+        "ingest_fps_8frame_chunks": 8 * 5 / sum(chunk_s[1:]),
+        "ingest_fps_8frame_chunks_phase3": ingest_fps_phase3,
+        "qa_p50_s": p50(secs), "qa_s": secs}
+    del sess, kv, args, kw, got, ref
+
+    # (b) retrieved-KV compression and (c) the block scorers, on one
+    # uncompressed stream of 80 frames (more blocks than topk 64)
+    sess = build(base)
+    sess.encode_init_prompt(list(range(100, 114)))
+    for c in range(10):
+        sess.encode_video(frames[(8 * c) % 48:(8 * c) % 48 + 8])
+    nb = sess._total_blocks
+    calls = {"n": 0}
+    inner = engine.compress_retrieved
+
+    def counted(*a, **k):
+        calls["n"] += 1
+        return inner(*a, **k)
+
+    rec_b = {}
+    engine.compress_retrieved = counted
+    try:
+        for strat in ABL_COMPRESSIONS:
+            with_rekv(sess, retrieved_kv_compression=strat)
+            calls["n"] = 0
+            reset_counts()
+            answers, secs = qa(sess, ABL_QUESTIONS[:2])
+            counts = read_counts()
+            check(counts, want_counts(0, answers), f"(b) {strat}")
+            if calls["n"] != L * 2:
+                raise RuntimeError(f"(b) {strat}: {calls['n']} "
+                                   f"compressions, not {L * 2}")
+            rec_b[strat] = {"answers": answers, "qa_p50_s": p50(secs),
+                            "decode_attention": counts["decode_attention"]}
+    finally:
+        engine.compress_retrieved = inner
+    with_rekv(sess, retrieved_kv_compression="none")
+    reset_counts()
+    answers, secs = qa(sess, ABL_QUESTIONS[:2])
+    check(read_counts(), want_counts(0, answers), "(b) none")
+    rec_b["none"] = {"answers": answers, "qa_p50_s": p50(secs)}
+    out["b_retrieved_compression"] = rec_b
+
+    rec_c, logged = {}, []
+    lm = sess.lm
+    inner_logits = lm.qa_layer_logits
+
+    def spy(i, rekv, kv_l, h, n_tok):
+        res = inner_logits(i, rekv, kv_l, h, n_tok)
+        logged.append((res[3][0, :nb].float().cpu().numpy(),
+                       res[5][0].float().cpu().numpy().reshape(-1),
+                       kv_l.block_rep[0, :nb].float().cpu().numpy()))
+        return res
+
+    lm.qa_layer_logits = spy
+    try:
+        for scorer in ABL_SCORERS:
+            with_rekv(sess, retrieval_scorer=scorer)
+            reset_counts()
+            answers, secs = qa(sess, ABL_QUESTIONS[:2])
+            counts = read_counts()
+            check(counts, want_counts(0, answers), f"(c) {scorer}")
+            picks, last = sess.last_retrieved_indices, logged[-L:]
+            for li, (lg, qm, reps) in enumerate(last):
+                reps_flat = np.repeat(reps, G, axis=1).reshape(nb, -1)
+                want = select_blocks(scorer, lg, reps_flat, qm,
+                                     sess.rekv.topk, sess.rekv.chunk_size)
+                if picks[li] != want:
+                    raise RuntimeError(f"(c) {scorer} layer {li}: device "
+                                       f"picked {picks[li]}, host {want}")
+            rec_c[scorer] = {"answers": answers, "qa_p50_s": p50(secs),
+                             "blocks_layer0": picks[0],
+                             "blocks_per_layer": [len(x) for x in picks],
+                             "decode_attention": counts["decode_attention"]}
+    finally:
+        del lm.qa_layer_logits
+    with_rekv(sess, retrieval_scorer="mean_dot")
+    rec_c["mean_dot_qa_p50_s"] = rec_b["none"]["qa_p50_s"]
+    out["c_block_scorers"] = rec_c
+    del sess
+
+    # (d) the cacher's variants: one 8-frame cached chunk's vision
+    rec_d = {}
+    feats = {}
+    for name, ck in (("key", {}), ("value", {"sim_source": "value"}),
+                     ("k_proxy_64", {"k_proxy_rank": 64})):
+        vis = lo.LlavaOVVision(model, dataclasses.replace(
+            base, cacher=dataclasses.replace(base.cacher, **ck)))
+        px = [vis.device_preprocess(torch.as_tensor(vis.preprocess(
+            frames[8 * i:8 * i + 8])).to(dev)) for i in (0, 1)]
+        vstate, pstate = vis.init_state()
+        _, vstate, pstate = vis.full(px[0], vstate, pstate)
+        ms = sorted(timed(lambda: vis.cached(px[1], vstate, pstate))[1]
+                    for _ in range(4))
+        full_ms = timed(lambda: vis.full(px[1], vstate, pstate))[1]
+        feats[name] = vis.cached(px[1], vstate, pstate)[0].float()
+        if not bool(torch.isfinite(feats[name]).all()):
+            raise RuntimeError(f"(d) {name}: features not finite")
+        rec_d[name] = {"cached_ms_per_8frame_chunk": 1e3 * ms[1],
+                       "cached_ms_runs": [1e3 * x for x in ms],
+                       "full_ms_per_8frame_chunk": 1e3 * full_ms}
+    for name in ("value", "k_proxy_64"):
+        rec_d[name]["max_abs_diff_vs_key"] = float(
+            (feats[name] - feats["key"]).abs().max())
+    out["d_cacher_variants"] = rec_d
+    del feats, px
+
+    # (e) YUV 4:2:0 ingest against an RGB session fed the numpy
+    # reconstruction of the same planes; the prefetcher against
+    # synchronous staging
+    one = session_cfg(15000, 64, 256, 16, 1, 1024)
+    sy = build(dataclasses.replace(one, ingest_format="yuv420"))
+    sr = build(one)
+    sy.vision.src_hw = (hw, hw)
+    packed = native.rgb_to_yuv420(frames[:16])
+    recon = yuv_reconstruction(packed, hw, hw)
+    unpack = sy.vision._pre._yuv_to_rgb(torch.as_tensor(packed).to(dev))
+    pix_diff = float((unpack.cpu() - torch.from_numpy(recon)).abs().max())
+    for s_ in (sy, sr):
+        s_.encode_init_prompt(list(range(100, 114)))
+    reset_counts()
+    _, sync_s = timed(lambda: sy.encode_video(frames[:16]))
+    answers, secs = qa(sy, ABL_QUESTIONS[:2])
+    counts = read_counts()
+    check(counts, want_counts(16, answers), "(e)")
+    sr.encode_video(recon)
+    want_answers, _ = qa(sr, ABL_QUESTIONS[:2])
+    if answers != want_answers or pix_diff > 1e-3:
+        raise RuntimeError(f"(e): yuv answers {answers} != rgb on the "
+                           f"reconstruction {want_answers} (pixels "
+                           f"{pix_diff})")
+    bytes_pre, pre_s = timed(lambda: stream_encode(sy, frames[16:32],
+                                                   overlap=True))
+    _, sync2_s = timed(lambda: sy.encode_video(frames[32:48]))
+    out["e_yuv420"] = {
+        "frames": 16, "answers": answers, "answers_equal_rgb": True,
+        "unpack_max_abs_diff": pix_diff, "launches": counts,
+        "h2d_bytes_per_frame": packed.nbytes / 16,
+        "h2d_bytes_per_frame_rgb": frames[:16].nbytes / 16,
+        "prefetch_h2d_bytes_per_frame": bytes_pre / 16,
+        "fps_sync_staging": [16 / sync_s, 16 / sync2_s],
+        "fps_prefetch": 16 / pre_s, "qa_p50_s": p50(secs)}
+    del sy, sr, model
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_phase
     return out
 
 
@@ -761,6 +1131,7 @@ def reset_counts() -> None:
     from stc_tpu_torch.ops import stream_attention as sa
     torch.cuda.synchronize()
     da.launches = da.score_launches = 0
+    sa.masked_launches = 0
     for k in sa.launches:
         sa.launches[k] = 0
 
@@ -771,7 +1142,8 @@ def read_counts() -> dict:
     torch.cuda.synchronize()
     return {"stream_attention": dict(sa.launches),
             "decode_attention": da.launches,
-            "decode_score": da.score_launches}
+            "decode_score": da.score_launches,
+            "stream_attention_page_keep": sa.masked_launches}
 
 
 def stream_phase(model, cfg, scfg, name, n_chunks, questions, card, dev,
@@ -843,7 +1215,8 @@ def stream_phase(model, cfg, scfg, name, n_chunks, questions, card, dev,
     n_app = n_chunks
     want = {"stream_attention": {k: (n_layers * n_app if k == page_kind
                                       else 0) for k in sa.launches},
-            "decode_attention": n_layers * lm_forwards, "decode_score": 0}
+            "decode_attention": n_layers * lm_forwards, "decode_score": 0,
+            "stream_attention_page_keep": 0}
     if counts != want:
         raise RuntimeError(f"{name} session launch counts {counts} != "
                            f"expected {want}")
@@ -1275,7 +1648,8 @@ def host_tier_phase(card, dev) -> dict:
                       else []))) for c in range(len(ms))]
         want = {"stream_attention": {k: (L * n_chunks if k == kind else 0)
                                      for k in sa.launches},
-                "decode_attention": L * forwards(asks), "decode_score": 0}
+                "decode_attention": L * forwards(asks), "decode_score": 0,
+                "stream_attention_page_keep": 0}
         cold = [a for a in asks if a["kind"] != "warm"]
         return {
             "setting": name, "evictions": len(stalls),
@@ -1600,7 +1974,8 @@ def multistream_phase(card, dev) -> dict:
                                  "int4": 0},
             "decode_attention": L * sum(2 + max(len(a) for a in ans_)
                                         for _, ans_, _, _ in qa),
-            "decode_score": 0}
+            "decode_score": 0,
+            "stream_attention_page_keep": 0}
 
     # the batch-1 reference sessions, one per stream in its slot at the end
     solos, solo_s, parting = {}, [], {}
@@ -2046,7 +2421,8 @@ def serving_phase(card, dev) -> dict:
                                      "int8": 0, "int4": 0},
                 "decode_attention": L * (calls["_qa_forward"]
                                          + calls["decode_step"]),
-                "decode_score": 0}
+                "decode_score": 0,
+                "stream_attention_page_keep": 0}
         by_kind = {k: [tk["s"] for tk in ticks if tk["kind"] == k]
                    for k in ("encode", "qa", "both")}
         frames_in = SERVE_FRAMES * sum(tk["active"] for tk in ticks)
@@ -2513,6 +2889,9 @@ def main() -> int:
                     states=B4_STATES_05B),
         stream_case(B4_STREAM_INT8, 28, 4, 128, 480, 0, dev, gen, Nb=320,
                     quant="int8", states=B4_STATES_7B),
+        stream_case(KEEP_05B, 14, 2, 64, 480, 264, dev, gen, keep=True),
+        stream_case(KEEP_7B_INT8, 28, 4, 128, 480, 264, dev, gen,
+                    quant="int8", keep=True),
         decode_case("decode prefill T=256", 256, 3854, 3854 + 256, 15000,
                     dev, gen, return_m=True),
         decode_case("decode token T=1", 1, 4200, 4201, 15000, dev, gen),
@@ -2597,7 +2976,8 @@ def main() -> int:
     launches = read_counts()
     want = {"stream_attention": {"float": 24 * n_append, "int8": 0,
                                  "int4": 0},
-            "decode_attention": 24 * lm_forwards, "decode_score": 0}
+            "decode_attention": 24 * lm_forwards, "decode_score": 0,
+            "stream_attention_page_keep": 0}
     if launches != want:
         raise RuntimeError(f"main path launch counts {launches} != "
                            f"expected {want}")
@@ -2646,7 +3026,8 @@ def main() -> int:
                                    max_new_tokens=32)
     launches2 = read_counts()
     want2 = {"stream_attention": {"float": 24 * 24, "int8": 0, "int4": 0},
-             "decode_attention": 24 * (2 + len(out)), "decode_score": 0}
+             "decode_attention": 24 * (2 + len(out)), "decode_score": 0,
+             "stream_attention_page_keep": 0}
     if launches2 != want2:
         raise RuntimeError(f"init-fill launch counts {launches2} != "
                            f"expected {want2}")
@@ -2811,6 +3192,11 @@ def main() -> int:
                       "spec": spec7["speculative"]["spec"],
                       "departures": len(spec7["departures"])}})
 
+    # ---- phase 13: the ablation paths and YUV ingest (0.5b) ----
+    p13 = ablation_phase(card, dev, gen, p3["ingest_fps_8frame_chunks"])
+    emit(p13)
+    RECORD["phases"]["ablations"] = p13
+
     # ---- the kernels line, then the device line ----
     def bound_by(c):
         """bound_by as one word; terms that tie are listed beside it."""
@@ -2874,6 +3260,10 @@ def main() -> int:
               by_path={"phase 6": p6["launches"]["stream_attention"]["int8"],
                        "phase 10 (c)":
                        set_c["launches"]["stream_attention"]["int8"]}),
+        entry("stream_attention_page_keep", sa_src, sa_tpu, KEEP_05B,
+              p13["a_window_compression"]["launches"][
+                  "stream_attention_page_keep"], "phase 13 (a)",
+              also=(KEEP_7B_INT8,)),
         entry("stream_attention_int4", sa_src, sa_tpu,
               "stream int4 7B heads (28/4/128), 264 pages",
               p7["launches"]["stream_attention"]["int4"], "phase 7"),

@@ -73,3 +73,22 @@ def map_indices_flat(idx: torch.Tensor, tokens_per_frame: int):
     off = (torch.arange(F_, dtype=idx.dtype, device=idx.device)
            * tokens_per_frame)[None, :, None]
     return (idx + off).reshape(B, F_ * K)
+
+
+def map_indices_grid(idx: torch.Tensor, grid: int = 13) -> torch.Tensor:
+    """Grid-with-newline-token mapping of the llava_vid layout: each
+    frame's raw layout is grid x (grid + 1), grid * grid feature tokens and
+    a newline token ending each row; kept feature indices (B, F, K) map into
+    that layout and every row's newline token is kept.  Returns (B,
+    F * (K + grid)) indices into the raw per-chunk layout."""
+    B, F_, K = idx.shape
+    W, Wn = grid, grid + 1
+    rows, cols = idx // W, idx % W
+    frame_start = (torch.arange(F_, dtype=idx.dtype, device=idx.device)
+                   * (grid * Wn))[None, :, None]
+    feat = frame_start + rows * Wn + cols                     # (B, F, K)
+    newline = frame_start + (torch.arange(grid, dtype=idx.dtype,
+                                          device=idx.device)
+                             * Wn + W)[None, None, :]
+    newline = newline.expand(B, F_, grid)
+    return torch.cat([feat, newline], dim=-1).reshape(B, F_ * (K + grid))

@@ -1,10 +1,12 @@
 """Typed configuration of the PyTorch port.
 
 A copy of the fields of ``stc_tpu/config.py`` that the LLaVA-OneVision +
-ReKV session reads.  The port keeps its own copy (it
+ReKV session reads, with the same asserts.  The port keeps its own copy (it
 imports nothing of the JAX package) and drops ``decode_attn_backend``:
 attention on a CUDA tensor always runs the hand-written kernel, on a CPU
-tensor always its plain version.
+tensor always its plain version.  ``CacherConfig.gather_impl`` is kept so
+the port takes every setting the JAX config does, but the port always
+gathers rows by index (the one-hot gather exists only for TPU costs).
 """
 
 from __future__ import annotations
@@ -42,8 +44,13 @@ class ReKVConfig:
     spec_decode_draft: int = 0
     spec_decode_ngram: int = 3
     spec_history_tokens: int = 0
-    # fields the port does not implement yet; kept so the port's config
-    # takes every setting the JAX one does, and checked below
+    # ablation paths: block retrieval scorer 'mean_dot' (on the device) |
+    # 'aks' | 'dpc_knn' | 'l2norm' (host-side selection between per-layer
+    # forwards); retrieved-KV compression before QA attention ('none' or a
+    # filter_tokens_* strategy: half of each retrieved block kept);
+    # window compression at append time ('none' | 'select_top_half': each
+    # appended page keeps its ceil(S/2) tokens of largest mean attention
+    # output for later windows, through stream_attention's page_keep)
     retrieval_scorer: str = "mean_dot"
     retrieved_kv_compression: str = "none"
     window_kv_compression: str = "none"
@@ -61,21 +68,6 @@ class ReKVConfig:
         assert self.spec_decode_draft >= 0 and self.spec_decode_ngram >= 1
         assert self.spec_history_tokens >= 0
 
-    def check_main_path(self) -> None:
-        """Raise on settings whose code the port does not have yet
-        (ROADMAP.md queue 1 lists where each one lands)."""
-        unported = {
-            "retrieval_scorer": (self.retrieval_scorer, "mean_dot"),
-            "retrieved_kv_compression": (self.retrieved_kv_compression,
-                                         "none"),
-            "window_kv_compression": (self.window_kv_compression, "none"),
-        }
-        for name, (value, main) in unported.items():
-            if value != main:
-                raise NotImplementedError(
-                    f"ReKVConfig.{name}={value!r} is not ported yet "
-                    f"(the port runs {name}={main!r}; see ROADMAP.md)")
-
     @property
     def rep_cap(self) -> int:
         """Retrievable-history capacity in blocks."""
@@ -90,6 +82,14 @@ class ReKVConfig:
     def retrieve_len(self) -> int:
         """Length of the retrieval buffer: init tokens + topk blocks."""
         return self.n_init + self.topk * self.block_size
+
+    @property
+    def retrieved_keep_per_block(self) -> int:
+        """Tokens kept per retrieved block after retrieved-KV compression
+        (the filter_tokens_* strategies keep half of each frame)."""
+        if self.retrieved_kv_compression == "none":
+            return self.block_size
+        return self.block_size // 2
 
     @property
     def decode_cap(self) -> int:
@@ -112,19 +112,15 @@ class CacherConfig:
     strategy: str = "cacher"          # 'none' | 'cacher'
     update_token_ratio: float = 0.25  # share of ViT tokens recomputed
     cache_interval: int = 2           # full recompute every Nth chunk
-    sim_source: str = "key"           # the port runs 'key' only
+    sim_source: str = "key"           # 'key' | 'value' similarity gate
     gather_impl: str = "auto"         # the port always gathers by index
-    k_proxy_rank: int = 0             # the port runs 0 only
+    # rank of the K-projection sketch that ranks staleness (0: the exact
+    # fresh-K path; key similarity only)
+    k_proxy_rank: int = 0
 
     @property
     def enabled(self) -> bool:
         return self.strategy == "cacher"
-
-    def check_main_path(self) -> None:
-        if self.sim_source != "key" or self.k_proxy_rank != 0:
-            raise NotImplementedError(
-                "the port's cacher runs sim_source='key' with "
-                "k_proxy_rank=0 only (ROADMAP.md queue 1, ablations)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +165,9 @@ class SessionConfig:
     # channel weight-only quantization, Qwen2.quantize_int8) | 'int8_g<N>'
     # (one scale per group of N input rows; N divides every contraction dim)
     weights_quant: str = "none"
+    # pixel ingest: 'rgb' ((B, n, H, W, 3) uint8 frames cross to the
+    # device) | 'yuv420' (packed planar BT.601 4:2:0 planes, half the bytes
+    # a frame; the chroma upsample and RGB matrix run on the device)
     ingest_format: str = "rgb"
 
     def __post_init__(self):
@@ -184,11 +183,3 @@ class SessionConfig:
         if self.weights_quant.startswith("int8_g"):
             return int(self.weights_quant[6:])
         return 0
-
-    def check_main_path(self) -> None:
-        self.rekv.check_main_path()
-        self.cacher.check_main_path()
-        if self.ingest_format != "rgb":
-            raise NotImplementedError(
-                "yuv420 ingest is not ported yet (ROADMAP.md queue 1, "
-                "item 17)")

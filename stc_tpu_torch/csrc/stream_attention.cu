@@ -19,6 +19,18 @@
 // the KV walk of a row tile is split over blocks and merged by
 // combine_kernel; the output is normalised by l and 0 where l == 0.
 //
+// Window compression (page_keep, optional): a (B, Nb, S) byte mask over the
+// store's page slots.  A window key at cover index c lies in page slot
+// start_page + c / S (the slot its row is read from) at row c % S, and is
+// masked unless its keep byte is set (the JAX engine's jnp path ANDs the
+// window's keep rows into the window mask and runs no Pallas kernel).  The
+// init groups are never masked, and the tile skip stays a position test: a
+// live tile whose keys are all dropped is computed and adds nothing.  Both
+// tiles take the mask as a template flag (KEEP): a null page_keep launches
+// the KEEP = false instances, the unmasked code unchanged.  The bf16 tile
+// copies each KV tile's 64 keep bytes into shared memory beside its keys
+// (one byte a key, double-buffered with them) and masks from there.
+//
 // Bound on the H100: one 8-page append (T 480) over the full 264-page
 // window at llava-ov-7b heads (28/4 of 128) does ~103 GFLOP of visible
 // (query, key) pairs, 0.104 ms at the dense bf16 rate, and reads ~16 MB of
@@ -124,6 +136,7 @@ struct StreamArgs {
   const void* v_init;      // (B, Hkv, n_init, D)
   const void* k_init_raw;  // (B, Hkv, n_init, D)
   const int* scalars;      // (B, 5): L, start_tile, total, init_active, offset
+  const uint8_t* page_keep;  // (B, Nb, S) window keep bytes, or null
   float* part_acc;         // (n_split, B*Hq*T, D)
   float* part_ml;          // (n_split, B*Hq*T, 2)
   __nv_bfloat16* cover_k;  // (B, Hkv, Lc, D) scratch of the bf16 kernel
@@ -132,8 +145,8 @@ struct StreamArgs {
 };
 
 // T: queries, init keys and output; P: page elements (T, int8_t or packed
-// uint8_t)
-template <typename T, typename P, int D>
+// uint8_t); KEEP: the window keys are masked by a.page_keep
+template <typename T, typename P, int D, bool KEEP>
 __global__ void __launch_bounds__(NTH)
 stream_attention_kernel(StreamArgs a) {
   constexpr int DP = std::is_same<P, uint8_t>::value ? D / 2 : D;
@@ -160,6 +173,10 @@ stream_attention_kernel(StreamArgs a) {
   const long long pos_end = (long long)a.n_init + (long long)total * a.S;
   const int c_store = (a.Nb - start_page) * a.S;  // cover keys in the store
   const int c_lim = min(a.Lc, max(c_store, 0));
+  // keep byte of cover key c (c < c_lim) is keep_row[c]: the store's page
+  // slots are consecutive rows of S bytes
+  const uint8_t* keep_row =
+      a.page_keep + ((long long)b * a.Nb + start_page) * a.S;
 
   const T* q_rot = static_cast<const T*>(a.q_rot);
   const T* q_one = static_cast<const T*>(a.q_one);
@@ -223,7 +240,7 @@ stream_attention_kernel(StreamArgs a) {
       const long long pos = pos_base + cc;
       const long long dist = q_pos(r) - pos;
       return row_ok(r) && cc < c_lim && pos < pos_end && dist >= 0 &&
-             dist < a.n_local;
+             dist < a.n_local && (!KEEP || keep_row[cc] != 0);
     });
   }
 
@@ -331,6 +348,7 @@ __device__ __forceinline__ void row8(const uint8_t* row, const float* sc,
 struct Cover {
   int L, start_page, init_active, c_lim;
   long long pos_base, pos_end, q_lo, q_hi;
+  const uint8_t* keep_row;  // keep byte of cover key c < c_lim (KEEP)
 
   __device__ Cover(const StreamArgs& a, int b) {
     L = a.scalars[b * 5 + 0];
@@ -345,6 +363,7 @@ struct Cover {
     c_lim = min(a.Lc, max(c_store, 0));
     q_lo = L;
     q_hi = (long long)L + a.T - 1;
+    keep_row = a.page_keep + ((long long)b * a.Nb + start_page) * a.S;
   }
   // whether tile `tile` of bc cover keys holds a key some query may see
   __device__ bool live(int tile, int bc, int n_local) const {
@@ -422,13 +441,16 @@ stream_cover(StreamArgs a) {
 // The bf16 attention: the tensor-core tile over the pre-pass's cover rows
 // (tc::walk: cp.async, double-buffered against the previous tile's
 // products), then, on split 0, the init keys.
-template <int D>
+template <int D, bool KEEP>
 __global__ void __launch_bounds__(tc::Cfg<D>::NTH, tc::Cfg<D>::MIN_BLOCKS)
 stream_attention_tc(StreamArgs a) {
   using bf16 = __nv_bfloat16;
   constexpr int BC = tc::BC, MT = tc::Cfg<D>::MT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const tc::Smem<D> sm(smem_raw);
+  // with KEEP, the keep bytes of the two buffered KV tiles, after the tile
+  // buffers
+  unsigned char* keep_s = smem_raw + tc::Cfg<D>::SMEM;
   const tc::Block<D> blk(a.Hq, a.Hkv, a.T, a.n_split);
   const bool warp_live = blk.warp_live();
   const float scale = 1.f / sqrtf((float)D);
@@ -461,6 +483,11 @@ stream_attention_tc(StreamArgs a) {
                          (int)(a.Lc - c0));
         tc::load_tile<D>(sm.v(i), a.cover_v + (hc + c0) * D,
                          (int)(a.Lc - c0));
+        if constexpr (KEEP) {
+          const int c = (int)c0 + (int)threadIdx.x;
+          if (threadIdx.x < BC)
+            keep_s[i * BC + threadIdx.x] = c < cv.c_lim ? cv.keep_row[c] : 0;
+        }
       },
       [&](int tile, int i) {
         if (!warp_live) return;
@@ -474,6 +501,9 @@ stream_attention_tc(StreamArgs a) {
 #pragma unroll
         for (int k = 0; k < 2 * MT; ++k) base[k] = qpos[k] - (int)p0;
         tc::update<D>(w, sm.q(), sm.k(i), sm.v(i), scale, [&](int k, int c) {
+          if constexpr (KEEP) {
+            if (keep_s[i * BC + c] == 0) return false;
+          }
           if (full) return rok[k];
           const int dist = base[k] - c;
           return rok[k] && c < n_ok && dist >= 0 && dist < a.n_local;
@@ -520,16 +550,19 @@ template <typename T, typename P, int D>
 cudaError_t launch(const StreamArgs& a, void* out, cudaStream_t stream,
                    int* tile) {
   constexpr bool tcore = std::is_same<T, __nv_bfloat16>::value;
+  const bool keep = a.page_keep != nullptr;
   void (*kernel)(StreamArgs);
   int smem, br, bc, nth;
   if constexpr (tcore) {
-    kernel = stream_attention_tc<D>;
-    smem = tc::Cfg<D>::SMEM;
+    kernel = keep ? stream_attention_tc<D, true>
+                  : stream_attention_tc<D, false>;
+    smem = tc::Cfg<D>::SMEM + (keep ? 2 * tc::BC : 0);
     br = tc::Cfg<D>::BR;
     bc = tc::BC;
     nth = tc::Cfg<D>::NTH;
   } else {
-    kernel = stream_attention_kernel<T, P, D>;
+    kernel = keep ? stream_attention_kernel<T, P, D, true>
+                  : stream_attention_kernel<T, P, D, false>;
     smem = (int)sizeof(TileSmem<D>);
     br = BR;
     bc = BC;
@@ -603,14 +636,17 @@ extern "C" int stc_stream_attention_tile(int dtype, int pages, int D,
 // pages: 0 = pages in that dtype (k_scales, v_scales unused), 1 = int8,
 // 2 = packed int4 (uint8, D/2 bytes a row), each with f32 scales
 // (B, Hkv, Nb, D).  cover_k, cover_v: (B, Hkv, Lc, D) bf16 scratch, with
-// bfloat16 only.  With bfloat16, every pointer is 16-byte aligned.
-// Returns cudaGetLastError() after the launches.
+// bfloat16 only.  page_keep: (B, Nb, S) bytes, a window key kept where
+// nonzero, or null (nothing masked).  With bfloat16, every pointer but
+// page_keep is 16-byte aligned.  Returns cudaGetLastError() after the
+// launches.
 extern "C" int stc_stream_attention(
     const void* q_rot, const void* q_one, const void* block_k,
     const void* block_v, const void* k_scales, const void* v_scales,
     const void* cos_cover, const void* sin_cover, const void* k_init_rot,
     const void* v_init, const void* k_init_raw, const void* scalars,
-    void* part_acc, void* part_ml, void* cover_k, void* cover_v, void* out,
+    const void* page_keep, void* part_acc, void* part_ml, void* cover_k,
+    void* cover_v, void* out,
     int B, int Hq, int Hkv, int T, int D, int Nb, int S, int Lc, int ppt,
     int n_init, int n_local, int n_split, int dtype, int pages,
     void* stream) {
@@ -627,6 +663,7 @@ extern "C" int stc_stream_attention(
   a.v_init = v_init;
   a.k_init_raw = k_init_raw;
   a.scalars = static_cast<const int*>(scalars);
+  a.page_keep = static_cast<const uint8_t*>(page_keep);
   a.part_acc = static_cast<float*>(part_acc);
   a.part_ml = static_cast<float*>(part_ml);
   a.cover_k = static_cast<__nv_bfloat16*>(cover_k);

@@ -5,6 +5,8 @@ with a plain C interface (no PyTorch headers, so a build takes seconds),
 loaded with ``ctypes``.  Builds happen at first use, into
 ``build/stc_tpu_torch/`` at the root of the checkout, keyed by a hash of the
 sources and flags; all sources compile in parallel, one ``nvcc`` each.
+The host library ``csrc/frameproc.cpp`` (frame preprocessing and YUV
+packing) builds the same way with ``g++`` (``load_host``), on any machine.
 Nothing here runs at import time.
 """
 
@@ -143,6 +145,40 @@ def tile(name: str, codes: tuple) -> tuple:
 def check_launch(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library csrc/<name>.cpp, built with g++ on first
+    use (keyed by a hash of the source and flags).  Raises without g++ or
+    on a failed build."""
+    key = ("host", name)
+    lib = _libs.get(key)
+    if lib is not None:
+        return lib
+    src = CSRC / f"{name}.cpp"
+    h = hashlib.sha256(src.read_bytes() + " ".join(HOST_FLAGS).encode())
+    out = BUILD / f"lib{name}-{h.hexdigest()[:16]}.so"
+    with _lock:
+        if not out.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError(f"g++ not found: {src.name} is built "
+                                   "with a C++ compiler at first use")
+            BUILD.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([gxx, *HOST_FLAGS, str(src), "-o",
+                                   str(tmp)], capture_output=True,
+                                  text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"g++ failed on {src.name}:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, out)
+        lib = ctypes.CDLL(str(out))
+        _libs[key] = lib
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:

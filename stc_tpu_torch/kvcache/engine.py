@@ -30,6 +30,12 @@ bit-identical (ragged ingest), ``reset_streams`` recycles slots, and
 After host-tier evictions (``host_tier.py``) the store holds absolute
 pages from page_offset on; ``retrieve_blocks_hosttier`` serves the rest
 from the session's prefetch table of staged host pages.
+
+Ablations: with ``window_kv_compression='select_top_half'`` every append
+passes the window's page keep rows to ``stream_attention`` (the kernel
+masks dropped keys) and then keeps, per new page, the ceil(S/2) tokens of
+largest mean attention output; ``compress_retrieved`` keeps half of each
+retrieved block's tokens by a ``filter_tokens_*`` strategy.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from stc_tpu_torch.compress.scoring import filter_tokens
 from stc_tpu_torch.config import ReKVConfig
 from stc_tpu_torch.kvcache.state import DecodeKV, StreamKV
 from stc_tpu_torch.ops.attention import AttnStage, multi_stage_attention
@@ -69,7 +76,6 @@ def init_stream_kv(cfg: ReKVConfig, batch: int, n_kv_heads: int,
     if Nb < n_window_pages(cfg):
         raise ValueError(f"max_blocks={Nb} must cover the local window "
                          f"({n_window_pages(cfg)} pages)")
-    cfg.check_main_path()
     lead = () if layers is None else (layers,)
 
     def z(shape, dt=dtype):
@@ -257,7 +263,11 @@ def append_stream(kv: StreamKV, q: torch.Tensor, k: torch.Tensor,
     with one mean key per page, then the queries attend [init tokens |
     window pages | init tokens at the one angle] through stream_attention.
     With kv_quant the pages are quantized on write (the rep keys come from
-    the exact keys) and the kernel reads the quantized store.
+    the exact keys) and the kernel reads the quantized store.  With
+    window_kv_compression the kernel masks the window keys that earlier
+    appends dropped (the pages written now keep every row), and each new
+    page's keep row becomes its ceil(S/2) tokens of largest mean attention
+    output, over heads and dims (top-k ties to the lower token).
 
     active: optional (B,) bool ragged-ingest mask.  Inactive streams'
     pages, scales, rep keys and counters stay bit-identical (each write
@@ -333,12 +343,22 @@ def append_stream(kv: StreamKV, q: torch.Tensor, k: torch.Tensor,
     q_rot = rotate(q, rc.cos_q, rc.sin_q).to(dt)
     q_one = rotate(q, rc.cos_one, rc.sin_one).to(dt)
     k_init_rot = rotate(kv.init_k, rc.cos_init[:, None], rc.sin_init[:, None])
+    # the pages written now still carry all-ones keep rows (a fresh slot,
+    # or one reset or vacated by eviction): the chunk attends itself whole
+    compress = cfg.window_kv_compression == "select_top_half"
     o = stream_attention(
         q_rot.contiguous(), q_one.contiguous(), kv.block_k, kv.block_v,
         rc.cos_cover, rc.sin_cover, k_init_rot.contiguous(), kv.init_v,
         kv.init_k, rc.scalars, n_local=cfg.n_local,
         k_scales=kv.block_k_scale if quant else None,
-        v_scales=kv.block_v_scale if quant else None).to(q.dtype)
+        v_scales=kv.block_v_scale if quant else None,
+        page_keep=kv.page_keep if compress else None).to(q.dtype)
+    if compress:
+        score = o.to(torch.float32).mean(dim=(1, 3)).reshape(B, n_new, S)
+        top = topk_lowest(score, -(-S // 2))[1]
+        new_keep = torch.zeros((B, n_new, S), dtype=torch.bool,
+                               device=q.device).scatter_(2, top, True)
+        write(kv.page_keep, (bidx, pages), new_keep)
 
     if active is None:
         kv.num_blocks.add_(n_new)
@@ -496,6 +516,40 @@ def _pack_retrieved(kv: StreamKV, cfg: ReKVConfig, gk, gv, sel_valid):
          sel_valid.repeat_interleave(S, dim=1)], dim=1)
     valid_len = (cfg.n_init + sel_valid.sum(dim=1) * S).to(I32)
     return ret_k, ret_v, tok_valid, valid_len
+
+
+def compress_retrieved(kv: StreamKV, cfg: ReKVConfig, ret_k: torch.Tensor,
+                       ret_v: torch.Tensor, valid_len: torch.Tensor,
+                       generator: Optional[torch.Generator] = None):
+    """Retrieved-KV compression: keep half of each retrieved block's tokens
+    by the configured filter_tokens_* strategy, scored against the mean of
+    the stream's rep keys over its real blocks.
+
+    ret_k/ret_v: (B, Hkv, R, D) with R = n_init + topk * S; returns (ck,
+    cv, new_valid_len) with R2 = n_init + topk * (S // 2).  The kept
+    indices are sorted, so block order holds and the valid region stays a
+    prefix.  filter_tokens_random draws from `generator` (the JAX engine
+    folds the stream length into a fixed key; the port cannot give its
+    threefry bits)."""
+    B, Hkv, R, D = ret_k.shape
+    S, nI = cfg.block_size, cfg.n_init
+    Rc = kv.block_rep.shape[1]
+    blk = torch.arange(Rc, device=ret_k.device)[None, :] < \
+        kv.num_blocks[:, None]
+    w = blk.to(torch.float32)[:, :, None, None]
+    mem = (kv.block_rep.to(torch.float32) * w).sum(dim=1) / w.sum(
+        dim=1).clamp(min=1.0)                                  # (B, Hkv, D)
+    toks = ret_k[:, :, nI:].transpose(1, 2).reshape(B, R - nI, Hkv * D)
+    idx = filter_tokens(cfg.retrieved_kv_compression, toks,
+                        mem.reshape(B, Hkv * D), S, generator)
+    idx = torch.sort(idx, dim=1).values                     # (B, topk*keep)
+    bidx = torch.arange(B, device=ret_k.device)[:, None]
+    gk = ret_k[:, :, nI:][bidx, :, idx].transpose(1, 2)
+    gv = ret_v[:, :, nI:][bidx, :, idx].transpose(1, 2)
+    ck = torch.cat([ret_k[:, :, :nI], gk], dim=2)
+    cv = torch.cat([ret_v[:, :, :nI], gv], dim=2)
+    new_valid = nI + (valid_len - nI) // S * cfg.retrieved_keep_per_block
+    return ck, cv, new_valid.to(I32)
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,9 @@ streaming-session API.
 
 The vision side (tower, projector, pooling, pruner) computes in
 ``vision_dtype`` (float32 by default, as the JAX session's); the pruned
-features enter the LM in the LM's dtype.
+features enter the LM in the LM's dtype.  The session config's cacher
+variants (``sim_source``, ``k_proxy_rank``) and ``ingest_format`` reach
+the tower and the preprocessor.
 """
 
 from __future__ import annotations
@@ -121,11 +123,21 @@ class LlavaOVVision(VisionPipeline):
         self.dtype = model.projector.w1.dtype
         self.device = model.projector.w1.device
         self._pre = Preprocessor(self.cfg.vision.image_size, IMAGE_MEAN,
-                                 IMAGE_STD, self.dtype)
+                                 IMAGE_STD, self.dtype,
+                                 ingest=scfg.ingest_format)
+
+    @property
+    def src_hw(self):
+        """(h, w) of the packed yuv420 planes the preprocessor unpacks."""
+        return self._pre.src_hw
+
+    @src_hw.setter
+    def src_hw(self, hw):
+        self._pre.src_hw = hw
 
     def preprocess(self, frames):
         frames = np.asarray(frames)
-        if frames.ndim == 5:  # (B, F, H, W, 3) multi-stream
+        if frames.ndim in (3, 5):  # multi-stream (B, F, ...): stream-major
             frames = frames.reshape((-1,) + frames.shape[2:])
         return self._pre.host(frames)
 
@@ -176,8 +188,10 @@ class LlavaOVVision(VisionPipeline):
         return flat, vstate, pstate
 
     def cached(self, pixels, vstate, pstate):
+        c = self.scfg.cacher
         feats, _ = self.model.vision.encode_cached(
-            pixels, vstate, self.scfg.cacher.update_token_ratio, self.batch)
+            pixels, vstate, c.update_token_ratio, self.batch,
+            sim_source=c.sim_source, k_proxy_rank=c.k_proxy_rank)
         flat, pstate = self._post(feats, pstate)
         return flat, vstate, pstate
 

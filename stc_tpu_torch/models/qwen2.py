@@ -25,6 +25,13 @@ slice.  Entry points mirror the JAX call graph:
                     selected page was served (with `stage`, a layer whose
                     selection missed has its pages staged before it goes
                     on, so the round serves everything)
+  qa_layer_logits / qa_layer_attend  the two halves of one layer of the
+                    layerwise retrieval forward, for the host-side block
+                    scorers (the session selects blocks between them)
+
+With ReKVConfig.retrieved_kv_compression set, every retrieval forward
+compresses each layer's retrieved prefix (engine.compress_retrieved)
+before it enters the decode cache.
 
 ``Qwen2.quantize_int8`` turns the weights into int8 with float32 scales
 (``stc_tpu``'s ``quantize_params_int8``); every matmul then dequantizes its
@@ -347,12 +354,11 @@ class Qwen2(nn.Module):
         c = self.cfg
         B, T, _ = embeds.shape
         dev = embeds.device
+        seed = compress_seed(rekv, kvs)
         q_valid = None
         if n_tokens is not None:
             n_tokens = torch.as_tensor(n_tokens, device=dev).expand(B)
             q_valid = torch.arange(T, device=dev)[None, :] < n_tokens[:, None]
-        raw_rows = rekv.n_init if rekv.decode_cap > rekv.n_local else 0
-        ar = torch.arange(T, device=dev)[None, :]
         h, picked = embeds, []
         for i, lp in enumerate(self.layers):
             q, k, v = self._qkv(lp, rms_norm(h, lp.ln1, c.rms_eps))
@@ -376,20 +382,81 @@ class Qwen2(nn.Module):
                     host_pages = stage(i, abs_idx, missing)
                     ret_k, ret_v, _, valid_len, missing = gather(*host_pages)
             picked.append((abs_idx, exists, missing))
-            dkv = engine.decode_write(layer(dkvs, i), ret_k, ret_v, valid_len,
-                                      at_start=True, rope_base=c.rope_base,
-                                      raw_rows=raw_rows)
-            # the question's KV join this forward only: cursor resets after
-            dkv_q = engine.decode_write(dkv, k, v, T, rope_base=c.rope_base)
-            o = engine.decode_attend(q, valid_len[:, None] + ar, dkv_q, rekv,
-                                     rope_base=c.rope_base)
-            dkvs.cursor[i] = valid_len
-            h = self._finish_layer(lp, h, o)
+            h, dkvs.cursor[i] = self._attend_retrieved(
+                i, rekv, kv, layer(dkvs, i), h, q, k, v, ret_k, ret_v,
+                valid_len, compress_generator(seed, dev))
         abs_idx, exists = (torch.stack([p[j] for p in picked])
                            for j in (0, 1))
         missing = (None if host_pages is None
                    else torch.stack([p[2] for p in picked]))
         return dkvs, abs_idx, exists, missing
+
+    @torch.no_grad()
+    def qa_layer_logits(self, i: int, rekv: ReKVConfig, kv: StreamKV,
+                        h: torch.Tensor, n_tokens: torch.Tensor):
+        """Layerwise QA, first half of layer i: the layer's q, k, v and the
+        raw rep-relevance logits (B, Rc), their validity and the mean
+        question query (B, Hq, D), for a host-side selection strategy.
+        kv: the layer's stream state."""
+        c = self.cfg
+        T = h.shape[1]
+        q_valid = torch.arange(T, device=h.device)[None, :] < \
+            n_tokens[:, None]
+        q, k, v = self._qkv(self.layers[i], rms_norm(h, self.layers[i].ln1,
+                                                     c.rms_eps))
+        logits, blk_valid, q_mean = engine.score_block_logits(kv, q, rekv,
+                                                             q_valid)
+        return q, k, v, logits, blk_valid, q_mean
+
+    @torch.no_grad()
+    def qa_layer_attend(self, i: int, rekv: ReKVConfig, kv: StreamKV,
+                        dkv: DecodeKV, h: torch.Tensor, q, k, v,
+                        abs_idx: torch.Tensor, exists: torch.Tensor,
+                        use_host: torch.Tensor, host_k: torch.Tensor,
+                        host_v: torch.Tensor,
+                        generator: Optional[torch.Generator] = None):
+        """Layerwise QA, second half of layer i: the retrieved attention
+        over the selected blocks abs_idx (B, topk) (`exists` marks real
+        selections), resident pages gathered from the store and those
+        where use_host (B, topk) from host_k / host_v (B, topk, Hkv, S, D),
+        compressed as configured; the prefix is installed into the layer's
+        decode cache dkv (in place) and the question attends it.  Returns
+        (h of the next layer, valid_len (B,) int32: the layer's cursor)."""
+        B = h.shape[0]
+        S, nI = rekv.block_size, rekv.n_init
+        slot = (abs_idx - kv.page_offset[:, None]).clamp(0,
+                                                         rekv.max_blocks - 1)
+        ret_k, ret_v, _, valid_len = engine._gather_retrieved(kv, rekv, slot,
+                                                              exists)
+        Hkv, D = host_k.shape[2], host_k.shape[-1]
+        m = use_host.repeat_interleave(S, dim=1)[:, None, :, None]
+        for ret, hp in ((ret_k, host_k), (ret_v, host_v)):
+            hp = hp.transpose(1, 2).reshape(B, Hkv, rekv.topk * S, D)
+            ret[:, :, nI:] = torch.where(m, hp.to(ret.dtype),
+                                         ret[:, :, nI:])
+        return self._attend_retrieved(i, rekv, kv, dkv, h, q, k, v, ret_k,
+                                      ret_v, valid_len, generator)
+
+    def _attend_retrieved(self, i, rekv, kv, dkv, h, q, k, v, ret_k, ret_v,
+                          valid_len, generator=None):
+        """Layer i's retrieved prefix, compressed as configured, into its
+        decode cache dkv (in place); the question attends it with its own
+        KV, which join this forward only (the cursor stays at the prefix).
+        Returns (h of the next layer, the prefix length (B,) int32)."""
+        c = self.cfg
+        T = h.shape[1]
+        if rekv.retrieved_kv_compression != "none":
+            ret_k, ret_v, valid_len = engine.compress_retrieved(
+                kv, rekv, ret_k, ret_v, valid_len, generator)
+        raw_rows = rekv.n_init if rekv.decode_cap > rekv.n_local else 0
+        dkv = engine.decode_write(dkv, ret_k, ret_v, valid_len,
+                                  at_start=True, rope_base=c.rope_base,
+                                  raw_rows=raw_rows)
+        dkv_q = engine.decode_write(dkv, k, v, T, rope_base=c.rope_base)
+        ar = torch.arange(T, device=h.device)[None, :]
+        o = engine.decode_attend(q, valid_len[:, None] + ar, dkv_q, rekv,
+                                 rope_base=c.rope_base)
+        return self._finish_layer(self.layers[i], h, o), valid_len
 
     @torch.no_grad()
     def decode_step(self, rekv: ReKVConfig, dkvs: DecodeKV,
@@ -608,6 +675,23 @@ class Qwen2(nn.Module):
         tokens, count, _ = self.greedy_decode(rekv, dkvs, last, stop_ids,
                                               max_new_tokens, **ctx)
         return tokens, count
+
+
+def compress_seed(rekv: ReKVConfig, kvs: StreamKV) -> Optional[int]:
+    """The seed of filter_tokens_random's draws in one retrieval forward:
+    stream 0's length (one host read; None for the other strategies).  The
+    JAX engine folds the same length into a fixed key and draws the same
+    permutation at every layer; the port reseeds a generator per layer."""
+    if rekv.retrieved_kv_compression != "filter_tokens_random":
+        return None
+    return int(kvs.length.reshape(-1)[0])
+
+
+def compress_generator(seed: Optional[int], device):
+    """A generator on `device` seeded with `seed`, or None."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
 
 
 def build_spec_ctx(q_ids: torch.Tensor, q_len: torch.Tensor,

@@ -7,14 +7,20 @@
   cached chunk: fresh K for every token; per-frame the update_ratio tokens
       least cosine-similar to the reference K are recomputed (q/v, attention
       against the scattered V, attention and MLP outputs); every other token
-      takes the reference outputs.
+      takes the reference outputs.  Two variants of the gate:
+      sim_source='value' ranks by fresh V against the reference V and
+      attends against the fully fresh V; k_proxy_rank=r > 0 (key
+      similarity only) ranks on rank-r sketches of fresh and reference K
+      (a fixed numpy matrix, the JAX package's), projects fresh K only at
+      the selected rows, and forms the logits as q_sel @ ref_K^T plus a
+      U x U correction at the selected columns.
 
 With n_streams > 1 the frames of B streams ride the batch axis stream-major
 (B * F), each stream's references come from the last frame of its own part
 of the chunk, and each stream's cached frames gate against its own.
 
-The port runs sim_source='key', k_proxy_rank=0 and gathers rows by index
-(the JAX package's one-hot gather exists only for TPU costs).
+The port gathers rows by index (the JAX package's one-hot gather exists
+only for TPU costs and gives the same numbers).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
@@ -113,6 +120,22 @@ def key_similarity(k, ref_k):
     return (kf * rf).sum(-1) / (kf.norm(dim=-1) * rf.norm(dim=-1) + 1e-8)
 
 
+_KPROXY: dict = {}
+
+
+def kproxy_matrix(C: int, rank: int, dtype, device) -> torch.Tensor:
+    """The fixed Johnson-Lindenstrauss sketch (C, rank) of the k-proxy
+    gate: N(0, 1) / sqrt(rank) draws of numpy's default_rng(42), rounded to
+    float32 and then to dtype, the JAX package's very matrix.  Cosines of
+    sketched vectors rank staleness as the exact cosines do."""
+    key = (C, rank, dtype, str(device))
+    if key not in _KPROXY:
+        r = np.random.default_rng(42).standard_normal((C, rank))
+        r = (r / np.sqrt(rank)).astype(np.float32)
+        _KPROXY[key] = torch.from_numpy(r).to(device=device, dtype=dtype)
+    return _KPROXY[key]
+
+
 def _scatter_tokens(base, idx, vals):
     """base (F, T, C) with rows idx (F, U) set to vals (F, U, C)."""
     f = torch.arange(base.shape[0], device=base.device)[:, None]
@@ -156,18 +179,32 @@ class SiglipLayer(nn.Module):
         mlp = self._mlp(layer_norm(h, self.ln2_w, self.ln2_b, eps))
         return h + mlp, (k, v, attn, mlp)
 
-    def cached(self, h, refs, num_update: int, cfg: SiglipConfig):
-        """Selective recompute of the num_update least key-similar tokens
-        per frame; h (F, T, C), refs (1, T, C) each.  Returns
-        (h, selected token indices (F, U) ascending)."""
+    def cached(self, h, refs, num_update: int, cfg: SiglipConfig,
+               sim_source: str = "key", k_proxy_rank: int = 0):
+        """Selective recompute of the num_update least similar tokens per
+        frame (by key, by value with sim_source='value', or by rank-r key
+        sketches with k_proxy_rank=r on key similarity); h (F, T, C), refs
+        (1, T, C) each.  Returns (h, selected token indices (F, U)
+        ascending)."""
         eps = cfg.layer_norm_eps
         ref_k, ref_v, ref_attn, ref_mlp = refs
         F_, T, C = h.shape
-        H = cfg.num_heads
-        D = C // H
+        k_proxy = k_proxy_rank if sim_source == "key" else 0
         hn = layer_norm(h, self.ln1_w, self.ln1_b, eps)
-        k_full = hn @ self.wk + self.bk
-        sim = key_similarity(k_full, ref_k)
+        if sim_source == "value":
+            k_full = hn @ self.wk + self.bk
+            v_fresh = hn @ self.wv + self.bv
+            sim = key_similarity(v_fresh, ref_v)
+        elif k_proxy:
+            # the fresh side's sketch without forming fresh K: (wk @ R) is
+            # a (C, r) matmul; ref_k already holds its bias
+            R = kproxy_matrix(C, k_proxy, h.dtype, h.device)
+            sim = key_similarity(hn @ (self.wk @ R) + self.bk @ R,
+                                 ref_k @ R)
+            k_full = None
+        else:
+            k_full = hn @ self.wk + self.bk
+            sim = key_similarity(k_full, ref_k)
         _, upd = topk_lowest(-sim, num_update)
         upd = torch.sort(upd, dim=-1).values                    # (F, U)
         frow = torch.arange(F_, device=h.device)[:, None]
@@ -177,10 +214,43 @@ class SiglipLayer(nn.Module):
 
         toks = hn[frow, upd]                                    # (F, U, C)
         q_sel = toks @ self.wq + self.bq
+        if sim_source == "value":  # attention against the fresh V
+            attn_sel = _attn_full(q_sel, k_full, v_fresh, cfg.num_heads)
+        else:
+            attn_sel = self._attn_scattered_v(toks, q_sel, k_full, ref_k,
+                                              ref_v, upd, k_proxy, cfg)
+        attn_sel = attn_sel @ self.wo + self.bo
+        h = merge(h, ref_attn, attn_sel)
+        hn2 = layer_norm(h, self.ln2_w, self.ln2_b, eps)
+        h = merge(h, ref_mlp, self._mlp(hn2[frow, upd]))
+        return h, upd
+
+    def _attn_scattered_v(self, toks, q_sel, k_full, ref_k, ref_v, upd,
+                          k_proxy, cfg):
+        """The selected rows' attention against the scattered V (fresh at
+        the selected rows, the reference elsewhere), without forming it;
+        with k_proxy against the scattered K as well.  toks: the selected
+        rows' normed inputs (F, U, C).  Returns (F, U, C) in h's dtype."""
+        F_, num_update, C = toks.shape
+        T = ref_v.shape[1]
+        H = cfg.num_heads
+        D = C // H
         v_sel = toks @ self.wv + self.bv
         qh = q_sel.reshape(F_, num_update, H, D).transpose(1, 2)
-        kh = k_full.reshape(F_, T, H, D).transpose(1, 2)
-        logits = _f32_mm(qh, kh.transpose(-1, -2)) * (D ** -0.5)
+        if k_proxy:
+            # logits against the scattered K without forming fresh K:
+            # q_sel @ ref_K^T, plus q_sel @ (K_sel - ref_K[upd])^T added at
+            # the selected columns; both products in float32
+            k_sel = toks @ self.wk + self.bk
+            rkh = ref_k[0].reshape(T, H, D).permute(1, 2, 0)     # (H, D, T)
+            logits = _f32_mm(qh, rkh)
+            dk = (k_sel - ref_k[0][upd]).reshape(F_, num_update, H, D)
+            corr = _f32_mm(qh, dk.to(qh.dtype).permute(0, 2, 3, 1))
+            logits = logits.scatter_add(3, upd[:, None, None, :].expand(
+                F_, H, num_update, num_update), corr) * (D ** -0.5)
+        else:
+            kh = k_full.reshape(F_, T, H, D).transpose(1, 2)
+            logits = _f32_mm(qh, kh.transpose(-1, -2)) * (D ** -0.5)
         p = torch.softmax(logits, dim=-1).to(q_sel.dtype)       # (F,H,U,T)
         # attention against the scattered V without forming it:
         #   p @ V = p @ ref_V + p[:, :, :, upd] @ (V_sel - ref_V[upd]),
@@ -191,12 +261,7 @@ class SiglipLayer(nn.Module):
             F_, H, num_update, num_update))
         dv = (v_sel - ref_v[0][upd]).reshape(F_, num_update, H, D)
         o = o + _f32_mm(p_sel, dv.transpose(1, 2).to(p_sel.dtype))
-        attn_sel = o.transpose(1, 2).reshape(F_, num_update, C).to(h.dtype)
-        attn_sel = attn_sel @ self.wo + self.bo
-        h = merge(h, ref_attn, attn_sel)
-        hn2 = layer_norm(h, self.ln2_w, self.ln2_b, eps)
-        h = merge(h, ref_mlp, self._mlp(hn2[frow, upd]))
-        return h, upd
+        return o.transpose(1, 2).reshape(F_, num_update, C).to(toks.dtype)
 
 
 class Siglip(nn.Module):
@@ -261,10 +326,12 @@ class Siglip(nn.Module):
 
     @torch.no_grad()
     def encode_cached(self, pixels: torch.Tensor, cacher: CacherState,
-                      update_ratio: float, n_streams: int = 1):
+                      update_ratio: float, n_streams: int = 1,
+                      sim_source: str = "key", k_proxy_rank: int = 0):
         """Selective-recompute chunk of (B * F) stream-major frames, each
-        stream's against its own references: returns (features, selected
-        token indices (L, B * F, U)); the cacher state is unchanged."""
+        stream's against its own references (sim_source and k_proxy_rank
+        as SiglipLayer.cached): returns (features, selected token indices
+        (L, B * F, U)); the cacher state is unchanged."""
         T = self.cfg.num_tokens
         num_update = max(1, min(int(T * update_ratio), T))
         h = self.patch_embed(pixels)
@@ -275,7 +342,8 @@ class Siglip(nn.Module):
             for b in range(n_streams):
                 hb, upd = lp.cached(h[b * F_:(b + 1) * F_],
                                     tuple(x[i, b:b + 1] for x in cacher),
-                                    num_update, self.cfg)
+                                    num_update, self.cfg, sim_source,
+                                    k_proxy_rank)
                 hs.append(hb)
                 ups.append(upd)
             h = hs[0] if n_streams == 1 else torch.cat(hs)

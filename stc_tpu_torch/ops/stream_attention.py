@@ -20,6 +20,13 @@ Pages come in three kinds, as in the Pallas kernel:
 Quantized pages are dequantized in f32 inside the kernel, rotated, and
 rounded to the input dtype; values are dequantized and rounded the same way.
 
+Window compression (``ReKVConfig.window_kv_compression``) passes
+``page_keep``, a (B, Nb, S) bool mask over the store's page slots: a window
+key is masked unless its keep entry is set.  The JAX package runs that
+setting only through its plain jnp path (its Pallas kernel reads no keep
+masks); here the same kernel reads one byte a key, in both tiles and for
+every page kind.  The init groups are never masked.
+
 Bound on the H100: an 8-page append (T 480) over the full 264-page window
 at llava-ov-7b heads does ~103 GFLOP of visible (query, key) pairs, 0.104
 ms at the dense bf16 tensor-core rate, against ~16 MB of int8 pages:
@@ -39,7 +46,8 @@ reports (``_build.tile``).  PERF.md has the card times.
 
 On a CPU tensor the wrapper runs ``stream_attention_ref``; on a CUDA tensor
 it launches the kernel or raises.  ``launches`` counts kernel launches by
-page kind.
+page kind; ``masked_launches`` counts those of them that read a page_keep
+mask.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from stc_tpu_torch.kernels import _build
 from stc_tpu_torch.ops.rope import rotate
 
 launches = {"float": 0, "int8": 0, "int4": 0}
+masked_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_KINDS = {torch.int8: "int8", torch.uint8: "int4"}
@@ -90,7 +99,8 @@ def dequant_rows(x: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
 
 
 def _check(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
-           k_init_rot, v_init, k_init_raw, scalars, k_scales, v_scales):
+           k_init_rot, v_init, k_init_raw, scalars, k_scales, v_scales,
+           page_keep):
     B, _, T, D = q_rot.shape
     Hkv, Nb, S = block_k.shape[1], block_k.shape[2], block_k.shape[3]
     if T % S:
@@ -125,8 +135,11 @@ def _check(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
         raise ValueError("rope cover tables must be float32")
     if scalars.dtype != torch.int32 or tuple(scalars.shape) != (B, 5):
         raise ValueError("scalars must be (B, 5) int32")
+    if page_keep is not None and (page_keep.dtype != torch.bool or tuple(
+            page_keep.shape) != (B, Nb, S)):
+        raise ValueError(f"page_keep must be ({B}, {Nb}, {S}) bool")
     allt = tensors + (block_k, block_v, cos_cover, sin_cover, scalars) + \
-        tuple(s for s in scales if s is not None)
+        tuple(t for t in scales + (page_keep,) if t is not None)
     if any(not t.is_contiguous() for t in allt):
         raise ValueError("stream_attention wants contiguous tensors")
     if any(t.device != q_rot.device for t in allt):
@@ -135,8 +148,8 @@ def _check(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
 
 def stream_attention(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
                      k_init_rot, v_init, k_init_raw, scalars, *,
-                     n_local: int, k_scales=None,
-                     v_scales=None) -> torch.Tensor:
+                     n_local: int, k_scales=None, v_scales=None,
+                     page_keep=None) -> torch.Tensor:
     """Fused paged encode-path attention.
 
     q_rot/q_one: (B, Hq, T, D) queries at the window angle / the one angle.
@@ -151,12 +164,17 @@ def stream_attention(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
       than the plain version.
     k_init_rot/v_init/k_init_raw: (B, Hkv, n_init, D).
     scalars: (B, 5) int32 [L, start_tile, total_pages, init_active,
-      page_offset].  Returns (B, Hq, T, D) in q's dtype.
+      page_offset].
+    page_keep: optional (B, Nb, S) bool, contiguous: the window key in row
+      o of page slot p (relative to page_offset, as the store) is masked
+      unless page_keep[b, p, o].
+    Returns (B, Hq, T, D) in q's dtype.
     """
     args = (q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
             k_init_rot, v_init, k_init_raw, scalars)
-    _check(*args, k_scales, v_scales)
-    kw = dict(n_local=n_local, k_scales=k_scales, v_scales=v_scales)
+    _check(*args, k_scales, v_scales, page_keep)
+    kw = dict(n_local=n_local, k_scales=k_scales, v_scales=v_scales,
+              page_keep=page_keep)
     if q_rot.device.type == "cpu":
         return stream_attention_ref(*args, **kw)
     if q_rot.device.type != "cuda":
@@ -166,11 +184,11 @@ def stream_attention(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
 
 def _launch(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
             k_init_rot, v_init, k_init_raw, scalars, *, n_local, k_scales,
-            v_scales):
+            v_scales, page_keep):
     lib = _build.load("stream_attention")
     fn = lib.stc_stream_attention
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 14 + [
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 14 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     B, Hq, T, D = q_rot.shape
@@ -197,7 +215,9 @@ def _launch(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
             None if v_scales is None else v_scales.data_ptr(),
             cos_cover.data_ptr(), sin_cover.data_ptr(),
             k_init_rot.data_ptr(), v_init.data_ptr(), k_init_raw.data_ptr(),
-            scalars.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
+            scalars.data_ptr(),
+            None if page_keep is None else page_keep.data_ptr(),
+            part_acc.data_ptr(), part_ml.data_ptr(),
             None if cover is None else cover[0].data_ptr(),
             None if cover is None else cover[1].data_ptr(),
             out.data_ptr(), B, Hq, Hkv, T, D, Nb, S, Lc, pages_per_tile(S),
@@ -205,20 +225,24 @@ def _launch(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
             _PAGE_CODES[kind], stream)
     _build.check_launch(rc, "stream_attention")
     launches[kind] += 1
+    if page_keep is not None:
+        global masked_launches
+        masked_launches += 1
     return out
 
 
 def stream_attention_ref(q_rot, q_one, block_k, block_v, cos_cover,
                          sin_cover, k_init_rot, v_init, k_init_raw, scalars,
-                         *, n_local: int, k_scales=None,
-                         v_scales=None) -> torch.Tensor:
+                         *, n_local: int, k_scales=None, v_scales=None,
+                         page_keep=None) -> torch.Tensor:
     """Plain PyTorch version of the kernel: one full softmax over
     [init-local | page cover | init-far] (the three-group joint softmax of
     the JAX engine's _stream_attention), with the kernel's rounding points:
     quantized pages dequantized in f32, rotated keys (and dequantized
     values) in the input dtype, probabilities rounded to the value dtype
     before P @ V, output normalised by the unrounded sum (0 where no key is
-    visible)."""
+    visible).  page_keep ANDs the window pages' keep rows into the window
+    group's mask (the JAX engine's jnp path)."""
     B, Hq, T, D = q_rot.shape
     Hkv, Nb, S = block_k.shape[1], block_k.shape[2], block_k.shape[3]
     G = Hq // Hkv
@@ -245,6 +269,8 @@ def stream_attention_ref(q_rot, q_one, block_k, block_v, cos_cover,
     abs_page = page + offset[:, None]
     pos = n_init + abs_page * S + c % S                         # (B, Lc)
     key_ok = in_store & (abs_page < total[:, None])
+    if page_keep is not None:
+        key_ok = key_ok & page_keep[bidx, pg, c % S]
 
     q_pos = L[:, None] + torch.arange(T, device=dev)            # (B, T)
     dist = q_pos[:, :, None] - pos[:, None, :]

@@ -18,10 +18,15 @@ and per-stream questions over the state after it (the ServingEngine of
 runtime/serving.py drives it).  With ReKVConfig.spec_decode_draft > 0 the
 answers decode speculatively by prompt lookup (the same tokens as greedy),
 drafting also from each stream's earlier questions and answers
-(spec_history_tokens).  Left out until their ROADMAP.md items land: meshes
-and the layerwise ablation scorers.  stc_tpu's measured-cost router between
-one merged XLA program and two is a TPU dispatch mechanism the port does not
-keep: ``serve`` always takes its serve path where that path is eligible.
+(spec_history_tokens).  With a host-side block scorer
+(ReKVConfig.retrieval_scorer 'aks', 'dpc_knn' or 'l2norm') a question runs
+the layerwise retrieval forward: the device computes a layer's rep
+logits, the scorer picks its blocks on the host, and host-tier pages it
+picks are fetched, layer by layer (one host round trip a layer).  Left out
+until its ROADMAP.md item lands: meshes.  stc_tpu's measured-cost router
+between one merged XLA program and two is a TPU dispatch mechanism the port
+does not keep: ``serve`` always takes its serve path where that path is
+eligible.
 """
 
 from __future__ import annotations
@@ -32,8 +37,11 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from stc_tpu_torch.compress.scoring import select_blocks
 from stc_tpu_torch.config import SessionConfig
 from stc_tpu_torch.kvcache import engine, host_tier
+from stc_tpu_torch.kvcache.state import layer
+from stc_tpu_torch.models import qwen2 as qw
 from stc_tpu_torch.models.qwen2 import Qwen2
 from stc_tpu_torch.ops.stream_attention import dequant_rows
 
@@ -55,7 +63,6 @@ def _stop_arr(stop_token_ids) -> np.ndarray:
 class StreamingSession:
     def __init__(self, lm: Qwen2, session_cfg: SessionConfig, batch: int = 1,
                  state_dtype=torch.bfloat16):
-        session_cfg.check_main_path()
         if session_cfg.weights_quant != "none":
             # in place, as stc_tpu's session quantizes its params at build
             lm.quantize_int8(session_cfg.weights_quant_group)
@@ -344,6 +351,14 @@ class StreamingSession:
         args = (self._ids(q_ids), self._ids(q_len), self._ids(p_ids),
                 self._ids(p_len), self._ids(_stop_arr(stop_token_ids)),
                 max_new_tokens)
+        if rc.retrieval_scorer != "mean_dot" and ext is None:
+            # host-side scorers: layer by layer, host-tier pages included
+            dkvs = self._qa_retrieve_layerwise(q_ids, q_len)
+            tokens, count = self.lm._answer(rc, dkvs, *args,
+                                            **self._hist_kw())
+            self.qa_rounds = 1
+            return self._qa_finish(q_ids, q_len, p_ids, p_len, tokens,
+                                   count, hist_rows)
         if self._evicted_pages > 0:
             tokens, count, abs_idx, exists = self._qa_hosttier(args, ext)
         else:
@@ -352,14 +367,84 @@ class StreamingSession:
                 retrieved_indices=None if ext is None else self._ids(ext),
                 **self._hist_kw())
             self.qa_rounds = 1
-        a, e = abs_idx.cpu().numpy(), exists.cpu().numpy()
-        per = [[[int(i) for i in a[l, b][e[l, b]]] for b in range(B)]
-               for l in range(a.shape[0])]
-        self.last_retrieved_indices = per if B > 1 else [p[0] for p in per]
+        self._set_retrieved(abs_idx.cpu().numpy(), exists.cpu().numpy())
+        return self._qa_finish(q_ids, q_len, p_ids, p_len, tokens, count,
+                               hist_rows)
+
+    def _set_retrieved(self, a, e):
+        """last_retrieved_indices from abs_idx / exists (L, B, topk): each
+        layer's blocks, stream 0's at batch 1, one list per stream
+        above."""
+        per = [[[int(i) for i in a[l, b][e[l, b]]]
+                for b in range(self.batch)] for l in range(a.shape[0])]
+        self.last_retrieved_indices = (per if self.batch > 1
+                                       else [p[0] for p in per])
+
+    def _qa_finish(self, q_ids, q_len, p_ids, p_len, tokens, count,
+                   hist_rows):
         tokens, count = tokens.cpu().numpy(), count.cpu().numpy()
         self._hist_append(q_ids, q_len, p_ids, p_len, tokens, count,
                           rows=hist_rows)
         return tokens, count
+
+    def _qa_retrieve_layerwise(self, q_ids, q_len):
+        """Question forward with host-side block selection, layer by layer
+        (stc_tpu's _qa_retrieve_layerwise): the device computes a layer's
+        rep logits and mean query, the configured scorer (select_blocks)
+        picks each stream's blocks among its own real ones on the host,
+        host-tier pages it picks are fetched, and the layer attends them.
+        One host round trip a layer.  Sets last_retrieved_indices; returns
+        the decode state with each layer's retrieved prefix installed."""
+        rc, mc, B = self.rekv, self.mcfg, self.batch
+        dev, dt = self.device, self.kvs.init_k.dtype
+        S, Hkv, D = rc.block_size, mc.num_kv_heads, mc.head_dim
+        G = mc.num_heads // Hkv
+        n_tok = self._ids(np.broadcast_to(np.asarray(q_len, np.int32), (B,)))
+        h = self.lm.embed_tokens(self._ids(q_ids))
+        dkvs = self.lm.init_decode_state(rc, B, dt)
+        seed = qw.compress_seed(rc, self.kvs)
+        # per-stream block counts: ragged or recycled slots hold fewer
+        # blocks than the longest stream and score only their own
+        nbs = [int(self._stream_blocks[b]) if self._ragged
+               else self._total_blocks for b in range(B)]
+        picks = np.full((mc.num_layers, B, rc.topk), -1, np.int32)
+        for l in range(mc.num_layers):
+            kv = layer(self.kvs, l)
+            q, k, v, logits, _, q_mean = self.lm.qa_layer_logits(
+                l, rc, kv, h, n_tok)
+            n_max = max(nbs)
+            logits_np = logits[:, :n_max].float().cpu().numpy()
+            reps_np = kv.block_rep[:, :n_max].float().cpu().numpy()
+            q_mean_np = q_mean.float().cpu().numpy()
+            arr = picks[l]
+            for b, nb in enumerate(nbs):
+                if nb == 0:
+                    continue
+                reps_flat = np.repeat(reps_np[b, :nb], G,
+                                      axis=1).reshape(nb, -1)
+                idx = select_blocks(rc.retrieval_scorer, logits_np[b, :nb],
+                                    reps_flat, q_mean_np[b].reshape(-1),
+                                    rc.topk, rc.chunk_size)
+                arr[b, :len(idx)] = np.asarray(idx, np.int32)
+            use_host = (arr >= 0) & (arr < self._evicted_pages)
+            host_k = torch.zeros((B, rc.topk, Hkv, S, D), dtype=dt,
+                                 device=dev)
+            host_v = torch.zeros_like(host_k)
+            for b in range(B):
+                if use_host[b].any():
+                    hk, hv = self.host_store.fetch(l, b, arr[b][use_host[b]])
+                    cols = torch.as_tensor(np.nonzero(use_host[b])[0],
+                                           device=dev)
+                    host_k[b, cols] = hk.to(device=dev, dtype=dt)
+                    host_v[b, cols] = hv.to(device=dev, dtype=dt)
+            h, cur = self.lm.qa_layer_attend(
+                l, rc, kv, layer(dkvs, l), h, q, k, v, self._ids(arr),
+                torch.as_tensor(arr >= 0, device=dev),
+                torch.as_tensor(use_host, device=dev), host_k, host_v,
+                qw.compress_generator(seed, dev))
+            dkvs.cursor[l] = cur
+        self._set_retrieved(picks, picks >= 0)
+        return dkvs
 
     # ------------------------------------------------------------------ #
     def set_spec_decode(self, draft: int,

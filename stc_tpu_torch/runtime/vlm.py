@@ -14,6 +14,11 @@ per-stream questions over the state after it.  A slot's vision state can
 leave with its stream and come back in another slot or session
 (``extract_stream`` / ``restore_stream``, utils/checkpoint.py).  Raw uint8
 RGB frames go to the device as they are; normalisation happens there.
+With ``SessionConfig.ingest_format='yuv420'`` the host packs each chunk
+into planar 4:2:0 planes (half the bytes; already-packed planes pass
+through) and the device rebuilds RGB before normalising.  ``stage_chunk``
+stages one chunk on the device ahead of time; ``encode_video`` takes such
+a staged tensor as one chunk (runtime/pipeline.py's ``stream_encode``).
 """
 
 from __future__ import annotations
@@ -22,28 +27,78 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from stc_tpu_torch import native
 from stc_tpu_torch.runtime.session import StreamingSession
 
 
 class Preprocessor:
-    """RGB frame preprocessor: ``host`` stages frames (uint8 passes through
-    untouched), ``device`` finishes on the device: (N, H, W, 3) uint8 (or
-    0-255 float) -> (N, 3, S, S) normalised, resized with plain half-pixel
-    bilinear when the frames are not S x S."""
+    """Frame preprocessor in two halves.  ``host`` stages frames: uint8 RGB
+    passes through untouched, or with ingest='yuv420' packs into planar
+    BT.601 4:2:0 planes (N, h*w*3//2), half the bytes (already-packed
+    planes pass through; ``src_hw`` gives their geometry).  ``device``
+    finishes on the device: (N, H, W, 3) uint8 (or 0-255 float), or packed
+    planes, -> (N, 3, S, S) normalised, resized with plain half-pixel
+    bilinear when the frames are not S x S.  The port has no jit keyed on
+    the geometry: a new src_hw takes effect at the next call."""
 
-    def __init__(self, image_size: int, mean, std, dtype):
+    def __init__(self, image_size: int, mean, std, dtype,
+                 ingest: str = "rgb"):
         self.image_size = image_size
         self.mean = np.asarray(mean, np.float32)
         self.std = np.asarray(std, np.float32)
         self.dtype = dtype
+        self.ingest = ingest
+        self._src_hw = None  # (h, w) of packed planes, set by host()
 
     def host(self, frames) -> np.ndarray:
         frames = np.asarray(frames)
+        if frames.dtype == np.uint8 and self.ingest == "yuv420":
+            if frames.ndim == 2:  # already-packed planes
+                if self._src_hw is None:
+                    raise ValueError(
+                        "packed yuv420 planes need src_hw: stage one RGB "
+                        "chunk first or set src_hw = (h, w)")
+                return np.ascontiguousarray(frames)
+            self._src_hw = (frames.shape[1], frames.shape[2])
+            return native.rgb_to_yuv420(frames)
         if frames.dtype == np.uint8:
             return np.ascontiguousarray(frames)
         return frames
 
+    @property
+    def src_hw(self):
+        return self._src_hw
+
+    @src_hw.setter
+    def src_hw(self, hw):
+        self._src_hw = (int(hw[0]), int(hw[1]))
+
+    def _yuv_to_rgb(self, x: torch.Tensor) -> torch.Tensor:
+        """(N, h*w*3//2) packed uint8 planes -> (N, h, w, 3) float32 RGB in
+        [0, 255] on x's device: nearest 2x2 chroma upsample and the BT.601
+        full-range matrix, in float32 as the JAX package computes it."""
+        h, w = self._src_hw
+        if x.shape[1] != h * w * 3 // 2:
+            raise ValueError(
+                f"packed yuv420 length {x.shape[1]} does not match src_hw "
+                f"({h}, {w}) -> {h * w * 3 // 2}")
+        N, ch, cw = x.shape[0], h // 2, w // 2
+        y = x[:, :h * w].reshape(N, h, w).to(torch.float32)
+
+        def up(c):
+            return c.reshape(N, ch, cw).repeat_interleave(2, 1) \
+                .repeat_interleave(2, 2).to(torch.float32) - 128.0
+
+        uf = up(x[:, h * w:h * w + ch * cw])
+        vf = up(x[:, h * w + ch * cw:])
+        r = y + 1.402 * vf
+        g = y - 0.344136 * uf - 0.714136 * vf
+        b = y + 1.772 * uf
+        return torch.stack([r, g, b], dim=-1).clamp(0.0, 255.0)
+
     def device(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dim() == 2:  # packed yuv420 planes
+            x = self._yuv_to_rgb(x)
         x = x.to(torch.float32) / 255.0
         S = self.image_size
         if x.shape[1] != S or x.shape[2] != S:
@@ -143,24 +198,37 @@ class VLMSession(StreamingSession):
     @torch.no_grad()
     def encode_video(self, frames, active=None):
         """frames: (n, H, W, 3) uint8 of one stream, or (B, n, H, W, 3) of
-        the session's B streams, streamed encode_chunk_frames at a time.
-        active: optional (B,) bool ragged mask: inactive streams' frames
-        are ignored and their KV, cacher and pruner state stay
-        bit-identical."""
+        the session's B streams (with yuv420 ingest also packed planes,
+        (n, P) or (B, n, P)), streamed encode_chunk_frames at a time.  A
+        torch tensor is one chunk already staged (stage_chunk), its B * n
+        frames stream-major.  active: optional (B,) bool ragged mask:
+        inactive streams' frames are ignored and their KV, cacher and
+        pruner state stay bit-identical."""
+        if torch.is_tensor(frames):
+            self._encode_chunk_pixels(frames, frames.shape[0] // self.batch,
+                                      active)
+            return
         frames = np.asarray(frames)
-        if frames.ndim == 5:
+        multi = frames.ndim == (3 if frames.ndim < 4 else 5)
+        if multi:
             if frames.shape[0] != self.batch:
                 raise ValueError(f"frames of {frames.shape[0]} streams for "
                                  f"a {self.batch}-stream session")
         elif self.batch > 1:
             raise ValueError("a multi-stream session takes (B, n, H, W, 3) "
                              "frames")
-        axis = frames.ndim - 4
+        axis = int(multi)
         n = self.scfg.encode_chunk_frames
         for s in range(0, frames.shape[axis], n):
             chunk = frames[:, s:s + n] if axis else frames[s:s + n]
             self._encode_chunk_pixels(self.vision.preprocess(chunk),
                                       chunk.shape[axis], active)
+
+    def stage_chunk(self, frames) -> torch.Tensor:
+        """One chunk of frames staged on the device (the host half of the
+        preprocess, then the copy), for encode_video."""
+        return torch.as_tensor(self.vision.preprocess(frames)).to(
+            self.device, non_blocking=True)
 
     @torch.no_grad()
     def serve(self, frames, active, questions, prompts, stop_token_ids,

@@ -113,10 +113,34 @@ def test_port_configs_match_jax_derived_sizes():
 @pytest.mark.parametrize("kw", [
     dict(window_kv_compression="select_top_half"),
     dict(retrieval_scorer="aks"),
-    dict(retrieved_kv_compression="filter_tokens_top_half")])
-def test_unported_settings_raise(kw):
-    with pytest.raises(NotImplementedError):
-        tcfg.ReKVConfig(**kw).check_main_path()
+    dict(retrieved_kv_compression="filter_tokens_top_half"),
+    dict(sim_source="value"),
+    dict(ingest_format="yuv420")])
+def test_unported_settings_raise(kw, one_thread):
+    """The settings the port once refused (they raised NotImplementedError
+    until the ablation slice) now build a tiny CPU pixel session that
+    streams frames and answers."""
+    from stc_tpu_torch.models import llava_onevision as lo
+    rk = {k: v for k, v in kw.items() if hasattr(tcfg.ReKVConfig, k)}
+    ck = {k: v for k, v in kw.items() if hasattr(tcfg.CacherConfig, k)}
+    sk = {k: v for k, v in kw.items() if k == "ingest_format"}
+    scfg = tcfg.SessionConfig(
+        rekv=tcfg.ReKVConfig(n_init=4, n_local=128, block_size=3,
+                             exc_block_size=3, topk=4, max_blocks=64,
+                             max_prompt_tokens=32, max_new_tokens=8, **rk),
+        cacher=tcfg.CacherConfig(update_token_ratio=0.5, **ck),
+        pruner=tcfg.PrunerConfig(token_per_frame=3), **sk)
+    model = lo.LlavaOV(lo.LlavaOVConfig.tiny(), dtype=torch.float32,
+                       device="cpu").init_random_params(
+        torch.Generator().manual_seed(0))
+    sess = lo.build_session(model, scfg, state_dtype=torch.float32,
+                            device="cpu")
+    sess.encode_init_prompt([1, 2, 3, 4])
+    sess.encode_video(np.random.default_rng(0).integers(
+        0, 256, (6, 56, 56, 3), dtype=np.uint8))
+    out = sess.question_answering([5, 6], [5, 6, 7], [0], max_new_tokens=4)
+    assert 1 <= len(out) <= 4
+    assert [len(p) for p in sess.last_retrieved_indices] == [4, 4]
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):

@@ -691,3 +691,146 @@ def test_spec_decode_equals_greedy_on_card(cuda_device):
                                                 got[b], want[b])
                 assert dep["near_tie"], dep
     assert lm.spec_rounds > rounds
+
+
+def _keep_half(kv_or_nb, Nb, S, seed):
+    """A page_keep mask (1, Nb, S) that keeps a random half of every page
+    below nb (window compression's rows) and all of the rest."""
+    g = torch.Generator().manual_seed(seed)
+    keep = torch.ones((1, Nb, S), dtype=torch.bool)
+    order = torch.rand((kv_or_nb, S), generator=g).argsort(-1)
+    keep[0, :kv_or_nb].scatter_(1, order[:, S // 2:], False)
+    return keep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", ["none", "int8", "int4"])
+@pytest.mark.parametrize("heads", TC_HEADS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_masked_stream_attention_on_card(cuda_device, quant, heads, dtype):
+    """stream_attention with page_keep (window compression) on the three
+    page kinds, the FMA tile (float32) and the tensor-core tile (bf16):
+    the kernel against its plain version; no mask and an all-ones mask
+    give the same output bit for bit; the masked launches are counted."""
+    T, n = 8, 12
+    cfg = ReKVConfig(**dict(BASE, kv_quant=quant))
+    scales = {}
+    ops = _stream_operands(cfg, n, T, seed=7 * n + heads[2],
+                           scales=scales if quant != "none" else None,
+                           heads=heads)
+    keep_idx = (2, 3, 4, 5, 9) if quant != "none" else (4, 5, 9)
+    a = [x.to(cuda_device, dtype if i not in keep_idx else x.dtype)
+         .contiguous() for i, x in enumerate(ops)]
+    kw = dict(n_local=cfg.n_local,
+              **{k: v.to(cuda_device) for k, v in scales.items()})
+    keep = _keep_half(n, cfg.max_blocks, cfg.block_size, n).to(cuda_device)
+    kind = "float" if quant == "none" else quant
+    before, masked = sa.launches[kind], sa.masked_launches
+    got = sa.stream_attention(*a, **kw, page_keep=keep)
+    assert sa.launches[kind] == before + 1
+    assert sa.masked_launches == masked + 1
+    want = sa.stream_attention_ref(*a, **kw, page_keep=keep)
+    assert torch.isfinite(got.float()).all()
+    assert_agrees(got, want)
+    plain = sa.stream_attention(*a, **kw)
+    ones = sa.stream_attention(*a, **kw, page_keep=torch.ones_like(keep))
+    assert torch.equal(plain, ones)
+    assert not disagreement(got, plain)["agrees"]
+
+
+@pytest.mark.cuda
+def test_failed_build_raises_and_nothing_falls_back(cuda_device,
+                                                    monkeypatch):
+    """A kernel library that cannot be built makes the wrapper raise on a
+    CUDA tensor; the plain version is never run in its place."""
+    from stc_tpu_torch.kernels import _build
+    cfg = ReKVConfig(**BASE)
+    ops = _stream_operands(cfg, 3, 8, seed=3)
+    a = [x.to(cuda_device).contiguous() for x in ops]
+
+    def broken(name):
+        raise RuntimeError("nvcc failed: planted")
+
+    def no_fallback(*args, **kw):
+        raise AssertionError("the plain version ran on a CUDA tensor")
+
+    monkeypatch.setattr(_build, "load", broken)
+    monkeypatch.setattr(sa, "stream_attention_ref", no_fallback)
+    keep = torch.ones((1, cfg.max_blocks, cfg.block_size), dtype=torch.bool,
+                      device=cuda_device)
+    with pytest.raises(RuntimeError, match="planted"):
+        sa.stream_attention(*a, n_local=cfg.n_local, page_keep=keep)
+
+
+@pytest.mark.cuda
+def test_yuv_unpack_on_card(cuda_device):
+    """The packed-plane reconstruction on the card equals the numpy one
+    (float32, the same operations) and the CPU's."""
+    from stc_tpu_torch import native
+    from stc_tpu_torch.runtime.vlm import Preprocessor
+    rng = np.random.default_rng(0)
+    frames = rng.integers(0, 256, size=(3, 64, 36, 3), dtype=np.uint8)
+    pre = Preprocessor(28, (0.5,) * 3, (0.5,) * 3, torch.float32,
+                       ingest="yuv420")
+    packed = pre.host(frames)
+    np.testing.assert_array_equal(packed, native._rgb_to_yuv420_np(frames))
+    h, w = 64, 36
+    y = packed[:, :h * w].reshape(3, h, w).astype(np.float32)
+    u = packed[:, h * w:h * w + h * w // 4].reshape(3, h // 2, w // 2)
+    v = packed[:, h * w + h * w // 4:].reshape(3, h // 2, w // 2)
+
+    def up(c):
+        return c.repeat(2, 1).repeat(2, 2).astype(np.float32) - np.float32(
+            128)
+
+    uf, vf = up(u), up(v)
+    want = np.clip(np.stack([y + np.float32(1.402) * vf,
+                             y - np.float32(0.344136) * uf
+                             - np.float32(0.714136) * vf,
+                             y + np.float32(1.772) * uf], -1), 0, 255)
+    x = torch.from_numpy(packed)
+    got = pre._yuv_to_rgb(x.to(cuda_device)).cpu().numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(got, pre._yuv_to_rgb(x).numpy())
+    np.testing.assert_allclose(pre.device(x.to(cuda_device)).cpu().numpy(),
+                               pre.device(x).numpy(), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_layerwise_scorer_question_on_card(cuda_device):
+    """A tiny feature session with the aks scorer, retrieved-KV compression
+    and window compression on the card: every append launches the masked
+    kernel once a layer, every layer of the layerwise forward one
+    decode_attention, and the answer and each layer's blocks equal the
+    same session's on the CPU."""
+    from stc_tpu_torch.models import qwen2 as qw
+    from stc_tpu_torch.runtime.session import StreamingSession
+    mcfg = qw.Qwen2Config.tiny()
+    scfg = SessionConfig(rekv=ReKVConfig(
+        n_init=6, n_local=256, block_size=8, exc_block_size=8, topk=4,
+        max_blocks=64, max_prompt_tokens=64, max_new_tokens=8,
+        retrieval_scorer="aks",
+        retrieved_kv_compression="filter_tokens_simple",
+        window_kv_compression="select_top_half"))
+    feats = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(1, 20 * 8, mcfg.hidden_size)).astype(np.float32))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for dev in ("cpu", cuda_device):
+        lm = qw.Qwen2(mcfg, torch.float32, "cpu").init_random_params(
+            torch.Generator().manual_seed(0)).to(dev)
+        sess = StreamingSession(lm, scfg, state_dtype=torch.float32)
+        m0, d0 = sa.masked_launches, da.launches
+        sess.encode_init_prompt(list(range(6)))
+        sess.encode_video_features(feats)
+        out = sess.question_answering([3, 4, 5], [3, 4, 5, 6], [0],
+                                      max_new_tokens=6)
+        if dev != "cpu":
+            L = mcfg.num_layers
+            assert sa.masked_launches - m0 == 20 * L
+            assert da.launches - d0 == (2 + len(out)) * L
+        res[str(dev)] = (out, sess.last_retrieved_indices,
+                         sess.kvs.page_keep.cpu())
+    assert res["cuda:0"][0] == res["cpu"][0]
+    assert res["cuda:0"][1] == res["cpu"][1]
+    assert torch.equal(res["cuda:0"][2], res["cpu"][2])

@@ -37,6 +37,24 @@ def test_sources_import_no_jax_and_no_stc_tpu():
     assert not FORBIDDEN.search("from stc_tpu_torch.ops import rope")
 
 
+def test_ablation_and_frame_sources_name_no_stc_tpu():
+    """The modules that copy or rewrite parts of stc_tpu (the scoring and
+    experiments libraries, the frame library's binding and C++ source, the
+    host pipeline) do not name the JAX package anywhere, comments
+    included."""
+    name = re.compile(r"\bstc_tpu\b(?!_torch)")
+    files = [PKG / "native.py", PKG / "compress" / "scoring.py",
+             PKG / "compress" / "experiments.py",
+             PKG / "runtime" / "pipeline.py",
+             PKG / "csrc" / "frameproc.cpp"]
+    bad = [f"{f.relative_to(ROOT)}:{i + 1}" for f in files
+           for i, line in enumerate(f.read_text().splitlines())
+           if name.search(line)]
+    assert not bad, bad
+    assert name.search("from stc_tpu import native")
+    assert not name.search("from stc_tpu_torch import native")
+
+
 def test_importing_and_running_the_port_loads_no_jax():
     """A fresh interpreter imports every module of the port, runs a tiny
     session on the CPU and reloads its model from an HF checkpoint
@@ -45,6 +63,7 @@ def test_importing_and_running_the_port_loads_no_jax():
     code = f"BLOCKED = {BLOCKED!r}\n" + textwrap.dedent("""
         import importlib, pkgutil, sys
         import numpy as np, torch
+        import dataclasses
         import stc_tpu_torch
         mods = [m.name for m in pkgutil.walk_packages(
             stc_tpu_torch.__path__, "stc_tpu_torch.")]
@@ -71,6 +90,23 @@ def test_importing_and_running_the_port_loads_no_jax():
         sess.encode_video(frames)
         out = sess.question_answering([5, 6], [5, 6, 7], [0],
                                       max_new_tokens=4)
+        assert 1 <= len(out) <= 4, out
+        # the ablation settings and yuv420 ingest with the host frame
+        # library and the prefetcher
+        from stc_tpu_torch.runtime.pipeline import stream_encode
+        scfg_ab = dataclasses.replace(
+            scfg, ingest_format="yuv420",
+            cacher=dataclasses.replace(scfg.cacher, sim_source="value"),
+            rekv=dataclasses.replace(
+                scfg.rekv, retrieval_scorer="aks",
+                window_kv_compression="select_top_half",
+                retrieved_kv_compression="filter_tokens_random"))
+        sess_ab = lo.build_session(model, scfg_ab,
+                                   state_dtype=torch.float32, device="cpu")
+        sess_ab.encode_init_prompt([1, 2, 3, 4])
+        stream_encode(sess_ab, frames)
+        out = sess_ab.question_answering([5, 6], [5, 6, 7], [0],
+                                         max_new_tokens=4)
         assert 1 <= len(out) <= 4, out
         # two streams past a 24-page store: the host tier evicts, and a
         # question over the evicted pages is answered

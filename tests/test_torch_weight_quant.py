@@ -145,7 +145,7 @@ def test_quantized_feature_session_answers_equal_jax(quant):
 
 def test_weights_quant_strings_accepted_and_refused():
     """The config takes what stc_tpu's takes (tests/test_quant.py), and
-    weights_quant no longer stops a session; yuv420 ingest still does."""
+    refuses what it refuses; no setting it takes stops a session."""
     S = tcfg.SessionConfig
     assert S(weights_quant="int8_g128").weights_quant_group == 128
     assert S(weights_quant="int8").weights_quant_group == 0
@@ -154,6 +154,7 @@ def test_weights_quant_strings_accepted_and_refused():
         with pytest.raises(AssertionError):
             S(weights_quant=bad)
     for ok in ("int8", "int8_g32"):
-        S(weights_quant=ok).check_main_path()
-    with pytest.raises(NotImplementedError, match="yuv420"):
-        S(ingest_format="yuv420").check_main_path()
+        assert S(weights_quant=ok).weights_quant == ok
+    assert S(ingest_format="yuv420").ingest_format == "yuv420"
+    with pytest.raises(AssertionError):
+        S(ingest_format="nv12")

@@ -28,14 +28,20 @@ each of which makes the script exit non-zero when it fails:
      page_keep mask (window compression: half of every older page dropped)
      on an 8-page append over the 264-page window, at 0.5b heads on bf16
      pages and 7B heads on int8 pages, its library SDPA with the same
-     boolean mask;
+     boolean mask; and the CLIP backbones' shapes: stream_attention's
+     one-frame append over the full window on bf16 pages at Vicuna's heads
+     (32/32/128, G = 1) with 257-token pages (Video-LLaVA) and 64-token
+     pages (Flash-VStream) and at LongVA's 28/4 heads with 144-token
+     pages, decode_attention at 32/32/128 (a token step and a 256-token
+     prefill);
      each bound counts bytes, products and exponentials at the data
      sheet's clock; then
      planted faults (a key group dropped, a mask one page or one slot off,
      the neighbouring page's scales, the int4 nibble planes swapped, every
      stream reading stream 0's scalars or cursors, one stream's page
      offset one page off, each query of a verify call seeing the draft
-     after it, each page reading its neighbour's keep row) that those
+     after it, each page reading its neighbour's keep row; at 257-token
+     pages a key group dropped and the window one page off) that those
      limits must reject;
   3. the main path: the LLaVA-OV + ReKV session at llava-ov-0.5b width and
      depth (SigLIP 1152 x 27 layers at 384 px in float32, Qwen2 896 x 24
@@ -114,7 +120,21 @@ each of which makes the script exit non-zero when it fails:
      8-frame cached chunk); (e) 16 frames through ingest_format='yuv420',
      answers equal to an RGB session fed the numpy reconstruction of the
      same planes, H2D bytes a frame, and stream_encode's prefetcher
-     against synchronous staging (frames/s).
+     against synchronous staging (frames/s);
+ 14. the CLIP backbones at the widths and session configs of their
+     modules' defaults (bf16 LM and pages, float32 CLIP tower, random
+     weights from a seeded torch.Generator), each freed before the next:
+     (a) LongVA-7B (CLIP-L/14-336, Qwen2 3584 x 28, 28/4 heads), 80
+     one-frame chunks alternating full and MLP-skip (skip ratio 0.8); (b)
+     Video-LLaVA-7B (CLIP-L/14 at 224 px, 257 tokens a frame with CLS,
+     Vicuna 4096 x 32, 32/32 heads), 48 frames in 8-frame chunks (one
+     append a frame); (c) Flash-VStream-7B (CLIP-L/14-336 compressed to 64
+     tokens, Vicuna), 96 one-frame chunks; each past its window and its
+     init-fill crossing, two questions of up to 16 tokens; launches =
+     appends x layers and LM forwards x layers, both kernels against their
+     plain versions on the session's own state at a middle layer, (a)'s
+     cache_stats equal to what its recomputed rows give; frames/s (full
+     and cached chunks apart), QA p50, page-store and weight bytes.
 
 Prints JSON lines; the line before the last holds one entry per kernel
 (route, source, the TPU kernel it replaces, launches on its path, error,
@@ -331,7 +351,7 @@ def half_keep(states, n_new, Nb, S, dev, gen):
 
 def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
                 Nb=1024, n_init=14, exc=480, quant=None, states=None,
-                keep=False):
+                keep=False, rope_base=1e6):
     """One stream_attention call of the main path's configuration
     (exc_block_size 480: a 264-page window cover), T new tokens with
     `pages` pages in the store after their write.  With states, a call
@@ -344,7 +364,8 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
     a page_keep mask that drops half of every older page (half_keep), and
     the library is SDPA with the same boolean mask (on dequantized bf16
     pages where quantized).  Returns the record, the wrapper's arguments
-    and keywords, and the plain version's output."""
+    and keywords, and the plain version's output.  rope_base: the model's
+    (Qwen2's 1e6 by default, Vicuna's 1e4)."""
     from stc_tpu_torch.config import ReKVConfig
     from stc_tpu_torch.kvcache import engine
     from stc_tpu_torch.ops import stream_attention as sa
@@ -364,7 +385,8 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
                        device=dev)
     if int((nb + n_new - off).max()) > Nb:
         raise RuntimeError(f"{name}: states {states} outgrow {Nb} pages")
-    rc = engine.make_rope_cache(n_init + nb * S, nb, T, cfg, D, 1e6, off)
+    rc = engine.make_rope_cache(n_init + nb * S, nb, T, cfg, D, rope_base,
+                                off)
     kw = dict(n_local=n_local)
     if quant is None:
         bk, bv = rnd(B, Hkv, Nb, S, D), rnd(B, Hkv, Nb, S, D)
@@ -681,6 +703,20 @@ KEEP_05B = ("stream page_keep 8-page append (T 480), 264 pages, half of "
 KEEP_7B_INT8 = ("stream int8 page_keep 7B heads (28/4/128), 8-page append, "
                 "264 pages, half of every older page dropped")
 B4_STATES_7B = [(20, 0), (290, 0), (340, 56), (400, 112)]
+# the CLIP backbones' shapes (phase 14): one-frame appends over the full
+# window at Vicuna's heads (32/32/128, G = 1) on 257-token pages
+# (Video-LLaVA: 40 window pages, one a cover tile) and 64-token pages
+# (Flash-VStream: 64 pages, 8 a tile), and LongVA's 28/4 heads on
+# 144-token pages (64 pages, 2 a tile); decode_attention at Vicuna's heads
+# over Video-LLaVA's decode cache
+VL_STREAM = ("stream Vicuna heads (32/32/128) 257-token pages, 1-frame "
+             "append, 48 pages (40-page window)")
+LV_STREAM = ("stream LongVA heads (28/4/128) 144-token pages, 1-frame "
+             "append, 80 pages (64-page window)")
+FV_STREAM = ("stream Vicuna heads (32/32/128) 64-token pages, 1-frame "
+             "append, 96 pages (64-page window)")
+VL_DECODE_PREFILL = "decode prefill T=256 Vicuna heads (32/32/128)"
+VL_DECODE_TOKEN = "decode token T=1 Vicuna heads (32/32/128)"
 
 
 def planted_faults(inputs) -> list:
@@ -764,6 +800,10 @@ def planted_faults(inputs) -> list:
          lambda: decode(VERIFY_DECODE, start_delta=1)),
         ("stream page_keep: each page reads its neighbour's keep row",
          lambda: neighbour_keep(KEEP_05B)),
+        ("stream 257-token pages: third key group dropped (init_active "
+         "1 -> 0)", lambda: scalar(VL_STREAM, 3, -1)),
+        ("stream 257-token pages: window pages one page late "
+         "(page_offset + 1)", lambda: scalar(VL_STREAM, 4, 1)),
     ]
     out = []
     for name, run in faults:
@@ -2817,6 +2857,221 @@ def busy(usual: dict, filled: dict) -> dict:
             else None}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the CLIP backbones (LongVA, Video-LLaVA, Flash-VStream) at 7B
+# width
+# ---------------------------------------------------------------------------
+
+# (case, module, frames, frames a chunk, stop ids); widths and session
+# configs are the modules' defaults
+CLIP_BACKBONES = (("a", "longva", 80, 1, [151645]),
+                  ("b", "video_llava", 48, 8, [2]),
+                  ("c", "flash_vstream", 96, 1, [2]))
+CLIP_QUESTIONS = [(list(range(200, 212)), list(range(300, 316))),
+                  (list(range(400, 409)), list(range(500, 516)))]
+
+
+def clip_backbone_run(case, mod_name, n_frames, chunk, stop, card,
+                      dev) -> dict:
+    """One CLIP backbone at its published widths and default session config
+    (bf16 LM and pages, float32 tower, random weights from a seeded
+    torch.Generator): the init prompt, n_frames frames in chunks of
+    `chunk`, two questions of up to 16 greedy tokens.  Gates: launches
+    (stream_attention = appends x layers, decode_attention = LM forwards x
+    layers), both kernels against their plain versions on the session's
+    own state at a middle layer, the window filled and the init-fill
+    crossed where the config puts them, and on the cacher's path
+    cache_stats equal to what the recomputed rows of every cached chunk
+    give."""
+    import importlib
+    from stc_tpu_torch.kvcache import engine
+    from stc_tpu_torch.kvcache.state import layer
+    from stc_tpu_torch.models import clip as cl
+    from stc_tpu_torch.models.longva import ClipVLM
+    from stc_tpu_torch.ops import decode_attention as da
+    from stc_tpu_torch.ops import stream_attention as sa
+    t_phase = time.perf_counter()
+    mod = importlib.import_module(f"stc_tpu_torch.models.{mod_name}")
+    cfg_cls = {"longva": "LongVAConfig", "video_llava": "VideoLlavaConfig",
+               "flash_vstream": "FlashVStreamConfig"}[mod_name]
+    cfg = getattr(mod, cfg_cls)()
+    scfg = mod.default_session_config(cfg)
+    rekv, tc, vc = scfg.rekv, cfg.text, cfg.vision
+    gen = torch.Generator(device=dev).manual_seed(14)
+    torch.cuda.reset_peak_memory_stats()
+    model = ClipVLM(cfg, dtype=torch.bfloat16, vision_dtype=torch.float32,
+                    device=dev)
+    model.init_random_params(gen)
+    sess = mod.build_session(model, scfg, state_dtype=torch.bfloat16,
+                             device=dev)
+    S, T = rekv.block_size, rekv.exc_block_size
+    W, ppt = engine.n_window_pages(rekv), sa.pages_per_tile(S)
+    n_layers, Tv = tc.num_layers, vc.num_tokens
+    frames = np.random.default_rng(14).integers(
+        0, 256, size=(n_frames, vc.image_size, vc.image_size, 3),
+        dtype=np.uint8)
+    reset_counts()
+    sess.encode_init_prompt(list(range(100, 100 + rekv.n_init)))
+    chunks, init_active = [], []
+    rows_skipped = rows_processed = 0
+    for i in range(0, n_frames, chunk):
+        L = int(sess.kvs.length[0, 0].item())
+        path = ("cached" if scfg.cacher.enabled
+                and sess._slot_chunk[0] % scfg.cacher.cache_interval
+                else "full")
+        model.vision.last_rows = []
+        _, dt = timed(lambda: sess.encode_video(frames[i:i + chunk]))
+        # every append of the chunk (one a frame)
+        init_active += [L + (f + 1) * T > rekv.n_local
+                        for f in range(chunk)]
+        chunks.append((path, chunk, dt))
+        rows_processed += chunk * Tv
+        rows_skipped += sum(r.shape[0] * (Tv - r.shape[1])
+                            for r in model.vision.last_rows
+                            if r is not None)
+    n_pages = int(sess.kvs.num_blocks[0, 0].item())
+    qa_s, answers, lm_forwards = [], [], 0
+    captured = {}
+
+    def capture(f):
+        def g(*a, **k):
+            captured["dkvs"] = f(*a, **k)
+            return captured["dkvs"]
+        return g
+
+    for q_ids, p_ids in CLIP_QUESTIONS:
+        with patched([(sess.lm, "init_decode_state", capture)]):
+            out, dt = timed(lambda: sess.question_answering(
+                q_ids, p_ids, stop, max_new_tokens=16))
+        qa_s.append(dt)
+        answers.append(out)
+        lm_forwards += 2 + len(out)
+    counts = read_counts()
+    want = {"stream_attention": {"float": n_layers * n_frames, "int8": 0,
+                                 "int4": 0},
+            "decode_attention": n_layers * lm_forwards, "decode_score": 0,
+            "stream_attention_page_keep": 0}
+    if counts != want:
+        raise RuntimeError(f"phase 14 ({case}) launch counts {counts} != "
+                           f"expected {want}")
+    for a in answers:
+        if not a or not all(0 <= t < tc.vocab_size for t in a):
+            raise RuntimeError(f"phase 14 ({case}): bad answer {a}")
+    k_init = next(k for k in range(n_frames)
+                  if rekv.n_init + (k + 1) * T > rekv.n_local)
+    if n_pages != n_frames or init_active != [
+            k >= k_init for k in range(n_frames)] or n_frames <= W:
+        raise RuntimeError(f"phase 14 ({case}): {n_pages} pages for "
+                           f"{n_frames} frames, init_active {init_active}; "
+                           f"expected from frame {k_init}, past {W} pages")
+    stats = cl.cache_stats(sess._vstate)
+    stats_want = {"total_tokens_processed": rows_processed,
+                  "total_tokens_skipped": rows_skipped,
+                  "actual_skip_ratio": rows_skipped / rows_processed}
+    if stats != stats_want or (scfg.cacher.enabled) != (rows_skipped > 0):
+        raise RuntimeError(f"phase 14 ({case}): cache_stats {stats} != "
+                           f"the recomputed rows' {stats_want}")
+
+    # both kernels on the session's own state, a middle layer: the next
+    # one-frame append over the full window (a cover of W / ppt + 1 tiles),
+    # and the last question's decode cache
+    li = n_layers // 2
+    kv = layer(sess.kvs, li)
+    rc = engine.make_rope_cache(kv.length, kv.num_blocks, T, rekv,
+                                tc.head_dim, tc.rope_base, kv.page_offset)
+    q = torch.randn((1, tc.num_heads, T, tc.head_dim), generator=gen,
+                    device=dev).bfloat16()
+    args = (q, q.flip(2).contiguous(), kv.block_k, kv.block_v, rc.cos_cover,
+            rc.sin_cover, kv.init_k, kv.init_v, kv.init_k, rc.scalars)
+    stream_check = held(f"phase 14 ({case}) session state",
+                        sa.stream_attention(*args, n_local=rekv.n_local),
+                        sa.stream_attention_ref(*args, n_local=rekv.n_local))
+    dkv = layer(captured["dkvs"], li)
+    Tq = 16
+    qd = torch.randn((1, tc.num_heads, Tq, tc.head_dim), generator=gen,
+                     device=dev).bfloat16()
+    start = (dkv.cursor - Tq).to(torch.int32)
+    dargs = (qd, dkv.k, dkv.v, start, dkv.cursor)
+    decode_check = held(
+        f"phase 14 ({case}) decode cache",
+        da.decode_attention(*dargs, n_local=rekv.n_local, return_m=True),
+        da.decode_attention_ref(*dargs, n_local=rekv.n_local,
+                                return_m=True))
+    if not (stream_check["agrees"] and decode_check["agrees"]) or \
+            int(rc.scalars[0, 3]) != 1 or \
+            int(rc.cos_cover.shape[1]) != (W + ppt) * S:
+        raise RuntimeError(f"phase 14 ({case}) state checks failed "
+                           f"{stream_check} {decode_check}")
+
+    # where a chunk's time goes (after the counted run): the next chunk on
+    # each of the backbone's vision paths (LongVA: full, then cached)
+    targets = [(sess.vision, "full", "vision_full"),
+               (sess.vision, "cached", "vision_cached"),
+               (cl.ClipLayer, "attn", "clip_attention"),
+               (cl.ClipLayer, "mlp", "clip_mlp"),
+               (cl, "residual_similarity", "cacher_similarity"),
+               (cl, "recompute_rows", "cacher_selection"),
+               (sess.model.projector, "forward", "projector"),
+               (sess.lm, "encode_step", "lm_append"),
+               (sa, "_launch", "stream_attention_kernel")]
+    split = [segments(lambda: sess.encode_video(frames[:chunk]), targets)
+             for _ in range(2 if scfg.cacher.enabled else 1)]
+    for sp in split:
+        sp["path"] = "cached" if "vision_cached_ms" in sp else "full"
+
+    def fps(kind):
+        xs = [(n, dt) for p, n, dt in chunks[2:] if kind in (None, p)]
+        return sum(n for n, _ in xs) / sum(dt for _, dt in xs) if xs \
+            else None
+
+    store = sum(x.numel() * x.element_size() for x in (
+        sess.kvs.block_k, sess.kvs.block_v))
+    weights = sum(p.numel() * p.element_size() for p in model.parameters())
+    rec = {"phase": f"clip backbone ({case}) {mod_name}", "card": card,
+           "widths": {"vision": dataclasses.asdict(vc),
+                      "text": dataclasses.asdict(tc)},
+           "session": {"n_local": rekv.n_local, "block_size": S,
+                       "topk": rekv.topk, "max_blocks": rekv.max_blocks,
+                       "chunk_frames": chunk, "window_pages": W,
+                       "pages_per_tile": ppt,
+                       "cover_keys": int(rc.cos_cover.shape[1]),
+                       "cacher": scfg.cacher.strategy,
+                       "skip_ratio": scfg.cacher.update_token_ratio},
+           "frames": n_frames, "pages": n_pages,
+           "first_init_active_frame": k_init,
+           "answers": answers, "answer_tokens": [len(a) for a in answers],
+           "lm_forwards": lm_forwards, "launches": counts,
+           "expected": want, "cache_stats": stats,
+           "frames_per_s": fps(None),
+           "frames_per_s_full_chunks": fps("full"),
+           "frames_per_s_cached_chunks": fps("cached"),
+           "chunk_s": [dt for _, _, dt in chunks],
+           "qa_latency_s_p50": p50(qa_s), "qa_latency_s": qa_s,
+           "page_store_gb": store / 2 ** 30,
+           "weight_gb": weights / 2 ** 30,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "kernel_vs_plain_on_session_state": stream_check,
+           "decode_attention_vs_plain_on_decode_cache": decode_check,
+           "time_split": split}
+    del sess, model, captured, args, dargs, kv, dkv
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
+def clip_backbones_phase(card, dev) -> dict:
+    """Phase 14: (a) LongVA-7B, (b) Video-LLaVA-7B, (c) Flash-VStream-7B,
+    each model freed before the next."""
+    t_phase = time.perf_counter()
+    out = {}
+    for case, *rest in CLIP_BACKBONES:
+        rec = clip_backbone_run(case, *rest, card, dev)
+        emit(rec)
+        out[case] = rec
+    out["seconds"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -2908,6 +3163,16 @@ def main() -> int:
                     dev, gen),
         decode_case(VERIFY_DECODE, 5, VERIFY_STARTS,
                     [s + 5 for s in VERIFY_STARTS], 15000, dev, gen),
+        stream_case(VL_STREAM, 32, 32, 128, 257, 48, dev, gen, n_local=8000,
+                    S=257, Nb=128, exc=257, rope_base=1e4),
+        stream_case(LV_STREAM, 28, 4, 128, 144, 80, dev, gen, n_local=8000,
+                    S=144, Nb=512, exc=144),
+        stream_case(FV_STREAM, 32, 32, 128, 64, 96, dev, gen, n_local=4000,
+                    S=64, Nb=256, exc=64, rope_base=1e4),
+        decode_case(VL_DECODE_PREFILL, 256, 2070, 2070 + 256, 8000, dev, gen,
+                    Hq=32, Hkv=32, D=128, C=2816, return_m=True),
+        decode_case(VL_DECODE_TOKEN, 1, 2400, 2401, 8000, dev, gen, Hq=32,
+                    Hkv=32, D=128, C=2816),
         score_case("decode_score prefill T=256 at slot 3854", 256, 3854,
                    3854 + 256, 15000, dev, gen, parts=parts),
         score_case("decode_score expired window (n_local 64)", 16, 2000,
@@ -3197,6 +3462,22 @@ def main() -> int:
     emit(p13)
     RECORD["phases"]["ablations"] = p13
 
+    # ---- phase 14: the CLIP backbones at 7B width ----
+    p14 = clip_backbones_phase(card, dev)
+    RECORD["phases"]["clip_backbones"] = p14
+    emit({"phase": "clip backbones summary", "card": card,
+          "seconds": p14["seconds"],
+          **{k: {"frames_per_s": r["frames_per_s"],
+                 "frames_per_s_full_cached": [
+                     r["frames_per_s_full_chunks"],
+                     r["frames_per_s_cached_chunks"]],
+                 "qa_latency_s_p50": r["qa_latency_s_p50"],
+                 "page_store_gb": r["page_store_gb"],
+                 "weight_gb": r["weight_gb"],
+                 "cache_stats": r["cache_stats"],
+                 "time_split": r["time_split"], "seconds": r["seconds"]}
+             for k, r in p14.items() if k != "seconds"}})
+
     # ---- the kernels line, then the device line ----
     def bound_by(c):
         """bound_by as one word; terms that tie are listed beside it."""
@@ -3245,14 +3526,17 @@ def main() -> int:
               launches["stream_attention"]["float"], "phase 3",
               also=("stream 8-page append",
                     "stream 8-page append 7B heads (28/4/128), 264 pages",
-                    B4_STREAM),
+                    B4_STREAM, VL_STREAM, LV_STREAM, FV_STREAM),
               by_path={"phase 3": launches["stream_attention"]["float"],
                        "phase 10 (a)":
                        set_a["launches"]["stream_attention"]["float"],
                        "phase 11": p11["launches"]["stream_attention"][
                            "float"],
                        "phase 12 (a)": a12["launches"]["stream_attention"][
-                           "float"]}),
+                           "float"],
+                       **{f"phase 14 ({k})": r["launches"][
+                           "stream_attention"]["float"]
+                          for k, r in p14.items() if k != "seconds"}}),
         entry("stream_attention_int8", sa_src, sa_tpu,
               "stream int8 7B heads (28/4/128), 264 pages",
               p6["launches"]["stream_attention"]["int8"], "phase 6",
@@ -3273,12 +3557,15 @@ def main() -> int:
               also=("decode prefill T=256",
                     "decode prefill T=256 7B heads (28/4/128)",
                     "decode token T=1 7B heads (28/4/128)", B4_DECODE,
-                    VERIFY_DECODE),
+                    VERIFY_DECODE, VL_DECODE_PREFILL, VL_DECODE_TOKEN),
               by_path={"phase 3": launches["decode_attention"],
                        "phase 10 (a)": set_a["launches"]["decode_attention"],
                        "phase 11": p11["launches"]["decode_attention"],
                        "phase 12 (a)": a12["launches"]["decode_attention"],
-                       "phase 12 (b)": b12["launches"]["decode_attention"]}),
+                       "phase 12 (b)": b12["launches"]["decode_attention"],
+                       **{f"phase 14 ({k})": r["launches"][
+                           "decode_attention"]
+                          for k, r in p14.items() if k != "seconds"}}),
         entry("decode_score", "stc_tpu_torch/csrc/decode_score.cu",
               "stc_tpu/ops/decode_attention.py:244",
               "decode_score prefill T=256 at slot 3854", 0,

@@ -1,5 +1,6 @@
-"""HF checkpoint -> the port's modules (port of ``stc_tpu/models/convert.py``,
-the LLaVA-OneVision subset).
+"""HF checkpoint -> the port's modules (port of ``stc_tpu/models/convert.py``):
+Qwen2 / Llama LMs, the SigLIP and CLIP towers, the linear_{1,2} and mlp2x
+projectors, and the config helpers of the four backbones.
 
 The converters fill the port's ``nn.Module``s in place, in their (in, out)
 layout with q/k/v and gate/up fused, one tensor at a time: each checkpoint
@@ -16,12 +17,14 @@ import glob
 import json
 import mmap
 import os
+import re
 import struct
 import types
 from typing import Dict
 
 import torch
 
+from stc_tpu_torch.models.clip import CLIP, CLIPConfig
 from stc_tpu_torch.models.llava_onevision import Projector
 from stc_tpu_torch.models.qwen2 import Qwen2, Qwen2Config
 from stc_tpu_torch.models.siglip import Siglip
@@ -114,6 +117,55 @@ def qwen2_config_from_hf(hf_config) -> Qwen2Config:
     )
 
 
+def llama_config_from_hf(hf_config) -> Qwen2Config:
+    """A Llama / Vicuna text config -> the decoder config (no qkv bias;
+    rope_theta 1e4 and as many KV heads as heads where the config omits
+    them)."""
+    head_dim = getattr(hf_config, "head_dim", None) or (
+        hf_config.hidden_size // hf_config.num_attention_heads)
+    return Qwen2Config(
+        vocab_size=hf_config.vocab_size,
+        hidden_size=hf_config.hidden_size,
+        num_layers=hf_config.num_hidden_layers,
+        num_heads=hf_config.num_attention_heads,
+        num_kv_heads=getattr(hf_config, "num_key_value_heads", None)
+        or hf_config.num_attention_heads,
+        head_dim=head_dim,
+        intermediate_size=hf_config.intermediate_size,
+        rope_base=getattr(hf_config, "rope_theta", 10000.0),
+        rms_eps=hf_config.rms_norm_eps,
+        tie_embeddings=getattr(hf_config, "tie_word_embeddings", False),
+        qkv_bias=False,
+    )
+
+
+def clip_config_from_hf(hf_vision_config) -> CLIPConfig:
+    return CLIPConfig(
+        hidden_size=hf_vision_config.hidden_size,
+        num_layers=hf_vision_config.num_hidden_layers,
+        num_heads=hf_vision_config.num_attention_heads,
+        intermediate_size=hf_vision_config.intermediate_size,
+        image_size=hf_vision_config.image_size,
+        patch_size=hf_vision_config.patch_size,
+    )
+
+
+def clip_config_from_state(state, prefix: str, num_heads: int) -> CLIPConfig:
+    """CLIP tower dims from the checkpoint's tensor shapes under `prefix`;
+    the head count is not recoverable from them and is given (16 for
+    CLIP-L)."""
+    C, _, P, _ = state[prefix + "embeddings.patch_embedding.weight"].shape
+    n_tok = state[prefix + "embeddings.position_embedding.weight"].shape[0]
+    grid = int(round((n_tok - 1) ** 0.5))
+    inter = state[prefix + "encoder.layers.0.mlp.fc1.weight"].shape[0]
+    pat = re.compile(re.escape(prefix) + r"encoder\.layers\.(\d+)\.")
+    n_layers = 1 + max(int(m.group(1)) for k in state
+                       if (m := pat.match(k)))
+    return CLIPConfig(hidden_size=C, num_layers=n_layers,
+                      num_heads=num_heads, intermediate_size=inter,
+                      image_size=grid * P, patch_size=P)
+
+
 def find_prefix(state, probe: str, candidates) -> str:
     """First prefix under which `probe` exists (HF key layouts drift across
     transformers versions, e.g. 'language_model.model.' vs
@@ -174,6 +226,34 @@ def convert_qwen2(state, lm: Qwen2, prefix: str = "model.") -> Qwen2:
     return lm
 
 
+# encoder-layer parameters of the SigLIP and CLIP towers: HF name under
+# encoder.layers.<i>., and whether it is an (out, in) matrix to transpose
+ENCODER_LAYER_KEYS = {
+    "ln1_w": ("layer_norm1.weight", False),
+    "ln1_b": ("layer_norm1.bias", False),
+    "wq": ("self_attn.q_proj.weight", True),
+    "bq": ("self_attn.q_proj.bias", False),
+    "wk": ("self_attn.k_proj.weight", True),
+    "bk": ("self_attn.k_proj.bias", False),
+    "wv": ("self_attn.v_proj.weight", True),
+    "bv": ("self_attn.v_proj.bias", False),
+    "wo": ("self_attn.out_proj.weight", True),
+    "bo": ("self_attn.out_proj.bias", False),
+    "ln2_w": ("layer_norm2.weight", False),
+    "ln2_b": ("layer_norm2.bias", False),
+    "fc1": ("mlp.fc1.weight", True),
+    "fc1_b": ("mlp.fc1.bias", False),
+    "fc2": ("mlp.fc2.weight", True),
+    "fc2_b": ("mlp.fc2.bias", False)}
+
+
+def _put_encoder_layers(state, tower, prefix: str) -> None:
+    for i, lp in enumerate(tower.layers):
+        for name, (key, tr) in ENCODER_LAYER_KEYS.items():
+            _put(getattr(lp, name),
+                 state[f"{prefix}encoder.layers.{i}.{key}"], tr)
+
+
 @torch.no_grad()
 def convert_siglip(state, tower: Siglip,
                    prefix: str = "vision_tower.vision_model.") -> Siglip:
@@ -186,26 +266,31 @@ def convert_siglip(state, tower: Siglip,
     _put(tower.patch_b, state[prefix + "embeddings.patch_embedding.bias"])
     _put(tower.pos_embed,
          state[prefix + "embeddings.position_embedding.weight"])
-    names = {"ln1_w": ("layer_norm1.weight", False),
-             "ln1_b": ("layer_norm1.bias", False),
-             "wq": ("self_attn.q_proj.weight", True),
-             "bq": ("self_attn.q_proj.bias", False),
-             "wk": ("self_attn.k_proj.weight", True),
-             "bk": ("self_attn.k_proj.bias", False),
-             "wv": ("self_attn.v_proj.weight", True),
-             "bv": ("self_attn.v_proj.bias", False),
-             "wo": ("self_attn.out_proj.weight", True),
-             "bo": ("self_attn.out_proj.bias", False),
-             "ln2_w": ("layer_norm2.weight", False),
-             "ln2_b": ("layer_norm2.bias", False),
-             "fc1": ("mlp.fc1.weight", True),
-             "fc1_b": ("mlp.fc1.bias", False),
-             "fc2": ("mlp.fc2.weight", True),
-             "fc2_b": ("mlp.fc2.bias", False)}
-    for i, lp in enumerate(tower.layers):
-        for name, (key, tr) in names.items():
-            _put(getattr(lp, name),
-                 state[f"{prefix}encoder.layers.{i}.{key}"], tr)
+    _put_encoder_layers(state, tower, prefix)
+    _put(tower.post_ln_w, state[prefix + "post_layernorm.weight"])
+    _put(tower.post_ln_b, state[prefix + "post_layernorm.bias"])
+    return tower
+
+
+@torch.no_grad()
+def convert_clip(state, tower: CLIP, prefix: str = "vision_model.") -> CLIP:
+    """Fill `tower` from a HF CLIPVisionModel state dict under `prefix`
+    (LongVA and Flash-VStream: model.vision_tower.vision_tower.
+    vision_model.*, Video-LLaVA: video_tower.vision_model.*): the patch
+    conv (C, 3, P, P), which has no bias, becomes the (3·P·P, C) matrix;
+    the pre-layernorm is read under HF's 'pre_layrnorm' spelling or
+    'pre_layernorm'; the post-LN is filled but not applied."""
+    patch = state[prefix + "embeddings.patch_embedding.weight"]
+    _put(tower.patch_w, patch.reshape(patch.shape[0], -1), True)
+    _put(tower.class_embed,
+         state[prefix + "embeddings.class_embedding"].reshape(-1))
+    _put(tower.pos_embed,
+         state[prefix + "embeddings.position_embedding.weight"])
+    pre = ("pre_layrnorm" if prefix + "pre_layrnorm.weight" in state
+           else "pre_layernorm")
+    _put(tower.pre_ln_w, state[f"{prefix}{pre}.weight"])
+    _put(tower.pre_ln_b, state[f"{prefix}{pre}.bias"])
+    _put_encoder_layers(state, tower, prefix)
     _put(tower.post_ln_w, state[prefix + "post_layernorm.weight"])
     _put(tower.post_ln_b, state[prefix + "post_layernorm.bias"])
     return tower
@@ -218,4 +303,16 @@ def convert_projector(state, proj: Projector,
     _put(proj.b1, state[prefix + "linear_1.bias"])
     _put(proj.w2, state[prefix + "linear_2.weight"], True)
     _put(proj.b2, state[prefix + "linear_2.bias"])
+    return proj
+
+
+@torch.no_grad()
+def convert_mlp2x(state, proj: Projector,
+                  prefix: str = "model.mm_projector.") -> Projector:
+    """The mlp2x_gelu projector (LongVA's and Flash-VStream's mm_projector,
+    a Sequential(Linear, GELU, Linear): keys 0.* and 2.*)."""
+    _put(proj.w1, state[prefix + "0.weight"], True)
+    _put(proj.b1, state[prefix + "0.bias"])
+    _put(proj.w2, state[prefix + "2.weight"], True)
+    _put(proj.b2, state[prefix + "2.bias"])
     return proj

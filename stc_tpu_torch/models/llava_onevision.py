@@ -26,7 +26,7 @@ from stc_tpu_torch.device import resolve_device
 from stc_tpu_torch.models import qwen2 as qw
 from stc_tpu_torch.models import register_model
 from stc_tpu_torch.models import siglip as sg
-from stc_tpu_torch.runtime.vlm import Preprocessor, VisionPipeline, VLMSession
+from stc_tpu_torch.runtime.vlm import PixelPipeline, Preprocessor, VLMSession
 
 # SigLIP image preprocessing constants (HF SiglipImageProcessor defaults)
 IMAGE_MEAN = np.array([0.5, 0.5, 0.5], np.float32)
@@ -109,7 +109,7 @@ class LlavaOV(nn.Module):
         return self
 
 
-class LlavaOVVision(VisionPipeline):
+class LlavaOVVision(PixelPipeline):
     """SigLIP(+STC-Cacher) -> projector -> 2x bilinear pooling ->
     STC-Pruner, for B parallel streams: frames are stream-major on the
     tower's batch axis; the cacher references (L, B, T, C) and the pruner's
@@ -125,24 +125,6 @@ class LlavaOVVision(VisionPipeline):
         self._pre = Preprocessor(self.cfg.vision.image_size, IMAGE_MEAN,
                                  IMAGE_STD, self.dtype,
                                  ingest=scfg.ingest_format)
-
-    @property
-    def src_hw(self):
-        """(h, w) of the packed yuv420 planes the preprocessor unpacks."""
-        return self._pre.src_hw
-
-    @src_hw.setter
-    def src_hw(self, hw):
-        self._pre.src_hw = hw
-
-    def preprocess(self, frames):
-        frames = np.asarray(frames)
-        if frames.ndim in (3, 5):  # multi-stream (B, F, ...): stream-major
-            frames = frames.reshape((-1,) + frames.shape[2:])
-        return self._pre.host(frames)
-
-    def device_preprocess(self, pixels):
-        return self._pre.device(pixels)
 
     def init_state(self):
         n_sel = int(self.cfg.text.hidden_size

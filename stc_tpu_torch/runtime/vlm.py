@@ -167,6 +167,32 @@ class VisionPipeline:
         return put(va, vstate, v_blob), put(pa, pstate, p_blob)
 
 
+class PixelPipeline(VisionPipeline):
+    """A pipeline whose frames go through a Preprocessor ``_pre``: the
+    frames of B streams (B, n, ...) stream-major on one axis, and the
+    geometry of packed yuv420 planes (``src_hw``)."""
+
+    _pre: Preprocessor
+
+    @property
+    def src_hw(self):
+        """(h, w) of the packed yuv420 planes the preprocessor unpacks."""
+        return self._pre.src_hw
+
+    @src_hw.setter
+    def src_hw(self, hw):
+        self._pre.src_hw = hw
+
+    def preprocess(self, frames):
+        frames = np.asarray(frames)
+        if frames.ndim in (3, 5):  # multi-stream (B, F, ...): stream-major
+            frames = frames.reshape((-1,) + frames.shape[2:])
+        return self._pre.host(frames)
+
+    def device_preprocess(self, pixels):
+        return self._pre.device(pixels)
+
+
 class VLMSession(StreamingSession):
     """Pixel session of `batch` streams."""
 

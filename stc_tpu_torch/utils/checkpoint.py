@@ -167,7 +167,9 @@ def load_session_state(session, path: str):
 def _stream_leaves(session, slot: int) -> list:
     """One slot's state in stc_tpu's order: kvs (StreamKV fields, the
     slot's row of each layer), then on a VLM session the pruner and cacher
-    state (VisionPipeline.extract_stream)."""
+    state (VisionPipeline.extract_stream; a CLIP backbone's cacher blob
+    lists its leaves by sorted name, clip.ClipStreamBlob, as stc_tpu's
+    dict flattens)."""
     if session._evicted_pages:
         raise RuntimeError(
             "per-stream checkpoints with host-evicted pages are not "

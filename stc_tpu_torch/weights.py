@@ -12,7 +12,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from stc_tpu_torch.models import clip as cl
 from stc_tpu_torch.models import llava_onevision as lo
+from stc_tpu_torch.models import longva as lv
 from stc_tpu_torch.models import qwen2 as qw
 from stc_tpu_torch.models import siglip as sg
 
@@ -94,6 +96,36 @@ def params_from_jax(tree, cfg: lo.LlavaOVConfig, dtype=torch.float32,
     """A JAX LLaVA-OV tree {"vision", "projector", "text"} -> LlavaOV."""
     model = lo.LlavaOV(cfg, dtype, vision_dtype, device)
     _fill_siglip(model.vision, tree["vision"])
+    for name in ("w1", "b1", "w2", "b2"):
+        getattr(model.projector, name).copy_(_t(tree["projector"][name]))
+    _fill_qwen2(model.text, tree["text"])
+    return model
+
+
+@torch.no_grad()
+def clip_from_jax(tree, cfg: cl.CLIPConfig, dtype=torch.float32,
+                  device="cuda") -> cl.CLIP:
+    return _fill_clip(cl.CLIP(cfg, dtype, device), tree)
+
+
+def _fill_clip(tower: cl.CLIP, tree) -> cl.CLIP:
+    for name in ("class_embed", "patch_w", "pos_embed", "pre_ln_w",
+                 "pre_ln_b", "post_ln_w", "post_ln_b"):
+        getattr(tower, name).copy_(_t(tree[name]))
+    for i, lp in enumerate(tower.layers):
+        for name, arr in tree["layers"].items():
+            getattr(lp, name).copy_(_t(arr[i]))
+    return tower
+
+
+@torch.no_grad()
+def backbone_from_jax(tree, cfg, dtype=torch.float32,
+                      vision_dtype=torch.float32,
+                      device="cuda") -> lv.ClipVLM:
+    """A JAX LongVA, Video-LLaVA or Flash-VStream tree {"vision",
+    "projector", "text"} -> the port's ClipVLM of cfg."""
+    model = lv.ClipVLM(cfg, dtype, vision_dtype, device)
+    _fill_clip(model.vision, tree["vision"])
     for name in ("w1", "b1", "w2", "b2"):
         getattr(model.projector, name).copy_(_t(tree["projector"][name]))
     _fill_qwen2(model.text, tree["text"])

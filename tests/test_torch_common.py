@@ -71,15 +71,28 @@ def port_cfg(jax_cfg):
 
 
 def port_model_cfg(jax_cfg):
-    """The port's Qwen2Config / SiglipConfig / LlavaOVConfig of a JAX one."""
+    """The port's Qwen2Config / SiglipConfig / CLIPConfig or backbone
+    config (LLaVA-OV, LongVA, Video-LLaVA, Flash-VStream) of a JAX one."""
+    from stc_tpu_torch.models import clip as cl
+    from stc_tpu_torch.models import flash_vstream as fv
     from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.models import longva as lv
     from stc_tpu_torch.models import qwen2 as qw
     from stc_tpu_torch.models import siglip as sg
+    from stc_tpu_torch.models import video_llava as vl
     name = type(jax_cfg).__name__
-    if name == "LlavaOVConfig":
-        return lo.LlavaOVConfig(vision=port_model_cfg(jax_cfg.vision),
-                                text=port_model_cfg(jax_cfg.text))
-    cls = {"Qwen2Config": qw.Qwen2Config, "SiglipConfig": sg.SiglipConfig}
+    backbones = {"LlavaOVConfig": lo.LlavaOVConfig,
+                 "LongVAConfig": lv.LongVAConfig,
+                 "VideoLlavaConfig": vl.VideoLlavaConfig,
+                 "FlashVStreamConfig": fv.FlashVStreamConfig}
+    if name in backbones:
+        kw = {f.name: getattr(jax_cfg, f.name)
+              for f in dataclasses.fields(jax_cfg)}
+        kw.update(vision=port_model_cfg(jax_cfg.vision),
+                  text=port_model_cfg(jax_cfg.text))
+        return backbones[name](**kw)
+    cls = {"Qwen2Config": qw.Qwen2Config, "SiglipConfig": sg.SiglipConfig,
+           "CLIPConfig": cl.CLIPConfig}
     return cls[name](**dataclasses.asdict(jax_cfg))
 
 

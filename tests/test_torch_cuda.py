@@ -834,3 +834,89 @@ def test_layerwise_scorer_question_on_card(cuda_device):
     assert res["cuda:0"][0] == res["cpu"][0]
     assert res["cuda:0"][1] == res["cpu"][1]
     assert torch.equal(res["cuda:0"][2], res["cpu"][2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("n", [0, 3, 9])
+@pytest.mark.parametrize("S", [257, 144, 64])
+def test_stream_attention_mha_clip_pages_on_card(cuda_device, S, n, dtype):
+    """G = 1 (as many query heads as KV heads, Vicuna's layout) at the CLIP
+    backbones' page lengths: 257 (Video-LLaVA: one page a cover tile, page
+    boundaries inside every 64-key tile), 144 (LongVA, 2 a tile) and 64
+    (Flash-VStream, 8 a tile); one-page appends over an empty, a partly
+    filled and a full window (init_active on)."""
+    cfg = ReKVConfig(**dict(BASE, n_local=4 * S, block_size=S,
+                            exc_block_size=S))
+    ops = _stream_operands(cfg, n, S, seed=S + n, heads=(4, 4, 64))
+    assert int(ops[9][0, 3]) == (cfg.n_init + (n + 1) * S > cfg.n_local)
+    kw = dict(n_local=cfg.n_local)
+    a = [x.to(cuda_device, dtype if i not in (4, 5, 9) else x.dtype)
+         .contiguous() for i, x in enumerate(ops)]
+    before = sa.launches["float"]
+    got = sa.stream_attention(*a, **kw)
+    assert sa.launches["float"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    assert_agrees(got, sa.stream_attention_ref(*a, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T", [1, 256])
+def test_decode_attention_vicuna_heads_on_card(cuda_device, T, dtype):
+    """decode_attention at Vicuna-7B's heads (32/32/128, G = 1) over a
+    2304-slot cache: a token step and a 256-token prefill."""
+    C, n_local = 2304, 8000
+    gen = torch.Generator(device=cuda_device).manual_seed(T)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).to(dtype)
+               for s in ((1, 32, T, 128), (1, 32, C, 128),
+                         (1, 32, C, 128)))
+    cursor = torch.tensor([2100], dtype=torch.int32, device=cuda_device)
+    start = (cursor - T).to(torch.int32)
+    before = da.launches
+    got, m = da.decode_attention(q, k, v, start, cursor, n_local=n_local,
+                                 return_m=True)
+    assert da.launches == before + 1
+    want, m_ref = da.decode_attention_ref(q, k, v, start, cursor,
+                                          n_local=n_local, return_m=True)
+    assert_agrees(got, want)
+    assert torch.isfinite(m).all()
+    assert_agrees(m, m_ref)
+
+
+@pytest.mark.cuda
+def test_tiny_longva_session_on_card_answers_as_on_cpu(cuda_device):
+    """A tiny LongVA session (CLIP tower with the MLP-skip cacher) on the
+    card: every append and LM forward launches its kernel once a layer,
+    and the answers, the retrieved blocks and the cacher counters equal
+    the same session's on the CPU."""
+    from stc_tpu_torch.models import longva as lv
+    cfg = lv.LongVAConfig.tiny()
+    scfg = SessionConfig(
+        rekv=ReKVConfig(n_init=4, n_local=128, block_size=4,
+                        exc_block_size=4, topk=4, max_blocks=64,
+                        max_prompt_tokens=32, max_new_tokens=8),
+        cacher=CacherConfig(update_token_ratio=0.5),
+        pruner=PrunerConfig(strategy="none", token_per_frame=4))
+    frames = np.random.default_rng(0).integers(0, 256, (6, 56, 56, 3),
+                                               dtype=np.uint8)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    for dev in ("cpu", cuda_device):
+        model = lv.ClipVLM(cfg, dtype=torch.float32, device="cpu")
+        model.init_random_params(torch.Generator().manual_seed(0))
+        sess = lv.build_session(model, scfg, state_dtype=torch.float32,
+                                device=dev)
+        s0, d0 = sa.launches["float"], da.launches
+        sess.encode_init_prompt([1, 2, 3, 4])
+        for f in range(6):
+            sess.encode_video(frames[f:f + 1])
+        out = sess.question_answering([5, 6], [5, 6, 7], [0],
+                                      max_new_tokens=4)
+        if dev != "cpu":
+            L = cfg.text.num_layers
+            assert sa.launches["float"] - s0 == 6 * L
+            assert da.launches - d0 == (2 + len(out)) * L
+        res[str(dev)] = (out, sess.last_retrieved_indices,
+                         sess._vstate.tokens_skipped.cpu().tolist())
+    assert res["cuda:0"] == res["cpu"]

@@ -24,7 +24,9 @@ def test_sources_import_no_jax_and_no_stc_tpu():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
     for f in (("kvcache", "host_tier.py"), ("runtime", "serving.py"),
-              ("utils", "checkpoint.py")):
+              ("utils", "checkpoint.py"), ("models", "clip.py"),
+              ("models", "longva.py"), ("models", "video_llava.py"),
+              ("models", "flash_vstream.py")):
         assert PKG.joinpath(*f) in files, f
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -150,6 +152,23 @@ def test_importing_and_running_the_port_loads_no_jax():
             eng.retire(1)
             checkpoint.load_stream_state(sess3, eng.admit(), d + "/s.npz")
         assert sess3._stream_blocks.tolist() == [1, 1]
+        # the CLIP backbones: a tiny LongVA session (full and MLP-skip
+        # chunks) and the registry of all four loaders
+        from stc_tpu_torch.models import MODEL_REGISTRY
+        from stc_tpu_torch.models import longva as lv
+        lcfg = lv.LongVAConfig.tiny()
+        lmodel = lv.ClipVLM(lcfg, dtype=torch.float32,
+                           device="cpu").init_random_params(gen)
+        lsess = lv.build_session(lmodel, dataclasses.replace(
+            scfg, rekv=dataclasses.replace(scfg.rekv, block_size=4,
+                                           exc_block_size=4),
+            pruner=PrunerConfig(strategy="none", token_per_frame=4)),
+            state_dtype=torch.float32, device="cpu")
+        lsess.encode_init_prompt([1, 2, 3, 4])
+        lsess.encode_video(frames)
+        assert int(lsess._vstate.tokens_skipped[0]) > 0
+        assert {"llava_ov_7b", "longva_7b", "video_llava_7b",
+                "flash_vstream_7b"} <= set(MODEL_REGISTRY)
         # an HF checkpoint written by chip_smoke.py's writer loads back
         # through the port's own shard reader
         sys.path.insert(0, ".")

@@ -134,7 +134,25 @@ each of which makes the script exit non-zero when it fails:
      appends x layers and LM forwards x layers, both kernels against their
      plain versions on the session's own state at a middle layer, (a)'s
      cache_stats equal to what its recomputed rows give; frames/s (full
-     and cached chunks apart), QA p50, page-store and weight bytes.
+     and cached chunks apart), QA p50, page-store and weight bytes;
+ 15. the eval harnesses at llava-ov-7b width (bf16 LM, float32 SigLIP,
+     SessionConfig() with n_init set to the adapter's init prompt, random
+     weights, a hash tokenizer defined here): five .npy videos at 360 x
+     640 (16-260 frames at run_eval's 0.5 frames/s) through run_eval's
+     offline ("mlvu"), VideoMME and RVS ("rvs_ego") protocols, four
+     StreamingBench and four OVO-Bench questions, open-ended answers at 32
+     tokens; gates: no error row or None response, row counts,
+     stream_attention launches = appends x layers and decode_attention
+     launches on each protocol, three rows equal to direct
+     question_answering calls, a video alone in a new session equal to
+     its rows after the others, a world-2 merge equal to the world-1
+     rows, a bare StreamingSession with the FrameEncoder equal to the
+     VLMSession (answers and blocks), both kernels against their plain
+     versions on the session's state; estimate_chunk_flops of 1-frame
+     (full, cached) and 8-frame chunks against their device times
+     (TFLOP/s, tower and LM apart); then batched eval (stream_batch 4)
+     at llava-ov-0.5b width in float32 against the sequential solver,
+     rows equal or parted only at a vision near-tie.
 
 Prints JSON lines; the line before the last holds one entry per kernel
 (route, source, the TPU kernel it replaces, launches on its path, error,
@@ -3072,6 +3090,675 @@ def clip_backbones_phase(card, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the eval harnesses at llava-ov-7b width; batched eval at 0.5b
+# ---------------------------------------------------------------------------
+
+class HashTok:
+    """Deterministic text -> at most 20 ids in 1..200, ids -> a comma
+    string, stop id 0: no tokenizer file (tests/test_eval_batched.py's)."""
+    eos_token_id = 0
+
+    def __call__(self, text):
+        return [1 + (b % 200) for b in text.encode()][:20] or [9]
+
+    def decode(self, ids, **kw):
+        return ",".join(str(int(i)) for i in ids)
+
+
+# video name -> raw frames (one a second) at 360 x 640: run_eval's 0.5
+# frames/s keeps 16, 40, 64, 96 and 260; the last passes the 250-page
+# window (n_local 15000 / 60 tokens a frame)
+EVAL_VIDEOS = {"v16": 32, "v40": 80, "v64": 128, "v96": 192, "v260": 520}
+EVAL_HW = (360, 640)
+EVAL_MC_NEW, EVAL_OPEN_NEW = 16, 32
+
+
+def mc(q, choices, answer):
+    return {"question": q, "choices": choices, "answer": answer}
+
+
+def oe(q, answer, end_time=None):
+    row = {"question": q, "answer": answer}
+    if end_time is not None:
+        row["end_time"] = end_time
+    return row
+
+
+def eval_annotations(paths) -> dict:
+    """The phase's annotations in the benchmarks' schemas: 14 questions
+    over run_eval's protocols, 4 StreamingBench and 4 OVO-Bench ones."""
+    def sample(name, convs):
+        return {"video_id": name, "video_path": paths[name],
+                "duration": EVAL_VIDEOS[name], "conversations": convs}
+
+    offline = [
+        sample("v16", [mc("what does the person pick up first",
+                          ["a cup", "a phone", "a book"], "a phone"),
+                       oe("describe the room", "a kitchen")]),
+        sample("v40", [mc("where does the walk end",
+                          ["a door", "a car", "a bench", "a shop"],
+                          "a bench")]),
+        sample("v64", [mc("which tool is used",
+                          ["a knife", "a saw", "a drill", "a brush",
+                           "a pen"], "a saw"),
+                       oe("what happens after the cut", "it falls")]),
+        sample("v96", [mc("what color is the bag",
+                          ["red", "blue", "green", "black"], "green")]),
+        sample("v260", [mc("how many people appear", ["one", "two",
+                                                       "three"], "two"),
+                        oe("summarise the video", "cooking dinner")]),
+    ]
+    videomme = [
+        sample("v16", [mc("what is on the table",
+                          ["fruit", "a laptop", "keys", "a lamp"],
+                          "keys")]),
+        sample("v40", [mc("what does the dog do",
+                          ["sleeps", "runs", "barks", "eats"], "runs")]),
+    ]
+    stream = [
+        sample("v64", [oe("what is being held now", "a cup", 40),
+                       oe("what was just put down", "a plate")]),
+        sample("v96", [oe("who entered", "a child", 100),
+                       oe("what is on screen at the end", "a menu")]),
+    ]
+    sb = [{"video_path": paths["v40"], "questions": [
+        {"time_stamp": "00:00:30", "question": "what moved last",
+         "options": ["A. a car", "B. a bird", "C. a cat"], "answer": "B",
+         "task_type": "Object Perception"},
+        {"time_stamp": "00:01:10", "question": "what is the weather",
+         "options": ["A. rain", "B. sun", "C. snow", "D. fog"],
+         "answer": "A", "task_type": "Attribute Perception"}]},
+        {"video_path": paths["v64"], "questions": [
+            {"time_stamp": "00:00:50", "question": "what was said",
+             "options": ["A. hello", "B. stop", "C. thanks"],
+             "answer": "C", "task_type": "Text-Rich Understanding"},
+            {"time_stamp": "00:02:00", "question": "where are they",
+             "options": ["A. park", "B. office", "C. shop", "D. road"],
+             "answer": "D", "task_type": "Spatial Understanding"}]}]
+    ovo = {
+        "backward": [{"id": "v16", "video": "v16.mp4", "task": "EPM",
+                      "question": "what was picked up",
+                      "options": ["a cup", "a phone", "a book"], "gt": 1,
+                      "realtime": 30}],
+        "realtime": [{"id": "v40", "video": "v40.mp4", "task": "OCR",
+                      "question": "what does the sign say",
+                      "options": ["open", "closed", "exit", "sale"],
+                      "gt": 2, "realtime": 60}],
+        "forward": [{"id": "v64", "video": "v64.mp4", "task": "REC",
+                     "activity": "jump rope",
+                     "test_info": [{"count": 3, "realtime": 40},
+                                   {"count": 7, "realtime": 80}]}],
+    }
+    return {"mlvu": offline, "videomme": videomme, "rvs_ego": stream,
+            "streamingbench": sb, "ovobench": ovo}
+
+
+def write_eval_videos(d, names, hw, seed) -> dict:
+    """Random uint8 videos (one frame a second) as .npy under d: name ->
+    path."""
+    rng = np.random.default_rng(seed)
+    paths = {}
+    for name, n in names.items():
+        h, w = hw[name] if isinstance(hw, dict) else hw
+        paths[name] = os.path.join(d, f"{name}.npy")
+        np.save(paths[name], rng.integers(0, 256, size=(n, h, w, 3),
+                                          dtype=np.uint8))
+    return paths
+
+
+def make_timed_adapter(session, tok):
+    """A SessionAdapter that records, under the protocol named in
+    `protocol`, each encode (frames, seconds) and each question (decode
+    budget, seconds), host clock around work ending in a synchronize."""
+    from stc_tpu_torch.runtime.adapter import SessionAdapter
+    from stc_tpu_torch.utils.metrics import Timer, device_sync
+    sync = device_sync(session.device)
+
+    class TimedAdapter(SessionAdapter):
+        protocol = None
+
+        def encode_video(self, frames, active=None):
+            with Timer(sync) as t:
+                super().encode_video(frames, active)
+            n = (len(frames) if active is None
+                 else int(np.shape(frames)[1]) * int(np.sum(active)))
+            self.log.append((self.protocol, "encode", n, t.seconds))
+
+        def question_answering(self, input_text, max_new_tokens=128):
+            with Timer(sync) as t:
+                out = super().question_answering(input_text, max_new_tokens)
+            self.log.append((self.protocol, "qa", max_new_tokens,
+                             t.seconds))
+            return out
+
+    ad = TimedAdapter(session, tok, stop_token_ids=[0])
+    ad.log = []
+    return ad
+
+
+def count_appends(sess):
+    """Patch sess.lm.encode_step to count video appends (is_init False)
+    into the returned dict's "n"."""
+    box = {"n": 0}
+
+    def wrap(f):
+        def g(*a, **k):
+            if not k.get("is_init", False):
+                box["n"] += 1
+            return f(*a, **k)
+        return g
+
+    return box, patched([(sess.lm, "encode_step", wrap)])
+
+
+def row_key(r):
+    return (r.get("video_id"), r.get("question"))
+
+
+def eval_protocols(ad, sess, anno, paths, work) -> dict:
+    """Each protocol once on `ad`, its launches counted from 0 just before
+    it: {protocol: record}; the rows / outputs under "out"."""
+    from stc_tpu_torch.eval.ovobench import OVOBenchEval
+    from stc_tpu_torch.eval.runner import run_eval
+    from stc_tpu_torch.eval.streamingbench import StreamingBenchEval
+    from stc_tpu_torch.eval.solvers import load_video_frames
+    L = sess.lm.cfg.num_layers
+
+    def sb_loader(path, t0, t1, fps):
+        v = np.load(path, mmap_mode="r")
+        return np.ascontiguousarray(v[t0:t1:max(1, round(1 / fps))])
+
+    def ovo_loader(ref, t, fps):
+        v = np.load(paths[ref.split(".")[0].split("_")[0]], mmap_mode="r")
+        return np.ascontiguousarray(v[:int(t):max(1, round(1 / fps))])
+
+    recs = {}
+    for name in ("mlvu", "videomme", "rvs_ego", "streamingbench",
+                 "ovobench"):
+        ad.protocol = name
+        a_path = os.path.join(work, f"{name}.json")
+        with open(a_path, "w") as f:
+            json.dump(anno[name], f)
+        box, patch = count_appends(sess)
+        reset_counts()
+        t0 = time.perf_counter()
+        with patch:
+            if name == "streamingbench":
+                data = json.loads(json.dumps(anno[name]))
+                out = StreamingBenchEval(
+                    ad, "port", sample_fps=0.5, frame_loader=sb_loader).run(
+                        data, os.path.join(work, "sb_out.json"))
+                answers = [q["port"] for e in out for q in e["questions"]]
+                n_samples = len(answers)
+                bad = [a for a in answers if not isinstance(a, str)]
+            elif name == "ovobench":
+                out = OVOBenchEval(ad, sample_fps=0.5,
+                                   frame_loader=ovo_loader).eval(
+                    anno[name], os.path.join(work, "ovo_out.json"))
+                answers = ([r["response"] for g in ("backward", "realtime")
+                            for r in out[g]]
+                           + [i["response"] for r in out["forward"]
+                              for i in r["test_info"]])
+                n_samples = len(answers)
+                bad = [a for a in answers if a is None]
+            else:
+                out, _ = run_eval(name, ad, os.path.join(work, name),
+                                  anno_path=a_path, rank=0, world=1,
+                                  frame_loader=load_video_frames)
+                n_samples = len(anno[name])
+                want_rows = sum(len(s["conversations"]) for s in anno[name])
+                bad = [r for r in out if "error" in r]
+                if len(out) != want_rows:
+                    bad.append(f"{len(out)} rows for {want_rows} questions")
+            wall = time.perf_counter() - t0
+        counts = read_counts()
+        frames = sum(n for p, k, n, _ in ad.log if p == name
+                     and k == "encode")
+        want_qs = (sum(len(s["conversations"]) for s in anno[name])
+                   if name not in ("streamingbench", "ovobench")
+                   else n_samples)
+        qs = [(n, s) for p, k, n, s in ad.log if p == name and k == "qa"]
+        recs[name] = {
+            "out": out, "samples": n_samples, "questions": len(qs),
+            "frames": frames, "appends": box["n"], "launches": counts,
+            "seconds": wall, "seconds_per_sample": wall / n_samples,
+            "qa_p50_s_mc": p50([s for n, s in qs if n == EVAL_MC_NEW]),
+            "qa_p50_s_open": p50([s for n, s in qs if n != EVAL_MC_NEW]),
+            "bad": bad}
+        ok = (not bad and len(qs) == want_qs and box["n"] == frames > 0
+              and counts["stream_attention"] == {
+                  "float": L * box["n"], "int8": 0, "int4": 0}
+              and counts["decode_attention"] > 0
+              and counts["stream_attention_page_keep"] == 0)
+        if not ok:
+            raise RuntimeError(
+                f"phase 15 {name}: {bad[:3]} ({len(bad)} bad), {len(qs)} "
+                f"questions of {want_qs}, {box['n']} appends for {frames} "
+                f"frames, launches {counts}")
+    return recs
+
+
+def session_kernel_checks(sess, gen, label) -> dict:
+    """Both kernels against their plain versions on the session's own
+    state at a middle layer: the next one-frame append, and the decode
+    cache of a question asked now."""
+    from stc_tpu_torch.kvcache import engine
+    from stc_tpu_torch.kvcache.state import layer
+    from stc_tpu_torch.ops import decode_attention as da
+    from stc_tpu_torch.ops import stream_attention as sa
+    rekv, tc, dev = sess.rekv, sess.lm.cfg, sess.device
+    captured = {}
+
+    def capture(f):
+        def g(*a, **k):
+            captured["dkvs"] = f(*a, **k)
+            return captured["dkvs"]
+        return g
+
+    with patched([(sess.lm, "init_decode_state", capture)]):
+        sess.question_answering(list(range(30, 42)), list(range(50, 66)),
+                                [0], max_new_tokens=4)
+    li = tc.num_layers // 2
+    kv = layer(sess.kvs, li)
+    T = rekv.block_size
+    rc = engine.make_rope_cache(kv.length, kv.num_blocks, T, rekv,
+                                tc.head_dim, tc.rope_base, kv.page_offset)
+    q = torch.randn((1, tc.num_heads, T, tc.head_dim), generator=gen,
+                    device=dev).bfloat16()
+    args = (q, q.flip(2).contiguous(), kv.block_k, kv.block_v, rc.cos_cover,
+            rc.sin_cover, kv.init_k, kv.init_v, kv.init_k, rc.scalars)
+    stream_check = held(f"{label} session state",
+                        sa.stream_attention(*args, n_local=rekv.n_local),
+                        sa.stream_attention_ref(*args, n_local=rekv.n_local))
+    dkv = layer(captured["dkvs"], li)
+    Tq = 16
+    qd = torch.randn((1, tc.num_heads, Tq, tc.head_dim), generator=gen,
+                     device=dev).bfloat16()
+    dargs = (qd, dkv.k, dkv.v, (dkv.cursor - Tq).to(torch.int32),
+             dkv.cursor)
+    decode_check = held(
+        f"{label} decode cache",
+        da.decode_attention(*dargs, n_local=rekv.n_local, return_m=True),
+        da.decode_attention_ref(*dargs, n_local=rekv.n_local,
+                                return_m=True))
+    if not (stream_check["agrees"] and decode_check["agrees"]):
+        raise RuntimeError(f"{label} kernel checks failed {stream_check} "
+                           f"{decode_check}")
+    return {"stream_attention": stream_check,
+            "decode_attention": decode_check}
+
+
+def chunk_flops(sess, n_chunks) -> list:
+    """For the session's next n_chunks chunks (each on the path its chunk
+    count gives): estimate_chunk_flops of that chunk, the vision part's
+    FLOPs (tower, projector, pooling, pruner) apart, then the chunk run
+    and its device time split (CUDA events), and TFLOP/s achieved."""
+    from stc_tpu_torch.utils.metrics import estimate_flops
+    vis, lm = sess.vision, sess.lm
+    n = sess.scfg.encode_chunk_frames
+    hw = vis.cfg.vision.image_size
+    frames = np.random.default_rng(15).integers(
+        0, 256, size=(n * n_chunks,) + EVAL_HW + (3,), dtype=np.uint8)
+    out = []
+    for i in range(n_chunks):
+        cached = bool(sess._slot_chunk[0] % sess.scfg.cacher.cache_interval)
+        total = sess.estimate_chunk_flops(cached=cached)
+        px = vis.device_preprocess(torch.zeros(
+            (n, hw, hw, 3), dtype=torch.uint8, device=sess.device))
+        path = vis.cached if cached else vis.full
+        vision = estimate_flops(lambda: path(px, sess._vstate,
+                                             sess._pstate))
+        split = segments(lambda: sess.encode_video(frames[i * n:(i + 1) * n]),
+                         [(vis, "full", "vision"), (vis, "cached", "vision"),
+                          (lm, "encode_step", "lm_append")])
+        ms = split["span_ms"]
+        out.append({
+            "frames": n, "path": "cached" if cached else "full",
+            "flops": total, "vision_flops": vision,
+            "lm_flops": total - vision, "device_ms": ms,
+            "vision_ms": split.get("vision_ms"),
+            "lm_ms": split.get("lm_append_ms"), "wall_ms": split["wall_ms"],
+            "tflops_per_s": total / ms / 1e9,
+            "vision_tflops_per_s": vision / split["vision_ms"] / 1e9,
+            "lm_tflops_per_s": (total - vision) / split["lm_append_ms"]
+            / 1e9,
+            "share_of_bf16_peak": total / (ms / 1e3) / H100_BF16_FLOPS})
+    return out
+
+
+def log_chunks(sess):
+    """Patch sess._encode_chunk_pixels and sess.clear_cache to record, per
+    chunk, the group (clear_cache count), the active mask, the cacher mask
+    and that chunk's VisionLog records; returns (records, a context that
+    applies the patches and the VisionLog capture)."""
+    records, log, group = [], VisionLog(), {"g": -1}
+
+    def wrap_chunk(f):
+        def g(pixels, n_frames, active=None):
+            cached = sess._slot_chunk % sess.scfg.cacher.cache_interval != 0
+            s0, p0 = len(log.sims), len(log.prunes)
+            out = f(pixels, n_frames, active)
+            act = (np.ones(sess.batch, bool) if active is None
+                   else np.asarray(active, bool))
+            records.append((group["g"], act, cached, log.sims[s0:],
+                            log.prunes[p0:]))
+            return out
+        return g
+
+    def wrap_clear(f):
+        def g(*a, **k):
+            group["g"] += 1
+            return f(*a, **k)
+        return g
+
+    @contextlib.contextmanager
+    def ctx():
+        with log.capture(), patched([(sess, "_encode_chunk_pixels",
+                                      wrap_chunk),
+                                     (sess, "clear_cache", wrap_clear)]):
+            yield
+
+    return records, ctx()
+
+
+def stream_steps(records, B, per_group) -> dict:
+    """Each video's frame-by-frame (cached layers' similarities, pruner
+    record) from log_chunks records: video index = group * per_group +
+    slot."""
+    steps = {}
+    for g, act, cached, sims, prunes in records:
+        ticking = cached[act]
+        mix = bool(ticking.any() and not ticking.all())
+        for b in range(B):
+            if not act[b]:
+                continue
+            on_cached = bool(cached[b]) and bool(ticking.any())
+            s = ([sims[i * B + b] for i in range(len(sims) // B)]
+                 if on_cached else [])
+            pr = prunes[-1] if on_cached or not mix else prunes[0]
+            steps.setdefault(g * per_group + b, []).append(
+                (s, {k: v[b] for k, v in pr.items()}))
+    return steps
+
+
+def batched_eval_part(card, dev) -> dict:
+    """(d): run_eval(stream_batch=4) over five videos of unequal length
+    (one at a second resolution) at llava-ov-0.5b width in float32 (phase
+    11's model and session), against the sequential solver.  Rows must be
+    equal; where a video's rows part, the first frame where its vision
+    selections part must be a near-tie of the sequential run's own scores
+    (first_parting), else the phase fails."""
+    from stc_tpu_torch.eval.runner import run_eval
+    from stc_tpu_torch.eval.solvers import BaseVQA, load_video_frames
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.runtime.adapter import ChatTemplate
+    t_part = time.perf_counter()
+    tok = HashTok()
+    n_init = len(tok(ChatTemplate.init_prompt))
+    model, cfg = make_model(dev, seed=11, dtype=torch.float32)
+    base = session_cfg(15000, 64, 64, EVAL_OPEN_NEW, 1, 256)
+    scfg = dataclasses.replace(base, rekv=dataclasses.replace(
+        base.rekv, n_init=n_init))
+    U = max(1, int(cfg.vision.num_tokens * scfg.cacher.update_token_ratio))
+    K = scfg.pruner.token_per_frame
+    names = {"b0": 12, "b1": 18, "b2": 8, "b3": 14, "b4": 6}
+    hw = {k: EVAL_HW for k in names}
+    hw["b2"] = (240, 320)
+    work = tempfile.mkdtemp(prefix="stc_eval_b_")
+    try:
+        paths = write_eval_videos(work, names, hw, seed=16)
+        anno = [{"video_id": k, "video_path": paths[k], "conversations": [
+            mc(f"question {i} about {k}", ["a", "b", "c", "d"][:3 + i % 2],
+               "b"), oe(f"open question {i}", "x")][:1 + i % 2]}
+            for i, k in enumerate(names)]
+        a_path = os.path.join(work, "anno.json")
+        with open(a_path, "w") as f:
+            json.dump(anno, f)
+        runs = {}
+        for batch in (1, 4):
+            sess = lo.build_session(model, scfg, state_dtype=torch.float32,
+                                    device=dev, batch=batch)
+            ad = make_timed_adapter(sess, tok)
+            records, ctx = log_chunks(sess)
+            with ctx, patched([(BaseVQA, "open_max_new",
+                                lambda _: EVAL_OPEN_NEW)]):
+                rows, _ = run_eval("mlvu", ad, os.path.join(work, str(batch)),
+                                   anno_path=a_path, rank=0, world=1,
+                                   frame_loader=load_video_frames,
+                                   stream_batch=batch)
+            enc = [(n, s) for _, k, n, s in ad.log if k == "encode"]
+            runs[batch] = {"rows": rows, "steps": stream_steps(
+                records, batch, batch),
+                "fps": sum(n for n, _ in enc) / sum(s for _, s in enc)}
+            del sess, ad
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    seq, bat = runs[1]["rows"], runs[4]["rows"]
+    errors = [r for r in seq + bat if "error" in r]
+    parted, failures = {}, []
+    for i, s in enumerate(anno):
+        vid = s["video_id"]
+        a = [r for r in bat if r["video_id"] == vid]
+        b = [r for r in seq if r["video_id"] == vid]
+        if a == b:
+            continue
+        part = first_parting(
+            [(x[0], y[0], x[1], y[1]) for x, y in zip(
+                runs[4]["steps"][i], runs[1]["steps"][i])], U, K)
+        parted[vid] = part
+        if part is None or not part["tie"]:
+            failures.append(vid)
+    equal_rows = sum(x == y for x, y in zip(bat, seq))
+    rec = {"model": "llava-ov-0.5b widths, float32", "stream_batch": 4,
+           "videos": {k: (names[k] // 2,) + hw[k] for k in names},
+           "rows": len(bat), "equal_rows": equal_rows,
+           "rows_equal": bat == seq, "partings": parted,
+           "frames_per_s_batch4": runs[4]["fps"],
+           "frames_per_s_batch1": runs[1]["fps"],
+           "seconds": time.perf_counter() - t_part}
+    for vid, p in parted.items():
+        print(f"near-tie: batched eval video {vid} {p}", flush=True)
+    del model
+    torch.cuda.empty_cache()
+    if errors or failures or len(bat) != len(seq) or \
+            len(bat) != sum(len(s["conversations"]) for s in anno):
+        raise RuntimeError(f"phase 15 (d) batched eval failed: errors "
+                           f"{errors[:3]}, partings away from a near-tie "
+                           f"{failures} {rec}")
+    return rec
+
+
+def eval_phase(card, dev) -> dict:
+    """Phase 15: the eval harnesses at llava-ov-7b width (bf16 LM, float32
+    SigLIP, SessionConfig() but n_init = the adapter's init prompt, random
+    weights), HashTok, .npy videos at 360 x 640:
+    (a)-(b) run_eval offline ("mlvu", five videos), "videomme" (two),
+    "rvs_ego" (two, end_time cuts), StreamingBenchEval and OVOBenchEval
+    (four questions each); (c) gates: no error row or None response, row
+    counts, launches = appends x layers by protocol, decode launches on
+    every protocol, three rows equal to direct question_answering calls
+    in a cleared session, a video alone in a new session equal to its rows
+    after the others, a world-2 merge equal to the world-1 rows, a bare
+    StreamingSession with the FrameEncoder equal to the VLMSession (answer
+    ids and blocks) on a 64-frame video, both kernels against their plain
+    versions on the session's state; (d) batched eval at 0.5b width; (e)
+    chunk FLOPs and device times."""
+    from stc_tpu_torch.config import SessionConfig
+    from stc_tpu_torch.eval import solvers
+    from stc_tpu_torch.eval.runner import merge_and_score, run_eval
+    from stc_tpu_torch.eval.solvers import OfflineVQA, load_video_frames
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.runtime.adapter import ChatTemplate
+    from stc_tpu_torch.runtime.session import StreamingSession
+    t_phase = time.perf_counter()
+    tok = HashTok()
+    n_init = len(tok(ChatTemplate.init_prompt))
+    base = SessionConfig()
+    scfg = dataclasses.replace(base, rekv=dataclasses.replace(
+        base.rekv, n_init=n_init))
+    print(f"phase 15: BaseVQA.open_max_new lowered from "
+          f"{solvers.BaseVQA.open_max_new} to {EVAL_OPEN_NEW} "
+          f"(multiple-choice keeps {solvers.BaseVQA.mc_max_new})",
+          flush=True)
+    gen = torch.Generator(device=dev).manual_seed(15)
+    torch.cuda.reset_peak_memory_stats()
+    model, cfg = make_model(dev, seed=15, text=QWEN2_7B)
+    work = tempfile.mkdtemp(prefix="stc_eval_")
+    out = {"phase": "eval llava-ov-7b", "card": card,
+           "open_max_new": EVAL_OPEN_NEW, "mc_max_new": EVAL_MC_NEW,
+           "n_init": n_init}
+    try:
+        t0 = time.perf_counter()
+        paths = write_eval_videos(work, EVAL_VIDEOS, EVAL_HW, seed=15)
+        out["write_videos_s"] = time.perf_counter() - t0
+        anno = eval_annotations(paths)
+        with patched([(solvers.BaseVQA, "open_max_new",
+                       lambda _: EVAL_OPEN_NEW)]):
+            sess = lo.build_session(model, scfg,
+                                    state_dtype=torch.bfloat16, device=dev)
+            ad = make_timed_adapter(sess, tok)
+            recs = eval_protocols(ad, sess, anno, paths, work)
+            mlvu = recs["mlvu"]["out"]
+
+            # three rows against direct calls in a freshly cleared session
+            solver = OfflineVQA(ad)
+            direct = []
+            for s in anno["mlvu"][:2]:
+                frames = load_video_frames(s["video_path"], 0.5)
+                for qa in s["conversations"][:2]:
+                    if len(direct) == 3:
+                        break
+                    is_mc = "choices" in qa
+                    prompt = (solver.format_mcqa_prompt(qa["question"],
+                                                        qa["choices"])
+                              if is_mc else
+                              solver.format_openqa_prompt(qa["question"]))
+                    sess.clear_cache()
+                    sess.encode_init_prompt(tok(ChatTemplate.init_prompt))
+                    sess.encode_video(frames)
+                    ids = sess.question_answering(
+                        tok(qa["question"]), tok(prompt), [0],
+                        max_new_tokens=EVAL_MC_NEW if is_mc
+                        else EVAL_OPEN_NEW)
+                    row = next(r for r in mlvu if row_key(r) == (
+                        s["video_id"], qa["question"]))
+                    direct.append({"video": s["video_id"],
+                                   "row": row["pred_answer"],
+                                   "direct": tok.decode(ids)})
+
+            # the world-2 merge, rank 0 then rank 1
+            a_path = os.path.join(work, "mlvu.json")
+            wdir = os.path.join(work, "world2")
+            ad.protocol = "world2"
+            for rank in (0, 1):
+                run_eval("mlvu", ad, wdir, anno_path=a_path, rank=rank,
+                         world=2, frame_loader=load_video_frames)
+            merged = merge_and_score(wdir, "mlvu")
+            with open(os.path.join(wdir, "merged_score.json")) as f:
+                merged_rows = json.load(f)["rows"]
+            kv_gb = max(r["kv_memory_gb"] for r in recs["videomme"]["out"])
+
+            # the bare session with the FrameEncoder against the VLMSession
+            frames64 = load_video_frames(paths["v64"], 0.5)
+            questions = [(tok("what is on the left"),
+                          tok(ad.get_prompt("what is on the left"))),
+                         (tok("which object moves"),
+                          tok(ad.get_prompt("which object moves", mc=True)))]
+
+            def bare_vs_vlm(s):
+                s.clear_cache()
+                s.encode_init_prompt(tok(ChatTemplate.init_prompt))
+                for i in range(len(frames64)):
+                    s.encode_video(frames64[i:i + 1])
+                res = []
+                for q, p in questions:
+                    ids = s.question_answering(q, p, [0],
+                                               max_new_tokens=EVAL_MC_NEW)
+                    res.append((ids, s.last_retrieved_indices))
+                return res
+
+            vlm_res = bare_vs_vlm(sess)
+            checks = session_kernel_checks(sess, gen, "phase 15")
+            flops1 = chunk_flops(sess, 3)
+            logs = ad.log
+            del ad, sess
+            torch.cuda.empty_cache()
+            bare = StreamingSession(
+                model.text, scfg, state_dtype=torch.bfloat16,
+                frame_encoder=lo.FrameEncoder(model, scfg, device=dev))
+            bare_res = bare_vs_vlm(bare)
+            del bare
+            torch.cuda.empty_cache()
+
+            # one video alone in a newly built session
+            alone = [s for s in anno["mlvu"] if s["video_id"] == "v64"]
+            al_path = os.path.join(work, "alone.json")
+            with open(al_path, "w") as f:
+                json.dump(alone, f)
+            sess2 = lo.build_session(model, scfg,
+                                     state_dtype=torch.bfloat16, device=dev)
+            alone_rows, _ = run_eval(
+                "mlvu", make_timed_adapter(sess2, tok),
+                os.path.join(work, "alone"), anno_path=al_path, rank=0,
+                world=1, frame_loader=load_video_frames)
+            del sess2
+            torch.cuda.empty_cache()
+
+            # an 8-frame chunk (exc_block_size 480): FLOPs and device time
+            scfg8 = dataclasses.replace(
+                scfg, encode_chunk_frames=8, rekv=dataclasses.replace(
+                    scfg.rekv, exc_block_size=8 * scfg.rekv.block_size))
+            sess8 = lo.build_session(model, scfg8,
+                                     state_dtype=torch.bfloat16, device=dev)
+            sess8.encode_init_prompt(tok(ChatTemplate.init_prompt))
+            sess8.encode_video(np.random.default_rng(8).integers(
+                0, 256, size=(32,) + EVAL_HW + (3,), dtype=np.uint8))
+            flops8 = chunk_flops(sess8, 2)
+            del sess8
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    del model
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    out["d_batched"] = batched_eval_part(card, dev)
+
+    enc = [(n, s) for _, k, n, s in logs if k == "encode"]
+    v64 = [r for r in mlvu if r["video_id"] == "v64"]
+    gates = {
+        "direct_qa_equal": all(d["row"] == d["direct"] for d in direct)
+        and len(direct) == 3,
+        "alone_equal_after_others": alone_rows == v64 and bool(v64),
+        "world2_merge_equal": sorted(merged_rows, key=row_key) == sorted(
+            mlvu, key=row_key) and merged["n_rows"] == len(mlvu),
+        "bare_frame_encoder_equal_vlm": bare_res == vlm_res,
+    }
+    out.update({
+        "protocols": {k: {kk: vv for kk, vv in r.items()
+                          if kk not in ("out", "bad")}
+                      for k, r in recs.items()},
+        "launches": {k: r["launches"] for k, r in recs.items()},
+        "ingest_frames_per_s": sum(n for n, _ in enc) / sum(
+            s for _, s in enc),
+        "frames_encoded": sum(n for n, _ in enc),
+        "kv_memory_gb": kv_gb,
+        "kv_memory_gb_note": "SessionAdapter.calc_memory_usage, as stc_tpu "
+                             "computes it: pages x max_blocks x bytes a "
+                             "page",
+        "direct_qa": direct,
+        "bare_vs_vlm": [{"answer": a, "blocks_layer0": b[0]}
+                        for a, b in vlm_res],
+        "merge_score": merged["score"], "gates": gates,
+        "kernel_vs_plain_on_session_state": checks,
+        "chunk_flops_1frame": flops1, "chunk_flops_8frame": flops8,
+        "peak_mem_gb": peak,
+        "mlvu_answers": [r["pred_answer"] for r in mlvu]})
+    out["seconds"] = time.perf_counter() - t_phase
+    if not all(gates.values()):
+        raise RuntimeError(f"phase 15 gates failed {gates} {direct}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3478,6 +4165,30 @@ def main() -> int:
                  "time_split": r["time_split"], "seconds": r["seconds"]}
              for k, r in p14.items() if k != "seconds"}})
 
+    # ---- phase 15: the eval harnesses at llava-ov-7b width ----
+    p15 = eval_phase(card, dev)
+    RECORD["phases"]["eval"] = p15
+    emit({k: v for k, v in p15.items() if k not in (
+        "chunk_flops_1frame", "chunk_flops_8frame")})
+    emit({"phase": "eval chunk flops", "card": card,
+          "bf16_peak_flops": H100_BF16_FLOPS,
+          "one_frame": p15["chunk_flops_1frame"],
+          "eight_frame": p15["chunk_flops_8frame"]})
+    emit({"phase": "eval summary", "card": card,
+          "seconds": p15["seconds"],
+          "ingest_frames_per_s": p15["ingest_frames_per_s"],
+          "qa_p50_s": {k: [r["qa_p50_s_mc"], r["qa_p50_s_open"]]
+                       for k, r in p15["protocols"].items()},
+          "seconds_per_sample": {k: r["seconds_per_sample"]
+                                 for k, r in p15["protocols"].items()},
+          "kv_memory_gb": p15["kv_memory_gb"], "gates": p15["gates"],
+          "batched_equal_rows": [p15["d_batched"]["equal_rows"],
+                                 p15["d_batched"]["rows"]],
+          "tflops_per_s": {
+              f"{c['frames']}-frame {c['path']}": c["tflops_per_s"]
+              for c in p15["chunk_flops_1frame"][:2]
+              + p15["chunk_flops_8frame"]}})
+
     # ---- the kernels line, then the device line ----
     def bound_by(c):
         """bound_by as one word; terms that tie are listed beside it."""
@@ -3536,7 +4247,9 @@ def main() -> int:
                            "float"],
                        **{f"phase 14 ({k})": r["launches"][
                            "stream_attention"]["float"]
-                          for k, r in p14.items() if k != "seconds"}}),
+                          for k, r in p14.items() if k != "seconds"},
+                       **{f"phase 15 ({k})": c["stream_attention"]["float"]
+                          for k, c in p15["launches"].items()}}),
         entry("stream_attention_int8", sa_src, sa_tpu,
               "stream int8 7B heads (28/4/128), 264 pages",
               p6["launches"]["stream_attention"]["int8"], "phase 6",
@@ -3565,7 +4278,9 @@ def main() -> int:
                        "phase 12 (b)": b12["launches"]["decode_attention"],
                        **{f"phase 14 ({k})": r["launches"][
                            "decode_attention"]
-                          for k, r in p14.items() if k != "seconds"}}),
+                          for k, r in p14.items() if k != "seconds"},
+                       **{f"phase 15 ({k})": c["decode_attention"]
+                          for k, c in p15["launches"].items()}}),
         entry("decode_score", "stc_tpu_torch/csrc/decode_score.cu",
               "stc_tpu/ops/decode_attention.py:244",
               "decode_score prefill T=256 at slot 3854", 0,

@@ -370,6 +370,40 @@ def append_stream(kv: StreamKV, q: torch.Tensor, k: torch.Tensor,
     return o, kv
 
 
+def save_append_slots(kvs: StreamKV, cfg: ReKVConfig, n_pages: int):
+    """Copies of what appends of n_pages pages in all may write into the
+    layer-stacked state kvs (leaves with a leading layer axis): each
+    stream's page slots (pages, scales, keep rows) and rep-key slots
+    within n_pages of where it writes next (append_stream clips the write
+    slot into the store, so its writes stay in that range), and the
+    counters.  Returns a function that writes them back.  The copies are
+    2 * n_pages pages a stream, not the store."""
+    nb = kvs.num_blocks[0].tolist()
+    off = kvs.page_offset[0].tolist()
+    Nb, R = kvs.block_k.shape[3], kvs.block_rep.shape[2]
+    every = slice(None)
+    saved = []
+    for b in range(len(nb)):
+        res = nb[b] - off[b]
+        pg = slice(max(0, res - n_pages), min(Nb, res + n_pages))
+        rp = slice(max(0, nb[b] - n_pages), min(R, nb[b] + n_pages))
+        for x, ix in ((kvs.block_k, (every, b, every, pg)),
+                      (kvs.block_v, (every, b, every, pg)),
+                      (kvs.block_k_scale, (every, b, every, pg)),
+                      (kvs.block_v_scale, (every, b, every, pg)),
+                      (kvs.page_keep, (every, b, pg)),
+                      (kvs.block_rep, (every, b, rp))):
+            saved.append((x, ix, x[ix].clone()))
+    for x in (kvs.num_blocks, kvs.length):
+        saved.append((x, every, x.clone()))
+
+    def restore():
+        for x, ix, val in saved:
+            x[ix] = val
+
+    return restore
+
+
 # ---------------------------------------------------------------------------
 # Retrieval (question time)
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""LLaVA-OneVision + ReKV (port of ``stc_tpu/models/llava_onevision.py``,
-main-path subset): SigLIP tower (with the STC-Cacher) -> projector ->
-bilinear 2x pooling -> STC-Pruner -> streaming Qwen2 LM, behind the
-streaming-session API.
+"""LLaVA-OneVision + ReKV (port of ``stc_tpu/models/llava_onevision.py``):
+SigLIP tower (with the STC-Cacher) -> projector -> bilinear 2x pooling ->
+STC-Pruner -> streaming Qwen2 LM, behind the streaming-session API.  The
+vision pipeline also stands alone as a FrameEncoder, the frame encoder of
+a bare StreamingSession.
 
 The vision side (tower, projector, pooling, pruner) computes in
 ``vision_dtype`` (float32 by default, as the JAX session's); the pruned
@@ -151,31 +152,83 @@ class LlavaOVVision(PixelPipeline):
         return (1, 0)  # cacher refs (L, B, T, C); pruner memory (B, ...)
 
     def _post(self, feats, pstate):
+        """Tower features -> (flat (B, F * keep, E), the pruner's kept
+        indices (B, F, keep), or None without the pruner, pstate)."""
         B = self.batch
         feats = apply_pooling(self.model.projector(feats),
                               self.cfg.vision.grid)
         BF, T, E = feats.shape
         feats = feats.reshape(B, BF // B, T, E)
         if not self.scfg.pruner.enabled:
-            return feats.reshape(B, -1, E), pstate
-        pruned, _, pstate = stc_prune(
+            return feats.reshape(B, -1, E), None, pstate
+        pruned, idx, pstate = stc_prune(
             feats, pstate,
             keep_per_frame=self.scfg.pruner.token_per_frame,
             channel_keep_ratio=self.scfg.pruner.channel_keep_ratio)
-        return pruned.reshape(B, -1, E), pstate
+        return pruned.reshape(B, -1, E), idx, pstate
+
+    def encode(self, pixels, vstate, pstate, cached: bool):
+        """One chunk on the cacher path (cached) or the full one ->
+        (flat, kept indices, vstate, pstate); the cacher path keeps the
+        references it was given."""
+        if cached:
+            c = self.scfg.cacher
+            feats, _ = self.model.vision.encode_cached(
+                pixels, vstate, c.update_token_ratio, self.batch,
+                sim_source=c.sim_source, k_proxy_rank=c.k_proxy_rank)
+        else:
+            feats, vstate = self.model.vision.encode_full(pixels, self.batch)
+        flat, idx, pstate = self._post(feats, pstate)
+        return flat, idx, vstate, pstate
 
     def full(self, pixels, vstate, pstate):
-        feats, vstate = self.model.vision.encode_full(pixels, self.batch)
-        flat, pstate = self._post(feats, pstate)
+        flat, _, vstate, pstate = self.encode(pixels, vstate, pstate, False)
         return flat, vstate, pstate
 
     def cached(self, pixels, vstate, pstate):
-        c = self.scfg.cacher
-        feats, _ = self.model.vision.encode_cached(
-            pixels, vstate, c.update_token_ratio, self.batch,
-            sim_source=c.sim_source, k_proxy_rank=c.k_proxy_rank)
-        flat, pstate = self._post(feats, pstate)
+        flat, _, vstate, pstate = self.encode(pixels, vstate, pstate, True)
         return flat, vstate, pstate
+
+
+class FrameEncoder:
+    """frames -> pruned features (1, F * keep, E_text) of one stream, for a
+    bare StreamingSession (its frame_encoder).  It runs the LlavaOVVision
+    pipeline that a VLMSession drives, on the full path every
+    cache_interval-th call and on the cacher path between, and owns the
+    cacher and pruner state (reset per video).  ``last_kept_idx`` holds the
+    pruner's kept indices (1, F, keep) of the last call (None without the
+    pruner)."""
+
+    def __init__(self, model: LlavaOV, scfg: SessionConfig, device="cuda"):
+        self.model = model.to(resolve_device(device))
+        self.scfg = scfg
+        self.vision = LlavaOVVision(self.model, scfg)
+        self.reset()
+
+    def reset(self):
+        self.chunk_idx = 0
+        self.vstate, self.pstate = self.vision.init_state()
+        self.last_kept_idx = None
+
+    @torch.no_grad()
+    def __call__(self, frames) -> torch.Tensor:
+        """frames: (F, H, W, 3) uint8 (or 0-255 float) RGB, or pixels
+        already normalised (F, 3, S, S)."""
+        frames = np.asarray(frames)
+        vis = self.vision
+        if frames.dtype == np.uint8 or (frames.ndim == 4
+                                        and frames.shape[-1] == 3):
+            px = vis.device_preprocess(
+                torch.as_tensor(vis.preprocess(frames)).to(vis.device))
+        else:
+            px = torch.as_tensor(frames).to(vis.device, vis.dtype)
+        c = self.scfg.cacher
+        cached = c.enabled and self.chunk_idx % c.cache_interval != 0
+        out, idx, self.vstate, self.pstate = vis.encode(
+            px, self.vstate, self.pstate, cached)
+        self.chunk_idx += 1
+        self.last_kept_idx = idx
+        return out
 
 
 class LlavaOVSession(VLMSession):

@@ -35,7 +35,9 @@ on the FP32-FMA tile (PERF.md has the distance from the bound).
 
 On a CPU tensor a wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises.  ``launches`` counts decode_attention's
-kernel launches, ``score_launches`` decode_score's.
+kernel launches, ``score_launches`` decode_score's.  A launch adds
+``decode_attention_flops`` / ``decode_score_flops`` to the FLOPs counts
+open (utils/metrics.py), the products the plain version computes.
 """
 
 from __future__ import annotations
@@ -45,11 +47,25 @@ import ctypes
 import torch
 
 from stc_tpu_torch.kernels import _build
+from stc_tpu_torch.utils import metrics
 
 launches = 0
 score_launches = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def decode_attention_flops(B: int, Hq: int, T: int, D: int, C: int) -> int:
+    """FLOPs of one call as its plain version computes them: the scores
+    and P @ V of B * Hq * T queries of width D over all C cache slots,
+    masked ones included, 2 a multiply-add."""
+    return 4 * B * Hq * T * D * C
+
+
+def decode_score_flops(B: int, Hq: int, T: int, D: int, C: int) -> int:
+    """FLOPs of one decode_score call as its plain version computes
+    them: the scores of B * Hq * T queries over all C slots."""
+    return 2 * B * Hq * T * D * C
 
 
 def _check(q_rot, k, v, start, cursor):
@@ -110,6 +126,7 @@ def _launch(q_rot, k, v, start, cursor, n_local, return_m):
             T, D, C, n_local, n_split, _DTYPES[q_rot.dtype], stream)
     _build.check_launch(rc, "decode_attention")
     launches += 1
+    metrics.add_kernel_flops(decode_attention_flops(B, Hq, T, D, C))
     return (out, m) if return_m else out
 
 
@@ -187,6 +204,7 @@ def _launch_score(q_rot, k, m, start, cursor, n_local):
             _DTYPES[q_rot.dtype], stream)
     _build.check_launch(rc, "decode_score")
     score_launches += 1
+    metrics.add_kernel_flops(decode_score_flops(B, Hq, T, D, C))
     return out
 
 

@@ -47,7 +47,8 @@ reports (``_build.tile``).  PERF.md has the card times.
 On a CPU tensor the wrapper runs ``stream_attention_ref``; on a CUDA tensor
 it launches the kernel or raises.  ``launches`` counts kernel launches by
 page kind; ``masked_launches`` counts those of them that read a page_keep
-mask.
+mask.  A launch adds ``stream_attention_flops`` to the FLOPs counts open
+(utils/metrics.py), the products the plain version computes.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ import torch
 
 from stc_tpu_torch.kernels import _build
 from stc_tpu_torch.ops.rope import rotate
+from stc_tpu_torch.utils import metrics
 
 launches = {"float": 0, "int8": 0, "int4": 0}
 masked_launches = 0
@@ -71,6 +73,15 @@ def pages_per_tile(S: int) -> int:
     """Power-of-two pages per cover tile, keeping the tile near 512 keys
     (the engine's window page count is a multiple of it)."""
     return next((d for d in (8, 4, 2, 1) if d * S <= 512), 1)
+
+
+def stream_attention_flops(B: int, Hq: int, T: int, D: int, Lc: int,
+                           n_init: int) -> int:
+    """FLOPs of one call as its plain version computes them: the scores
+    and P @ V of B * Hq * T queries of width D over the n_init + Lc +
+    n_init keys of the three groups, masked keys included, 2 a
+    multiply-add (every page kind, with or without page_keep)."""
+    return 4 * B * Hq * T * D * (Lc + 2 * n_init)
 
 
 def page_kind(block_k: torch.Tensor) -> str:
@@ -225,6 +236,7 @@ def _launch(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
             _PAGE_CODES[kind], stream)
     _build.check_launch(rc, "stream_attention")
     launches[kind] += 1
+    metrics.add_kernel_flops(stream_attention_flops(B, Hq, T, D, Lc, n_init))
     if page_keep is not None:
         global masked_launches
         masked_launches += 1

@@ -4,6 +4,7 @@ plug-and-play API
     clear_cache() / encode_init_prompt(ids) / encode_video_features(feats)
     / question_answering(...) / question_answering_batch(...)
     / reset_streams(slots) / serve(...) / set_spec_decode(...)
+    / encode_video(frames), through an attached frame_encoder
 
 over one device-resident page store for B streams, with a host tier behind
 it.  Streams may tick at different rates (``active`` masks: ragged
@@ -62,7 +63,11 @@ def _stop_arr(stop_token_ids) -> np.ndarray:
 
 class StreamingSession:
     def __init__(self, lm: Qwen2, session_cfg: SessionConfig, batch: int = 1,
-                 state_dtype=torch.bfloat16):
+                 state_dtype=torch.bfloat16, frame_encoder=None):
+        """frame_encoder: optional callable frames -> pruned features
+        (B, n_frames * block_size, E) (models/llava_onevision.FrameEncoder)
+        that encode_video runs; clear_cache resets it when it has a
+        reset()."""
         if session_cfg.weights_quant != "none":
             # in place, as stc_tpu's session quantizes its params at build
             lm.quantize_int8(session_cfg.weights_quant_group)
@@ -73,6 +78,7 @@ class StreamingSession:
         self.batch = batch
         self.state_dtype = state_dtype
         self.device = lm.device
+        self.frame_encoder = frame_encoder
         if rc.retrieve_len > rc.n_init + rc.n_local:
             raise ValueError(
                 f"retrieve_len={rc.retrieve_len} exceeds n_init + n_local = "
@@ -117,6 +123,8 @@ class StreamingSession:
             else 0
         self._qa_hist = np.zeros((self.batch, H), dtype=np.int32)
         self._qa_hist_len = np.zeros(self.batch, dtype=np.int32)
+        if hasattr(self.frame_encoder, "reset"):
+            self.frame_encoder.reset()
 
     # ------------------------------------------------------------------ #
     def _check_rep_capacity(self, incoming_blocks: int):
@@ -240,6 +248,15 @@ class StreamingSession:
             self.lm.encode_step(self.rekv, self.kvs, feats[:, i:i + n * S],
                                 is_init=False, active=act_dev)
             self._track_blocks(n, act_np)
+
+    def encode_video(self, frames):
+        """frames: (n_frames, H, W, 3) uint8, one chunk through the attached
+        frame_encoder, then encode_video_features.  VLMSession overrides
+        it with its own vision path."""
+        if self.frame_encoder is None:
+            raise RuntimeError("encode_video on a bare StreamingSession "
+                               "needs a frame_encoder")
+        self.encode_video_features(self.frame_encoder(frames))
 
     # ------------------------------------------------------------------ #
     def question_answering(self, question_ids: Sequence[int],
@@ -662,7 +679,10 @@ class StreamingSession:
         self._qa_hist_len[mask] = 0
 
     def kv_memory_bytes(self) -> int:
-        """Bytes of the pages the store holds for the longest stream."""
+        """stc_tpu's figure for the store, kept equal so eval rows match:
+        the longest stream's pages times the bytes of one page across the
+        whole store's page axis, i.e. max_blocks x the bytes those pages
+        hold."""
         n = int(self.kvs.num_blocks.max())
         blk = self.kvs.block_k
         per_block = int(np.prod(blk.shape[2:])) * blk.element_size() * 2

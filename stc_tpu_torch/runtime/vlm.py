@@ -19,6 +19,8 @@ into planar 4:2:0 planes (half the bytes; already-packed planes pass
 through) and the device rebuilds RGB before normalising.  ``stage_chunk``
 stages one chunk on the device ahead of time; ``encode_video`` takes such
 a staged tensor as one chunk (runtime/pipeline.py's ``stream_encode``).
+``estimate_chunk_flops`` counts one chunk's FLOPs at the current state
+and leaves the state as it was.
 """
 
 from __future__ import annotations
@@ -28,7 +30,9 @@ import torch
 import torch.nn.functional as F
 
 from stc_tpu_torch import native
+from stc_tpu_torch.kvcache import engine
 from stc_tpu_torch.runtime.session import StreamingSession
+from stc_tpu_torch.utils import metrics
 
 
 class Preprocessor:
@@ -298,13 +302,46 @@ class VLMSession(StreamingSession):
             new_v, new_p = vis.select_streams(new_v, new_p, vstate, pstate,
                                               act_dev)
         self._vstate, self._pstate = new_v, new_p
+        self._append_flat(flat, act_dev)
+        self._track_blocks(n_frames, act_np)
+        self._slot_chunk += 1 if act_np is None else act_np.astype(np.int64)
+        self.chunk_idx += 1
+
+    def _append_flat(self, flat, active=None):
+        """Pruned features (B, n * block_size, E) into the LM, one append
+        a exc_block_size tokens."""
         flat = flat.to(self.lm.dtype)
         S, exc = self.rekv.block_size, self.rekv.exc_block_size
         if flat.shape[1] % S:
             raise ValueError((flat.shape, S))
         for i in range(0, flat.shape[1], exc):
             self.lm.encode_step(self.rekv, self.kvs, flat[:, i:i + exc],
-                                is_init=False, active=act_dev)
-        self._track_blocks(n_frames, act_np)
-        self._slot_chunk += 1 if act_np is None else act_np.astype(np.int64)
-        self.chunk_idx += 1
+                                is_init=False, active=active)
+
+    @torch.no_grad()
+    def estimate_chunk_flops(self, cached: bool = False) -> int:
+        """FLOPs of one encode chunk (encode_chunk_frames frames of every
+        stream through the tower, projector, pooling, pruner and LM append)
+        at the current stream state; cached=True takes the cacher's
+        selective-recompute path.  Counted by utils/metrics.estimate_flops
+        (torch's counter plus the hand kernels' products) over a chunk of
+        zero frames.  The state is left as it was: the chunk's vision and
+        pruner states are dropped, and the page and rep-key slots its
+        appends write, and the counters, are saved before and written back
+        after (engine.save_append_slots).  Nothing is evicted."""
+        n = self.scfg.encode_chunk_frames
+        hw = self.vision.cfg.vision.image_size
+        pixels = torch.zeros((n * self.batch, hw, hw, 3), dtype=torch.uint8,
+                             device=self.device)
+        path = self.vision.cached if cached else self.vision.full
+
+        def chunk():
+            px = self.vision.device_preprocess(pixels)
+            flat, _, _ = path(px, self._vstate, self._pstate)
+            self._append_flat(flat)
+
+        restore = engine.save_append_slots(self.kvs, self.rekv, n)
+        try:
+            return metrics.estimate_flops(chunk)
+        finally:
+            restore()

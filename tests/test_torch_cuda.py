@@ -920,3 +920,117 @@ def test_tiny_longva_session_on_card_answers_as_on_cpu(cuda_device):
         res[str(dev)] = (out, sess.last_retrieved_indices,
                          sess._vstate.tokens_skipped.cpu().tolist())
     assert res["cuda:0"] == res["cpu"]
+
+
+@pytest.mark.cuda
+def test_timer_synchronises_on_card(cuda_device):
+    """utils/metrics.Timer with device_sync waits for the card at both
+    ends: a ~25-50 ms sleep kernel reads as such, while a bare host clock
+    reads only its issue."""
+    from stc_tpu_torch.utils import metrics
+    torch.cuda.synchronize(cuda_device)
+    with metrics.Timer() as bare_clock:
+        torch.cuda._sleep(50_000_000)
+    torch.cuda.synchronize(cuda_device)
+    with metrics.Timer(metrics.device_sync(cuda_device)) as synced:
+        torch.cuda._sleep(50_000_000)
+    assert synced.seconds > 0.01, synced.seconds
+    assert synced.seconds > 5 * bare_clock.seconds, (synced.seconds,
+                                                      bare_clock.seconds)
+
+
+def _flops_calls(kind, keep, dev, dtype):
+    """(call on `dev` in `dtype`, formula) for each kernel case of
+    tests/test_torch_metrics.py, from the same CPU operands."""
+    if kind in ("none", "int8", "int4"):
+        cfg = ReKVConfig(**dict(BASE, kv_quant=kind))
+        scales = {} if kind != "none" else None
+        ops = _stream_operands(cfg, 3, 8, seed=4, scales=scales)
+        floats = (0, 1, 6, 7, 8) + ((2, 3) if kind == "none" else ())
+        a = [x.to(dev, dtype if i in floats else x.dtype).contiguous()
+             for i, x in enumerate(ops)]
+        kw = dict(n_local=cfg.n_local,
+                  **{k: v.to(dev) for k, v in (scales or {}).items()})
+        if keep:
+            kw["page_keep"] = _keep_half(3, cfg.max_blocks, cfg.block_size,
+                                         3).to(dev)
+        B, Hq, T, D = a[0].shape
+        return (lambda: sa.stream_attention(*a, **kw)), \
+            sa.stream_attention_flops(B, Hq, T, D, a[4].shape[1],
+                                      a[6].shape[2])
+    g = torch.Generator().manual_seed(2)
+    B, Hq, Hkv, T, D, C = 2, 4, 2, 5, 32, 64
+    q = torch.randn((B, Hq, T, D), generator=g).to(dev, dtype)
+    k, v = (torch.randn((B, Hkv, C, D), generator=g).to(dev, dtype)
+            for _ in range(2))
+    start = torch.tensor([10, 30], dtype=torch.int32, device=dev)
+    cursor = start + T
+    if kind == "score":
+        m = torch.randn((B, Hq, T), generator=g).to(dev)
+        return (lambda: da.decode_score(q, k, m, start, cursor,
+                                        n_local=16)), \
+            da.decode_score_flops(B, Hq, T, D, C)
+    return (lambda: da.decode_attention(q, k, v, start, cursor, n_local=16,
+                                        return_m=keep)), \
+        da.decode_attention_flops(B, Hq, T, D, C)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,keep", [
+    ("none", False), ("int8", False), ("int4", False), ("none", True),
+    ("int8", True), ("int4", True), ("decode", False), ("decode", True),
+    ("score", False)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_flops_count_on_card_equals_cpu(cuda_device, kind, keep,
+                                               dtype):
+    """estimate_flops over a hand kernel on the card (the wrapper adds its
+    formula; the counter cannot see a ctypes launch) equals the count over
+    the plain version on the CPU for the same shapes."""
+    from stc_tpu_torch.utils import metrics
+    card, want = _flops_calls(kind, keep, cuda_device, dtype)
+    cpu, _ = _flops_calls(kind, keep, torch.device("cpu"), torch.float32)
+    assert metrics.estimate_flops(card) == want == \
+        metrics.estimate_flops(cpu)
+
+
+@pytest.mark.cuda
+def test_frame_encoder_and_chunk_flops_on_card(cuda_device):
+    """A bare session with the FrameEncoder on the card answers with the
+    VLMSession's ids and blocks; estimate_chunk_flops on the card equals
+    the CPU count of the same session, full and cached."""
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.runtime.session import StreamingSession
+    cfg = lo.LlavaOVConfig.tiny()
+    scfg = SessionConfig(
+        rekv=ReKVConfig(n_init=4, n_local=128, block_size=3,
+                        exc_block_size=3, topk=4, max_blocks=64,
+                        max_prompt_tokens=32, max_new_tokens=8),
+        cacher=CacherConfig(update_token_ratio=0.5),
+        pruner=PrunerConfig(token_per_frame=3))
+    frames = np.random.default_rng(2).integers(0, 256, (5, 56, 56, 3),
+                                               dtype=np.uint8)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res, flops = {}, {}
+    for name, dev in (("cpu", "cpu"), ("vlm", cuda_device),
+                      ("bare", cuda_device)):
+        model = lo.LlavaOV(cfg, dtype=torch.float32, device="cpu")
+        model.init_random_params(torch.Generator().manual_seed(0))
+        if name == "bare":
+            sess = StreamingSession(
+                model.to(dev).text, scfg, state_dtype=torch.float32,
+                frame_encoder=lo.FrameEncoder(model, scfg, device=dev))
+        else:
+            sess = lo.build_session(model, scfg, state_dtype=torch.float32,
+                                    device=dev)
+        sess.encode_init_prompt([1, 2, 3, 4])
+        for f in range(5):
+            sess.encode_video(frames[f:f + 1])
+        res[name] = (sess.question_answering([5, 6], [5, 6, 7], [0],
+                                             max_new_tokens=4),
+                     sess.last_retrieved_indices)
+        if name != "bare":
+            flops[name] = (sess.estimate_chunk_flops(),
+                           sess.estimate_chunk_flops(cached=True))
+    assert res["bare"] == res["vlm"]
+    assert flops["vlm"] == flops["cpu"] and flops["cpu"][0] > \
+        flops["cpu"][1] > 0

@@ -18,6 +18,9 @@ FORBIDDEN = re.compile(
     r"^\s*(?:import\s+[\w., ]*\b" + NAMES + r"\b(?!\w)"
     r"|from\s+" + NAMES + r"\b(?![\w]))", re.M)
 BLOCKED = ("jax", "stc_tpu", "safetensors", "transformers", "ml_dtypes")
+EVAL = tuple(("eval", f"{m}.py") for m in (
+    "__init__", "datasets", "scorers", "reports", "solvers",
+    "streamingbench", "ovobench", "runner"))
 
 
 def test_sources_import_no_jax_and_no_stc_tpu():
@@ -26,7 +29,8 @@ def test_sources_import_no_jax_and_no_stc_tpu():
     for f in (("kvcache", "host_tier.py"), ("runtime", "serving.py"),
               ("utils", "checkpoint.py"), ("models", "clip.py"),
               ("models", "longva.py"), ("models", "video_llava.py"),
-              ("models", "flash_vstream.py")):
+              ("models", "flash_vstream.py"), ("utils", "metrics.py"),
+              ("runtime", "adapter.py")) + EVAL:
         assert PKG.joinpath(*f) in files, f
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -42,19 +46,45 @@ def test_sources_import_no_jax_and_no_stc_tpu():
 def test_ablation_and_frame_sources_name_no_stc_tpu():
     """The modules that copy or rewrite parts of stc_tpu (the scoring and
     experiments libraries, the frame library's binding and C++ source, the
-    host pipeline) do not name the JAX package anywhere, comments
-    included."""
+    host pipeline, the eval harnesses, the session adapter and the
+    metrics) do not name the JAX package anywhere, comments included."""
     name = re.compile(r"\bstc_tpu\b(?!_torch)")
     files = [PKG / "native.py", PKG / "compress" / "scoring.py",
              PKG / "compress" / "experiments.py",
              PKG / "runtime" / "pipeline.py",
-             PKG / "csrc" / "frameproc.cpp"]
+             PKG / "csrc" / "frameproc.cpp",
+             PKG / "runtime" / "adapter.py",
+             PKG / "utils" / "metrics.py"] + [PKG.joinpath(*f) for f in EVAL]
     bad = [f"{f.relative_to(ROOT)}:{i + 1}" for f in files
            for i, line in enumerate(f.read_text().splitlines())
            if name.search(line)]
     assert not bad, bad
     assert name.search("from stc_tpu import native")
     assert not name.search("from stc_tpu_torch import native")
+
+
+def test_importing_the_eval_package_loads_no_cv2_and_no_jax():
+    """The eval harnesses decode video with decord or OpenCV only inside
+    the function that reads a file: a fresh interpreter imports
+    stc_tpu_torch.eval, its modules and the adapter, and neither cv2 nor
+    decord nor any blocked package is loaded."""
+    code = f"BLOCKED = {BLOCKED!r}\n" + textwrap.dedent("""
+        import sys
+        import stc_tpu_torch.eval
+        from stc_tpu_torch.eval import (datasets, ovobench, reports, runner,
+                                        scorers, solvers, streamingbench)
+        from stc_tpu_torch.runtime import adapter
+        from stc_tpu_torch.utils import metrics
+        leaked = [m for m in sys.modules
+                  if m.split(".")[0] in BLOCKED + ("cv2", "decord",
+                                                   "matplotlib", "openai")]
+        assert not leaked, leaked
+        print("OK")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split()[-1] == "OK"
 
 
 def test_importing_and_running_the_port_loads_no_jax():
@@ -183,6 +213,35 @@ def test_importing_and_running_the_port_loads_no_jax():
                                             device="cpu")
         src, got = model.state_dict(), loaded.model.state_dict()
         assert all(torch.equal(src[k], got[k]) for k in src)
+        # the eval harness over a bare session with the frame encoder,
+        # through the session adapter, and a chunk's FLOPs count
+        import json
+        from stc_tpu_torch.eval.runner import run_eval
+        from stc_tpu_torch.runtime.adapter import SessionAdapter
+        from stc_tpu_torch.runtime.session import StreamingSession
+
+        class Tok:
+            def __call__(self, text):
+                return [1 + b % 50 for b in text.encode()][:4]
+
+            def decode(self, ids, **kw):
+                return ",".join(map(str, ids))
+
+        bare = StreamingSession(model.text, scfg, state_dtype=torch.float32,
+                                frame_encoder=lo.FrameEncoder(model, scfg,
+                                                              device="cpu"))
+        ad = SessionAdapter(bare, Tok(), stop_token_ids=[0])
+        assert ad.init_prompt_len == scfg.rekv.n_init
+        with tempfile.TemporaryDirectory() as d:
+            with open(d + "/a.json", "w") as f:
+                json.dump([{"video_id": "v", "video_path": "v",
+                            "conversations": [{"question": "q", "choices":
+                                               ["a", "b"], "answer": "b"}]}],
+                          f)
+            rows, _ = run_eval("mlvu", ad, d, anno_path=d + "/a.json",
+                               frame_loader=lambda p, fps: frames)
+        assert len(rows) == 1 and "error" not in rows[0], rows
+        assert sess.estimate_chunk_flops() > sess.estimate_chunk_flops(True)
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in BLOCKED]
         assert not leaked, leaked

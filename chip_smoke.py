@@ -145,14 +145,38 @@ each of which makes the script exit non-zero when it fails:
      stream_attention launches = appends x layers and decode_attention
      launches on each protocol, three rows equal to direct
      question_answering calls, a video alone in a new session equal to
-     its rows after the others, a world-2 merge equal to the world-1
-     rows, a bare StreamingSession with the FrameEncoder equal to the
-     VLMSession (answers and blocks), both kernels against their plain
-     versions on the session's state; estimate_chunk_flops of 1-frame
+     its rows after the others, a world-2 merge (mlvu without its
+     longest video) equal to the world-1 rows, a bare StreamingSession
+     with the FrameEncoder equal to the VLMSession (answers and blocks),
+     both kernels against their plain versions on the session's state;
+     estimate_chunk_flops of 1-frame
      (full, cached) and 8-frame chunks against their device times
      (TFLOP/s, tower and LM apart); then batched eval (stream_batch 4)
      at llava-ov-0.5b width in float32 against the sequential solver,
-     rows equal or parted only at a vision near-tie.
+     rows equal or parted only at a vision near-tie;
+ 16. the parallel layouts at llava-ov-7b width (bf16 Qwen2 3584 x 28,
+     float32 SigLIP, weights drawn per tensor from a seed and sliced by
+     parallel/sharding.init_random), two streams, two 8-frame chunks
+     (the second crosses init-fill), two questions of 8 greedy tokens and one
+     over fixed blocks: an unsharded reference, an NCCL world-1 session on
+     its model (NCCL's collectives on card tensors, answers equal), then
+     (a) tp 2, (b) dp 2 x tp 2, (c) pp 2 and (d) sp 2 as gloo ranks
+     started on this one card (every collective staged through host
+     memory; ranks time-sliced: no scaling figure); gates, with limits
+     fixed from bf16 rounding (PAR_G1): layer 0's retrieval scores and
+     the fixed-block question's first-token logits near the reference's,
+     answers equal to the reference's or departing only at its near-ties,
+     blocks departing only at its near-ties (pp bit-equal), launches per
+     rank, collective counts per layer and pass, both kernels on each
+     rank's state at its heads (and an sp rank's query offset).
+
+    python3 chip_smoke.py --planted-faults
+
+builds the kernels, runs phase 16's reference and then each planted
+fault of a straight port in its layout (an even split of the fused
+q|k|v axis, unreduced retrieval logits, the logits' tp blocks gathered
+in reverse, pruning before the sp gather); it exits non-zero unless the
+limits on numbers reject every one.
 
 Prints JSON lines; the line before the last holds one entry per kernel
 (route, source, the TPU kernel it replaces, launches on its path, error,
@@ -168,6 +192,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -369,7 +394,7 @@ def half_keep(states, n_new, Nb, S, dev, gen):
 
 def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
                 Nb=1024, n_init=14, exc=480, quant=None, states=None,
-                keep=False, rope_base=1e6):
+                keep=False, rope_base=1e6, q_part=None):
     """One stream_attention call of the main path's configuration
     (exc_block_size 480: a 264-page window cover), T new tokens with
     `pages` pages in the store after their write.  With states, a call
@@ -383,7 +408,9 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
     the library is SDPA with the same boolean mask (on dequantized bf16
     pages where quantized).  Returns the record, the wrapper's arguments
     and keywords, and the plain version's output.  rope_base: the model's
-    (Qwen2's 1e6 by default, Vicuna's 1e4)."""
+    (Qwen2's 1e6 by default, Vicuna's 1e4).  q_part: (offset, n): an sp
+    rank's queries, n of the append's T tokens from token offset on, the
+    offset carried in the kernel's scalars (L + offset)."""
     from stc_tpu_torch.config import ReKVConfig
     from stc_tpu_torch.kvcache import engine
     from stc_tpu_torch.ops import stream_attention as sa
@@ -405,6 +432,10 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
         raise RuntimeError(f"{name}: states {states} outgrow {Nb} pages")
     rc = engine.make_rope_cache(n_init + nb * S, nb, T, cfg, D, rope_base,
                                 off)
+    scalars, Tq = rc.scalars, T
+    if q_part is not None:
+        scalars, Tq = rc.scalars.clone(), q_part[1]
+        scalars[:, 0] += q_part[0]
     kw = dict(n_local=n_local)
     if quant is None:
         bk, bv = rnd(B, Hkv, Nb, S, D), rnd(B, Hkv, Nb, S, D)
@@ -418,9 +449,9 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
         kw.update(k_scales=ks, v_scales=vs)
     if keep:
         kw["page_keep"] = half_keep(states, n_new, Nb, S, dev, gen)
-    args = (rnd(B, Hq, T, D), rnd(B, Hq, T, D), bk, bv, rc.cos_cover,
+    args = (rnd(B, Hq, Tq, D), rnd(B, Hq, Tq, D), bk, bv, rc.cos_cover,
             rc.sin_cover, rnd(B, Hkv, n_init, D), rnd(B, Hkv, n_init, D),
-            rnd(B, Hkv, n_init, D), rc.scalars)
+            rnd(B, Hkv, n_init, D), scalars)
     out = sa.stream_attention(*args, **kw)
     ref = sa.stream_attention_ref(*args, **kw)
     torch.cuda.synchronize()
@@ -441,8 +472,8 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
     init_active = rc.scalars[:, 3].tolist()
     # queries, live pages (and their scales), init keys/values, output
     # (RoPE angles follow from the affine key positions)
-    need = (B * (2 * Hq * T * D * 2 + 3 * Hkv * n_init * D * 2
-                 + Hq * T * D * 2)
+    need = (B * (2 * Hq * Tq * D * 2 + 3 * Hkv * n_init * D * 2
+                 + Hq * Tq * D * 2)
             + 2 * Hkv * live * D * PAGE_BYTES[quant]
             + (2 * Hkv * live_pages * D * 4 if quant else 0)
             + (live_pages * S if keep else 0))   # the keep bytes
@@ -471,6 +502,8 @@ def stream_case(name, Hq, Hkv, D, T, pages, dev, gen, n_local=15000, S=60,
     if B > 1:
         rec.update(batch=B, states=states, max_blocks=Nb,
                    scalars=rc.scalars.tolist())
+    if q_part is not None:
+        rec.update(q_offset=q_part[0], q_tokens=q_part[1])
     if keep:
         rec["kept_window_keys"] = live
     if quant is None or keep:
@@ -733,6 +766,16 @@ LV_STREAM = ("stream LongVA heads (28/4/128) 144-token pages, 1-frame "
              "append, 80 pages (64-page window)")
 FV_STREAM = ("stream Vicuna heads (32/32/128) 64-token pages, 1-frame "
              "append, 96 pages (64-page window)")
+TP2_STREAM = ("stream 8-page append, a tp 2 rank's 7B heads (14/2/128), "
+              "264 pages")
+TP4_STREAM = ("stream 8-page append, a tp 4 rank's 7B heads (7/1/128), "
+              "264 pages")
+SP_STREAM = ("stream sp 2 rank 1: 4 of an 8-page append's pages at query "
+             "offset 240, 7B heads (28/4/128), 264 pages")
+TP2_DECODE_TOKEN = "decode token T=1, a tp 2 rank's 7B heads (14/2/128)"
+TP4_DECODE_TOKEN = "decode token T=1, a tp 4 rank's 7B heads (7/1/128)"
+TP2_DECODE_PREFILL = "decode prefill T=256, a tp 2 rank's heads (14/2/128)"
+TP4_DECODE_PREFILL = "decode prefill T=256, a tp 4 rank's heads (7/1/128)"
 VL_DECODE_PREFILL = "decode prefill T=256 Vicuna heads (32/32/128)"
 VL_DECODE_TOKEN = "decode token T=1 Vicuna heads (32/32/128)"
 
@@ -1849,8 +1892,8 @@ class VisionLog:
         from stc_tpu_torch.ops.topk import topk_lowest
 
         def sims(f):
-            def g(k, ref_k):
-                out = f(k, ref_k)
+            def g(k, ref_k, *rest):
+                out = f(k, ref_k, *rest)
                 self.sims.append(out.detach().clone())
                 return out
             return g
@@ -3579,11 +3622,11 @@ def eval_phase(card, dev) -> dict:
     counts, launches = appends x layers by protocol, decode launches on
     every protocol, three rows equal to direct question_answering calls
     in a cleared session, a video alone in a new session equal to its rows
-    after the others, a world-2 merge equal to the world-1 rows, a bare
-    StreamingSession with the FrameEncoder equal to the VLMSession (answer
-    ids and blocks) on a 64-frame video, both kernels against their plain
-    versions on the session's state; (d) batched eval at 0.5b width; (e)
-    chunk FLOPs and device times."""
+    after the others, a world-2 merge (mlvu without v260) equal to the
+    world-1 rows, a bare StreamingSession with the FrameEncoder equal to
+    the VLMSession (answer ids and blocks) on a 64-frame video, both
+    kernels against their plain versions on the session's state; (d)
+    batched eval at 0.5b width; (e) chunk FLOPs and device times."""
     from stc_tpu_torch.config import SessionConfig
     from stc_tpu_torch.eval import solvers
     from stc_tpu_torch.eval.runner import merge_and_score, run_eval
@@ -3647,8 +3690,12 @@ def eval_phase(card, dev) -> dict:
                                    "row": row["pred_answer"],
                                    "direct": tok.decode(ids)})
 
-            # the world-2 merge, rank 0 then rank 1
-            a_path = os.path.join(work, "mlvu.json")
+            # the world-2 merge, rank 0 then rank 1, over the mlvu videos
+            # but the longest (its depth cut to keep the script's time)
+            w2 = [s for s in anno["mlvu"] if s["video_id"] != "v260"]
+            a_path = os.path.join(work, "mlvu_world2.json")
+            with open(a_path, "w") as f:
+                json.dump(w2, f)
             wdir = os.path.join(work, "world2")
             ad.protocol = "world2"
             for rank in (0, 1):
@@ -3725,12 +3772,14 @@ def eval_phase(card, dev) -> dict:
 
     enc = [(n, s) for _, k, n, s in logs if k == "encode"]
     v64 = [r for r in mlvu if r["video_id"] == "v64"]
+    mlvu_w2 = [r for r in mlvu if r["video_id"] != "v260"]
     gates = {
         "direct_qa_equal": all(d["row"] == d["direct"] for d in direct)
         and len(direct) == 3,
         "alone_equal_after_others": alone_rows == v64 and bool(v64),
         "world2_merge_equal": sorted(merged_rows, key=row_key) == sorted(
-            mlvu, key=row_key) and merged["n_rows"] == len(mlvu),
+            mlvu_w2, key=row_key) and merged["n_rows"] == len(mlvu_w2)
+        and bool(mlvu_w2),
         "bare_frame_encoder_equal_vlm": bare_res == vlm_res,
     }
     out.update({
@@ -3759,6 +3808,633 @@ def eval_phase(card, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 16: parallel layouts at llava-ov-7b width
+# --------------------------------------------------------------------------
+
+PAR_SEED = 16
+PAR_B = 2                  # streams
+PAR_CHUNKS = 2             # 8-frame chunks: the second crosses init-fill
+PAR_N_LOCAL = 900          # tokens: 14 + 480 fit, 14 + 960 do not
+PAR_QUESTIONS = [(list(range(200, 212)), list(range(300, 316))),
+                 (list(range(400, 409)), list(range(500, 516)))]
+PAR_NEW = 8                # greedy tokens a question
+PAR_STOP = [151645]
+# The gates' limits.  U = 2^-8 is the largest relative change one
+# rounding to bf16 makes; A, of a block's retrieval score, is the
+# reference's sum over heads and dims of |q_mean| |rep key| (the score's
+# terms in absolute value), so U A is the score's change if each term
+# moved by one rounding, all one way.
+#  - pruner: at most PAR_G0 of the reference's kept tokens (stream, frame,
+#    token) are not kept by the layout (a layout's pooled features differ
+#    from the reference's by float32 rounding; only a near-tie of the
+#    pruner's scores may part a pick);
+#  - layer 0's retrieval scores: |layout - reference| <= PAR_G1 * A for
+#    every block of every question and stream, PAR_G1 = U: the layer's
+#    q_mean and rep keys differ from the reference's by less than one
+#    rounding of each term in all;
+#  - the first-token logits of a question asked over fixed blocks (the
+#    first topk, so no retrieval can part them): rms(layout - reference)
+#    <= PAR_G2 * rms(reference) for every stream, PAR_G2 = 1/4 >= 56 U,
+#    one rounding added to the residual stream by each of 56 sublayers;
+#  - a retrieved block's departure is a near-tie when the reference's cut
+#    gap (its k-th minus (k+1)-th score) is at most PAR_G1 (A_k + A_k+1);
+#  - an answer's first departure is a near-tie when the reference's top-2
+#    gap there is at most two bf16 ulps of its top logit, or when that
+#    question's retrieval for that stream parted at a near-tie.
+# A planted fault of a straight port (python3 chip_smoke.py
+# --planted-faults) must fail one of the first three.
+U = 2.0 ** -8
+PAR_G0 = 2.0 ** -7
+PAR_G1 = U
+PAR_G2 = 2.0 ** -2
+# layout -> (its name, its ranks)
+PAR_LAYOUTS = {"a": ("tp 2", 2), "b": ("dp 2 x tp 2", 4),
+               "c": ("pp 2", 2), "d": ("sp 2 x tp 1", 2)}
+# planted fault -> the layout it is planted in
+PAR_FAULTS = {"even_wqkv": "a", "unreduced_retrieval": "a",
+              "lm_head_order": "a", "prune_before_gather": "d"}
+
+
+def par_mesh(layout):
+    from stc_tpu_torch.parallel import mesh as pm
+    return {"a": lambda: pm.make_mesh(dp=1, tp=2),
+            "b": lambda: pm.make_mesh(dp=2, tp=2),
+            "c": lambda: pm.make_pp_mesh(pp=2, tp=1),
+            "d": lambda: pm.make_mesh(dp=1, tp=1, sp=2),
+            "nccl": lambda: pm.make_mesh(dp=1, tp=1)}[layout]()
+
+
+def par_model(dev, mesh=None):
+    """llava-ov-7b widths (bf16 Qwen2 3584 x 28, float32 SigLIP 1152 x 27
+    at 384 px), built on the meta device, sharded onto `mesh`, allocated
+    on the card and filled by sharding.init_random from PAR_SEED: every
+    layout holds slices of the reference's very weights, drawn tensor by
+    tensor on the card."""
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.models import qwen2 as qw
+    from stc_tpu_torch.models import siglip as sg
+    from stc_tpu_torch.parallel import sharding
+    vision = sg.SiglipConfig(hidden_size=1152, num_layers=27, num_heads=16,
+                             intermediate_size=4304, image_size=384,
+                             patch_size=14)
+    cfg = lo.LlavaOVConfig(vision=vision, text=qw.Qwen2Config(**QWEN2_7B))
+    model = lo.LlavaOV(cfg, dtype=torch.bfloat16,
+                       vision_dtype=torch.float32, device="meta")
+    if mesh is not None:
+        sharding.shard_module(model, mesh)
+    model.to_empty(device=dev)
+    return sharding.init_random(model, PAR_SEED), cfg
+
+
+def par_scfg():
+    return session_cfg(PAR_N_LOCAL, 8, 128, 16, 8, 64)
+
+
+def par_frames():
+    rng = np.random.default_rng(PAR_SEED)
+    return rng.integers(0, 256, size=(PAR_B, 8 * PAR_CHUNKS, 384, 384, 3),
+                        dtype=np.uint8)
+
+
+def par_fault(name) -> list:
+    """The patches (for `patched`) that plant one fault of a straight
+    port: the fused q|k|v output axis split evenly ("even_wqkv"), the
+    retrieval logits left unreduced over tp ("unreduced_retrieval"), the
+    tp blocks of the logits gathered in reverse ("lm_head_order"), each
+    sp rank pruning its own frames before the gather
+    ("prune_before_gather")."""
+    from stc_tpu_torch.kvcache import engine
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.models import qwen2 as qw
+    from stc_tpu_torch.parallel import sharding
+
+    def even_wqkv(f):
+        def g(cfg):
+            return {**f(cfg), **{k: sharding.COL for k in (
+                "wqkv", "bqkv", "wqkv_q", "wqkv_s", "wqkv_gs")}}
+        return g
+
+    def unreduced(f):
+        def g(kv, q, cfg, q_valid=None, tp=None):
+            return f(kv, q, cfg, q_valid, None)
+        return g
+
+    def reversed_blocks(f):
+        def g(self, h):
+            x = f(self, h)
+            return x if self.tp is None else torch.cat(
+                x.chunk(self.tp.size, dim=-1)[::-1], dim=-1)
+        return g
+
+    def prune_first(f):
+        def g(self, feats, pstate, sp=None):
+            flat, idx, pstate = f(self, feats, pstate)
+            if sp is None:
+                return flat, idx, pstate
+            return (sp.all_gather(flat, dim=1, site="sp.pooled"),
+                    sp.all_gather(idx, dim=1, site="sp.kept"), pstate)
+        return g
+
+    return {"even_wqkv": [(sharding, "qwen2_param_specs", even_wqkv)],
+            "unreduced_retrieval": [(engine, "score_block_logits",
+                                     unreduced)],
+            "lm_head_order": [(qw.Qwen2, "_lm_head", reversed_blocks)],
+            "prune_before_gather": [(lo.LlavaOVVision, "_post",
+                                     prune_first)]}[name]
+
+
+def par_drive(sess) -> dict:
+    """The phase's stream on `sess`: init prompt, PAR_CHUNKS 8-frame chunks
+    of PAR_B streams (device ms each), the two questions for every stream
+    (device ms each), then the fixed-block question.  Records each
+    question's logit top-2 gaps and top logits a greedy step and its
+    retrieval scores and their terms' sums A a layer, the pruner's kept
+    tokens a chunk, the fixed-block question's first-token logits, and
+    the decode state it built (for the kernel checks)."""
+    from stc_tpu_torch.kvcache import engine
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.models import qwen2 as qw
+    frames = par_frames()
+    rc = sess.rekv
+    sess.encode_init_prompt(list(range(100, 114)))
+    chunk_ms, init_active, kept = [], [], []
+
+    def post(f):
+        def g(self, *a, **k):
+            out = f(self, *a, **k)
+            kept.append(out[1].cpu())
+            return out
+        return g
+
+    with patched([(lo.LlavaOVVision, "_post", post)]):
+        for c in range(PAR_CHUNKS):
+            L = int(sess.kvs.length[0, 0])
+            init_active.append(L + rc.exc_block_size > rc.n_local)
+            e0, e1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            e0.record()
+            sess.encode_video(frames[:, 8 * c:8 * c + 8])
+            e1.record()
+            torch.cuda.synchronize()
+            chunk_ms.append(e0.elapsed_time(e1))
+    gaps, cuts, terms, first, dec = [], [], [], [], {"fixed": False}
+
+    def top2(f):
+        def g(logits):
+            x = logits.float()
+            v = x.topk(2, dim=-1).values
+            gaps[-1].append(((v[..., 0] - v[..., 1]).tolist(),
+                             v[..., 0].tolist()))
+            if dec["fixed"] and not first:
+                first.append(x.cpu())
+            return f(logits)
+        return g
+
+    def scores(f):
+        def g(*a, **k):
+            out = f(*a, **k)
+            rep, qm = a[0].block_rep.float(), out[2].abs()
+            B, Hkv, D = qm.shape[0], rep.shape[2], qm.shape[-1]
+            qs = qm.reshape(B, Hkv, -1, D).sum(dim=2)
+            cuts[-1].append(out[0].float().cpu())
+            terms[-1].append(torch.einsum("bnhd,bhd->bn", rep.abs(),
+                                          qs).cpu())
+            return out
+        return g
+
+    def decode_state(f):
+        def g(*a, **k):
+            dec["dkvs"] = f(*a, **k)
+            return dec["dkvs"]
+        return g
+
+    answers, blocks, qa_ms = [], [], []
+    with patched([(qw, "top2_lowest", top2),
+                  (engine, "score_block_logits", scores)]):
+        for q, p in PAR_QUESTIONS:
+            for x in (gaps, cuts, terms):
+                x.append([])
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            answers.append(sess.question_answering(
+                q, p, PAR_STOP, max_new_tokens=PAR_NEW, all_streams=True))
+            e1.record()
+            torch.cuda.synchronize()
+            qa_ms.append(e0.elapsed_time(e1))
+            blocks.append(sess.last_retrieved_indices)
+        for x in (gaps, cuts, terms):
+            x.append([])
+        dec["fixed"] = True
+        with patched([(sess.lm, "init_decode_state", decode_state)]):
+            fixed = sess.question_answering(
+                list(range(30, 42)), list(range(50, 66)), PAR_STOP,
+                max_new_tokens=4, retrieved_indices=list(range(rc.topk)),
+                all_streams=True)
+    gaps.pop()
+    if cuts.pop() or terms.pop():
+        raise RuntimeError("the fixed-block question scored blocks")
+    return {"answers": answers, "blocks": blocks, "chunk_ms": chunk_ms,
+            "qa_ms": qa_ms, "init_active": init_active, "gaps": gaps,
+            "cuts": cuts, "terms": terms, "kept": torch.stack(kept, 1),
+            "fixed_answer": fixed, "fixed_logits": first[0],
+            "dkvs": dec["dkvs"]}
+
+
+def par_merge(ranks, key) -> list:
+    """A layout's per-layer records `key` [question][layer] (B, ...),
+    merged from its ranks' own (their layers under pp, their streams
+    under dp)."""
+    r0 = ranks[0]
+    nq = len(r0[key])
+    n = len(r0[key][0])
+    L = n * len({r["coord"].get("pp", 0) for r in ranks})
+    out = [[None] * L for _ in range(nq)]
+    for r in ranks:
+        l0 = r["coord"].get("pp", 0) * n
+        for qi in range(nq):
+            for l, s in enumerate(r[key][qi]):
+                b0 = r["coord"].get("dp", 0) * s.shape[0]
+                if out[qi][l0 + l] is None:
+                    out[qi][l0 + l] = torch.zeros((PAR_B,) + s.shape[1:])
+                out[qi][l0 + l][b0:b0 + s.shape[0]] = s
+    return out
+
+
+def par_rows(ranks, key) -> torch.Tensor:
+    """Per-stream rows `key` (B_local, ...) merged over dp."""
+    r0 = ranks[0][key]
+    out = torch.zeros((PAR_B,) + r0.shape[1:])
+    for r in ranks:
+        b0 = r["coord"].get("dp", 0) * r[key].shape[0]
+        out[b0:b0 + r[key].shape[0]] = r[key]
+    return out
+
+
+def bf16_ulp(x: float) -> float:
+    """The spacing of bf16 values at |x| (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 2.0 ** -126))) - 7)
+
+
+def kept_mask(idx, width) -> torch.Tensor:
+    """(..., keep) kept token indices -> (..., width) bool."""
+    m = torch.zeros(idx.shape[:-1] + (width,), dtype=torch.bool)
+    return m.scatter_(-1, idx.long(), True)
+
+
+def par_numerics(kept, cuts, fixed, ref) -> dict:
+    """The limits on numbers (see PAR_G0): the pruner's kept tokens
+    (`kept` merged) against PAR_G0, layer 0's retrieval scores (`cuts`
+    merged) against PAR_G1 * A, and the fixed-block question's
+    first-token logits (`fixed` merged) against PAR_G2."""
+    nb = ref["nb"]
+    w = int(max(kept.max(), ref["kept"].max())) + 1
+    want_k = kept_mask(ref["kept"], w)
+    g0 = float((want_k & ~kept_mask(kept, w)).sum()) / float(want_k.sum())
+    g1 = max(float(((cuts[qi][0][:, :nb] - ref["cuts"][qi][0][:, :nb]).abs()
+                    / (PAR_G1 * ref["terms"][qi][0][:, :nb])).max())
+             for qi in range(len(PAR_QUESTIONS)))
+    want = ref["fixed_logits"]
+    g2 = [float((fixed[b] - want[b]).pow(2).mean().sqrt()
+                / want[b].pow(2).mean().sqrt()) for b in range(PAR_B)]
+    return {"kept_tokens_parted": g0, "kept_tokens_limit": PAR_G0,
+            "layer0_score_err_over_limit": g1,
+            "fixed_logits_rms_rel": g2, "fixed_logits_limit": PAR_G2,
+            "ok": g0 <= PAR_G0 and g1 <= 1.0 and max(g2) <= PAR_G2}
+
+
+def par_departures(run, ref) -> dict:
+    """Where a layout's answers and blocks part from the reference's, and
+    whether each is a near-tie of the reference (see PAR_G1)."""
+    topk, nb = ref["topk"], ref["nb"]
+    out = {"answers": [], "blocks": []}
+    for qi, (got, want) in enumerate(zip(run["blocks"], ref["blocks"])):
+        for l, (gl, wl) in enumerate(zip(got, want)):
+            for b, (g, w) in enumerate(zip(gl, wl)):
+                if g == w:
+                    continue
+                s = ref["cuts"][qi][l][b, :nb]
+                a = ref["terms"][qi][l][b, :nb]
+                order = s.argsort(descending=True, stable=True)
+                gap = float(s[order[topk - 1]] - s[order[topk]])
+                lim = PAR_G1 * float(a[order[topk - 1]] + a[order[topk]])
+                out["blocks"].append({"question": qi, "layer": l,
+                                      "stream": b, "cut_gap": gap,
+                                      "limit": lim, "near_tie": gap <= lim})
+    for qi, (got, want) in enumerate(zip(run["answers"], ref["answers"])):
+        for b, (g, w) in enumerate(zip(got, want)):
+            if g == w:
+                continue
+            i = next(j for j, (x, y) in enumerate(zip(g + [-1], w + [-2]))
+                     if x != y)
+            # step i's logits: the prefill's row (i == 0) or decode step i's
+            gap, top = (x[b] for x in ref["gaps"][qi][i])
+            lim = 2 * bf16_ulp(top)
+            out["answers"].append({
+                "question": qi, "stream": b, "position": i,
+                "top2_gap": gap, "limit": lim, "near_tie": gap <= lim,
+                "after_block_near_tie": any(
+                    x["near_tie"] for x in out["blocks"]
+                    if (x["question"], x["stream"]) == (qi, b))})
+    out["ok"] = (all(d["near_tie"] or d["after_block_near_tie"]
+                     for d in out["answers"])
+                 and all(d["near_tie"] for d in out["blocks"]))
+    return out
+
+
+def par_kernel_checks(sess, dkvs, gen, sp_offset=None) -> dict:
+    """stream_attention and decode_attention against their plain versions
+    on this rank's own state at a middle layer, at the rank's heads: the
+    next 8-frame append of stream 0 (with sp_offset, this rank's half of
+    its queries, offset in the kernel's scalars), and the decode cache
+    `dkvs` of the fixed-block question."""
+    from stc_tpu_torch.kvcache import engine
+    from stc_tpu_torch.ops import decode_attention as da
+    from stc_tpu_torch.ops import stream_attention as sa
+    rekv, tc, dev = sess.rekv, sess.lm.cfg, sess.device
+    li = tc.num_layers // 2
+    kv = type(sess.kvs)(*(x[li, :1] for x in sess.kvs))
+    T = rekv.exc_block_size
+    rc = engine.make_rope_cache(kv.length, kv.num_blocks, T, rekv,
+                                tc.head_dim, tc.rope_base, kv.page_offset)
+    scal, Tq = rc.scalars, T
+    if sp_offset is not None:
+        scal, Tq = rc.scalars.clone(), T // 2
+        scal[:, 0] += sp_offset
+    q = torch.randn((1, tc.num_heads, Tq, tc.head_dim), generator=gen,
+                    device=dev).bfloat16()
+    args = (q, q.flip(2).contiguous(), kv.block_k, kv.block_v, rc.cos_cover,
+            rc.sin_cover, kv.init_k, kv.init_v, kv.init_k, scal)
+    stream = held("session state", sa.stream_attention(
+        *args, n_local=rekv.n_local), sa.stream_attention_ref(
+        *args, n_local=rekv.n_local))
+    dkv = type(dkvs)(*(x[li, :1] for x in dkvs))
+    Tq = 16
+    qd = torch.randn((1, tc.num_heads, Tq, tc.head_dim), generator=gen,
+                     device=dev).bfloat16()
+    dargs = (qd, dkv.k, dkv.v, (dkv.cursor - Tq).to(torch.int32),
+             dkv.cursor)
+    decode = held("decode cache", da.decode_attention(
+        *dargs, n_local=rekv.n_local, return_m=True),
+        da.decode_attention_ref(*dargs, n_local=rekv.n_local, return_m=True))
+    return {"heads": [tc.num_heads, tc.num_kv_heads, tc.head_dim],
+            "q_offset": sp_offset, "stream_attention": stream,
+            "decode_attention": decode,
+            "agrees": stream["agrees"] and decode["agrees"]}
+
+
+def par_rank(rank, world, layout, fault=None, device="cuda:0") -> dict:
+    """One rank of a phase-16 layout (with a planted fault when `fault`
+    names one): its model shard, its session, the phase's stream, its
+    launch and collective counts, and its kernel checks.  Every rank runs
+    on `device` (the one card)."""
+    from stc_tpu_torch.models import llava_onevision as lo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    with patched([] if fault is None else par_fault(fault)):
+        t0 = time.perf_counter()
+        mesh = par_mesh(layout)
+        model, cfg = par_model(dev, mesh)
+        sess = lo.build_session(model, par_scfg(),
+                                state_dtype=torch.bfloat16, device=dev,
+                                batch=PAR_B, mesh=mesh)
+        build_s = time.perf_counter() - t0
+        reset_counts()
+        mesh.reset_stats()
+        t1 = time.perf_counter()
+        run = par_drive(sess)
+        wall_s = time.perf_counter() - t1
+        launches = read_counts()
+        comm = mesh.stats_summary()
+        gen = torch.Generator(device=dev).manual_seed(rank)
+        checks = par_kernel_checks(
+            sess, run.pop("dkvs"), gen, None if layout != "d" else
+            mesh.coord["sp"] * sess.rekv.exc_block_size // 2)
+    calls = {k: v["calls"] for k, v in comm.items()}
+    mine = [a[sess._b0:sess._b0 + sess.batch]
+            for a in run["answers"] + [run["fixed_answer"]]]
+    tokens = sum(len(x) for a in mine[:-1] for x in a)
+    steps = [max(len(x) for x in a) for a in mine]  # greedy loop steps
+    return dict(rank=rank, coord=mesh.coord, layout=layout, fault=fault,
+                **run, launches=launches, layers=sess.lm.cfg.num_layers,
+                lm_forwards=sum(2 + s for s in steps), decode_steps=steps,
+                tokens=tokens, comm=comm, calls=calls, checks=checks,
+                build_s=build_s, wall_s=wall_s,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 2 ** 30,
+                device_ms_per_chunk=float(np.mean(run["chunk_ms"])),
+                device_ms_per_token=sum(run["qa_ms"]) / max(tokens, 1))
+
+
+def par_gates(layout, r) -> list:
+    """The counts a rank of `layout` must show over par_drive: launches,
+    and collectives per layer and per pass (names axis.op.site of
+    Mesh.stats).  Every question (the fixed-block one too) makes a
+    retrieval forward, a prefill and its greedy steps; the fixed-block
+    one scores no blocks."""
+    L = r["layers"]
+    appends, fwd = PAR_CHUNKS, r["lm_forwards"]
+    nq = len(PAR_QUESTIONS)
+    passes = 1 + appends + fwd          # init append + appends + QA passes
+    want = {"stream_attention": appends * L,
+            "decode_attention": fwd * L}
+    got = {"stream_attention": r["launches"]["stream_attention"]["float"],
+           "decode_attention": r["launches"]["decode_attention"]}
+    c = r["calls"]
+    if layout in ("a", "b"):
+        for site in ("qwen2.attn_out", "qwen2.mlp_out"):
+            want[f"tp.all_reduce.{site}"] = passes * L
+        want["tp.all_reduce.engine.retrieval_logits"] = nq * L
+        want["tp.all_gather.qwen2.lm_head"] = fwd - (nq + 1)
+    if layout == "b":
+        want["dp.all_gather.dp.streams"] = 4 * (nq + 1)
+    if layout == "c":
+        s = r["coord"]["pp"]
+        want["pp.send.pp.hop" if s == 0 else "pp.recv.pp.hop"] = passes
+        want["pp.broadcast.pp.out"] = fwd - (nq + 1)
+    if layout == "d":
+        want["sp.all_gather.sp.kv"] = appends * L
+        want["sp.all_gather.sp.pooled"] = PAR_CHUNKS
+    for k in want:
+        if k not in got:
+            got[k] = c.get(k, 0)
+    return [{"count": k, "got": got[k], "want": v} for k, v in want.items()
+            if got[k] != v]
+
+
+def par_launches(p16, kernel) -> dict:
+    """Phase 16's launches of `kernel`, rank by rank of each layout."""
+    out = {}
+    for key, lay in p16["layouts"].items():
+        for r in lay["per_rank"]:
+            n = r["launches"][kernel]
+            out[f"phase 16 ({key}) rank {r['rank']}"] = (
+                n["float"] if isinstance(n, dict) else n)
+    return out
+
+
+def par_reference(dev) -> tuple:
+    """The unsharded reference session's run (with nb, the streams'
+    blocks, and topk), its model and session config."""
+    from stc_tpu_torch.models import llava_onevision as lo
+    scfg = par_scfg()
+    model, _ = par_model(dev)
+    sess = lo.build_session(model, scfg, state_dtype=torch.bfloat16,
+                            device=dev, batch=PAR_B)
+    reset_counts()
+    t0 = time.perf_counter()
+    ref = par_drive(sess)
+    ref["wall_s"] = time.perf_counter() - t0
+    ref.pop("dkvs")
+    if ref["init_active"] != [False] * (PAR_CHUNKS - 1) + [True]:
+        raise RuntimeError(f"init-fill pattern {ref['init_active']}")
+    ref.update(nb=sess._total_blocks, topk=scfg.rekv.topk)
+    return ref, model, scfg
+
+
+def par_layout(key, ref, fault=None) -> tuple:
+    """Layout `key` as gloo ranks on this card (with a planted fault when
+    `fault` names one), judged against the reference: (its record, the
+    failures of its ranks)."""
+    from stc_tpu_torch.parallel import dryrun
+    name, world = PAR_LAYOUTS[key]
+    t0 = time.perf_counter()
+    ranks = dryrun.launch(world, "chip_smoke:par_rank", (key, fault),
+                          backend="gloo", timeout=600)
+    lay = {"name": name, "ranks": world, "backend": "gloo", "fault": fault,
+           "launch_s": time.perf_counter() - t0, "per_rank": []}
+    num = par_numerics(par_rows(ranks, "kept"), par_merge(ranks, "cuts"),
+                       par_rows(ranks, "fixed_logits"), ref)
+    lay["numerics"] = num
+    failures = []
+    for r in ranks:
+        dep = par_departures(r, ref)
+        if key == "c" and not (r["answers"] == ref["answers"]
+                               and r["blocks"] == ref["blocks"]):
+            # the stages run the reference's arithmetic: no departure
+            dep["ok"] = False
+        bad = par_gates(key, r)
+        lay["per_rank"].append({
+            "rank": r["rank"], "coord": r["coord"],
+            "answers_equal": r["answers"] == ref["answers"],
+            "blocks_equal": r["blocks"] == ref["blocks"],
+            "departures": dep, "count_failures": bad,
+            "launches": r["launches"], "lm_forwards": r["lm_forwards"],
+            "checks": r["checks"], "calls": r["calls"],
+            "comm_ms": sum(v["ms"] for v in r["comm"].values()),
+            "comm_bytes": sum(v["bytes"] for v in r["comm"].values()),
+            "staged_bytes": sum(v["staged_bytes"]
+                                for v in r["comm"].values()),
+            "comm": r["comm"],
+            "device_ms_per_chunk": r["device_ms_per_chunk"],
+            "device_ms_per_token": r["device_ms_per_token"],
+            "chunk_ms": r["chunk_ms"], "qa_ms": r["qa_ms"],
+            "wall_s": r["wall_s"], "build_s": r["build_s"],
+            "peak_mem_gb": r["peak_mem_gb"]})
+        if not (num["ok"] and dep["ok"]) or bad or \
+                not r["checks"]["agrees"]:
+            failures.append({
+                "layout": key, "rank": r["rank"], "numerics_ok": num["ok"],
+                "answer_departures_unexplained": [
+                    d for d in dep["answers"] if not (
+                        d["near_tie"] or d["after_block_near_tie"])],
+                "block_departures_not_near_tie": [
+                    d for d in dep["blocks"] if not d["near_tie"]],
+                "count_failures": bad,
+                "kernel_checks_agree": r["checks"]["agrees"]})
+    return lay, failures
+
+
+def parallel_phase(card, dev) -> dict:
+    """Phase 16 (see the module docstring): the reference, the NCCL
+    world-1 session, then layouts (a)-(d) as gloo ranks on this card."""
+    import torch.distributed as dist
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.parallel import dryrun
+    from stc_tpu_torch.parallel import mesh as pm
+    t_phase = time.perf_counter()
+    ref, model, scfg = par_reference(dev)
+    # NCCL, world 1: explicit collectives on card tensors, then layout
+    # (a)'s code at tp 1 (every axis of size 1) on the reference's model
+    pm.init_parallel("nccl", 0, 1, f"tcp://localhost:{dryrun.free_port()}")
+    try:
+        mesh = par_mesh("nccl")
+        x = torch.arange(4, dtype=torch.float32, device=dev)
+        y, g = x.clone(), [torch.empty_like(x)]
+        dist.all_reduce(y)
+        dist.all_gather(g, x)
+        dist.broadcast(y, 0)
+        ok = torch.equal(y, x) and torch.equal(g[0], x)
+        nccl_sess = lo.build_session(model, scfg, state_dtype=torch.bfloat16,
+                                     device=dev, batch=PAR_B, mesh=mesh)
+        nccl = par_drive(nccl_sess)
+        nccl_rec = {"collectives_ok": ok, "backend": dist.get_backend(),
+                    "answers_equal": nccl["answers"] == ref["answers"],
+                    "blocks_equal": nccl["blocks"] == ref["blocks"],
+                    "comm": mesh.stats_summary()}
+        del nccl_sess, nccl
+    finally:
+        dist.destroy_process_group()
+    del model
+    torch.cuda.empty_cache()
+    if not (nccl_rec["collectives_ok"] and nccl_rec["answers_equal"]):
+        raise RuntimeError(f"NCCL world-1 session failed {nccl_rec}")
+    out = {"phase": "parallel layouts", "card": card,
+           "ranks_note": ("ranks are processes time-sliced on one H100, "
+                          "backend gloo (collectives staged through host "
+                          "memory): no scaling figure"),
+           "limits": {"kept_tokens_parted": PAR_G0,
+                      "layer0_scores": f"{PAR_G1} * A",
+                      "fixed_logits_rms_rel": PAR_G2,
+                      "answer_near_tie": "2 bf16 ulps of the top logit"},
+           "reference": {"answers": ref["answers"],
+                         "chunk_ms": ref["chunk_ms"], "qa_ms": ref["qa_ms"],
+                         "wall_s": ref["wall_s"],
+                         "init_active": ref["init_active"]},
+           "nccl_world1": nccl_rec, "layouts": {}}
+    failures = []
+    for key in PAR_LAYOUTS:
+        lay, bad = par_layout(key, ref)
+        out["layouts"][key] = lay
+        failures += bad
+    out["seconds"] = time.perf_counter() - t_phase
+    if failures:
+        RECORD["phases"]["parallel"] = out
+        raise RuntimeError(f"phase 16 failed: {failures}")
+    return out
+
+
+def par_planted_faults(card, dev) -> dict:
+    """python3 chip_smoke.py --planted-faults: the phase-16 reference, then
+    each planted fault (PAR_FAULTS) in its layout; each must fail the
+    limits on numbers (par_numerics).  Raises if one passes."""
+    t0 = time.perf_counter()
+    ref, model, _ = par_reference(dev)
+    del model
+    torch.cuda.empty_cache()
+    out = {"phase": "planted faults", "card": card, "faults": {}}
+    passed = []
+    for fault, key in PAR_FAULTS.items():
+        lay, bad = par_layout(key, ref, fault)
+        num = lay["numerics"]
+        out["faults"][fault] = {
+            "layout": lay["name"], "numerics": num,
+            "answers_equal": [r["answers_equal"] for r in lay["per_rank"]],
+            "count_failures": lay["per_rank"][0]["count_failures"],
+            "rejected_by_numerics": not num["ok"],
+            "rejected": bool(bad), "launch_s": lay["launch_s"]}
+        emit({"phase": f"planted fault {fault}", "card": card,
+              **out["faults"][fault]})
+        if num["ok"]:
+            passed.append(fault)
+    out["seconds"] = time.perf_counter() - t0
+    if passed:
+        raise RuntimeError(f"planted faults not rejected: {passed}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -3773,6 +4449,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_script = time.perf_counter()
+    faults_only = sys.argv[1:] == ["--planted-faults"]
+    if sys.argv[1:] and not faults_only:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
+              file=sys.stderr)
+        return 2
     dev = torch.device("cuda", 0)
     card = card_line()
     print(card, flush=True)
@@ -3787,6 +4468,16 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = _build.build_all()
     build_s = time.perf_counter() - t0
+    if faults_only:
+        pf = par_planted_faults(card, dev)
+        emit({**{k: v for k, v in pf.items() if k != "faults"},
+              "build_s": build_s,
+              "rejected_by_numerics": {
+                  k: v["rejected_by_numerics"]
+                  for k, v in pf["faults"].items()},
+              "script_seconds": time.perf_counter() - t_script})
+        print(card, flush=True)
+        return 0
     regs = {n: [ln.strip() for ln in log.splitlines()
                 if "registers" in ln or "spill" in ln]
             for n, log in _build.build_log.items()}
@@ -3860,6 +4551,18 @@ def main() -> int:
                     Hq=32, Hkv=32, D=128, C=2816, return_m=True),
         decode_case(VL_DECODE_TOKEN, 1, 2400, 2401, 8000, dev, gen, Hq=32,
                     Hkv=32, D=128, C=2816),
+        stream_case(TP2_STREAM, 14, 2, 128, 480, 264, dev, gen),
+        stream_case(TP4_STREAM, 7, 1, 128, 480, 264, dev, gen),
+        stream_case(SP_STREAM, 28, 4, 128, 480, 264, dev, gen,
+                    q_part=(240, 240)),
+        decode_case(TP2_DECODE_TOKEN, 1, 4200, 4201, 15000, dev, gen,
+                    Hq=14, Hkv=2, D=128),
+        decode_case(TP4_DECODE_TOKEN, 1, 4200, 4201, 15000, dev, gen, Hq=7,
+                    Hkv=1, D=128),
+        decode_case(TP2_DECODE_PREFILL, 256, 3854, 3854 + 256, 15000, dev,
+                    gen, Hq=14, Hkv=2, D=128, return_m=True),
+        decode_case(TP4_DECODE_PREFILL, 256, 3854, 3854 + 256, 15000, dev,
+                    gen, Hq=7, Hkv=1, D=128, return_m=True),
         score_case("decode_score prefill T=256 at slot 3854", 256, 3854,
                    3854 + 256, 15000, dev, gen, parts=parts),
         score_case("decode_score expired window (n_local 64)", 16, 2000,
@@ -4189,6 +4892,33 @@ def main() -> int:
               for c in p15["chunk_flops_1frame"][:2]
               + p15["chunk_flops_8frame"]}})
 
+    # ---- phase 16: parallel layouts at llava-ov-7b width ----
+    p16 = parallel_phase(card, dev)
+    RECORD["phases"]["parallel"] = p16
+    emit({k: v for k, v in p16.items() if k != "layouts"})
+    for key, lay in p16["layouts"].items():
+        emit({"phase": f"parallel layout ({key})", "card": card,
+              **{k: v for k, v in lay.items() if k != "per_rank"},
+              "per_rank": [{k: v for k, v in r.items() if k not in (
+                  "comm", "calls", "chunk_ms", "qa_ms")}
+                  for r in lay["per_rank"]]})
+    emit({"phase": "parallel summary", "card": card,
+          "seconds": p16["seconds"], "note": p16["ranks_note"],
+          "nccl_world1": {k: v for k, v in p16["nccl_world1"].items()
+                          if k != "comm"},
+          **{key: {"answers_equal": [r["answers_equal"]
+                                     for r in lay["per_rank"]],
+                   "blocks_equal": [r["blocks_equal"]
+                                    for r in lay["per_rank"]],
+                   "device_ms_per_chunk": [r["device_ms_per_chunk"]
+                                           for r in lay["per_rank"]],
+                   "device_ms_per_token": [r["device_ms_per_token"]
+                                           for r in lay["per_rank"]],
+                   "comm_ms": [r["comm_ms"] for r in lay["per_rank"]],
+                   "comm_bytes": [r["comm_bytes"] for r in lay["per_rank"]],
+                   "wall_s": [r["wall_s"] for r in lay["per_rank"]]}
+             for key, lay in p16["layouts"].items()}})
+
     # ---- the kernels line, then the device line ----
     def bound_by(c):
         """bound_by as one word; terms that tie are listed beside it."""
@@ -4237,7 +4967,8 @@ def main() -> int:
               launches["stream_attention"]["float"], "phase 3",
               also=("stream 8-page append",
                     "stream 8-page append 7B heads (28/4/128), 264 pages",
-                    B4_STREAM, VL_STREAM, LV_STREAM, FV_STREAM),
+                    B4_STREAM, VL_STREAM, LV_STREAM, FV_STREAM, TP2_STREAM,
+                    TP4_STREAM, SP_STREAM),
               by_path={"phase 3": launches["stream_attention"]["float"],
                        "phase 10 (a)":
                        set_a["launches"]["stream_attention"]["float"],
@@ -4249,7 +4980,8 @@ def main() -> int:
                            "stream_attention"]["float"]
                           for k, r in p14.items() if k != "seconds"},
                        **{f"phase 15 ({k})": c["stream_attention"]["float"]
-                          for k, c in p15["launches"].items()}}),
+                          for k, c in p15["launches"].items()},
+                       **par_launches(p16, "stream_attention")}),
         entry("stream_attention_int8", sa_src, sa_tpu,
               "stream int8 7B heads (28/4/128), 264 pages",
               p6["launches"]["stream_attention"]["int8"], "phase 6",
@@ -4270,7 +5002,9 @@ def main() -> int:
               also=("decode prefill T=256",
                     "decode prefill T=256 7B heads (28/4/128)",
                     "decode token T=1 7B heads (28/4/128)", B4_DECODE,
-                    VERIFY_DECODE, VL_DECODE_PREFILL, VL_DECODE_TOKEN),
+                    VERIFY_DECODE, VL_DECODE_PREFILL, VL_DECODE_TOKEN,
+                    TP2_DECODE_TOKEN, TP4_DECODE_TOKEN, TP2_DECODE_PREFILL,
+                    TP4_DECODE_PREFILL),
               by_path={"phase 3": launches["decode_attention"],
                        "phase 10 (a)": set_a["launches"]["decode_attention"],
                        "phase 11": p11["launches"]["decode_attention"],
@@ -4280,7 +5014,8 @@ def main() -> int:
                            "decode_attention"]
                           for k, r in p14.items() if k != "seconds"},
                        **{f"phase 15 ({k})": c["decode_attention"]
-                          for k, c in p15["launches"].items()}}),
+                          for k, c in p15["launches"].items()},
+                       **par_launches(p16, "decode_attention")}),
         entry("decode_score", "stc_tpu_torch/csrc/decode_score.cu",
               "stc_tpu/ops/decode_attention.py:244",
               "decode_score prefill T=256 at slot 3854", 0,

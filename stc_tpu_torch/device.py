@@ -2,6 +2,8 @@
 
 Every public constructor takes ``device="cuda"`` by default.  Without a card
 it raises; the CPU runs only when the caller asks for it (the tests do).
+"meta" builds a module's shapes without memory, to shard it before it is
+allocated (``parallel.sharding.shard_module``, then ``Module.to_empty``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,6 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError(
             "stc_tpu_torch runs on a CUDA card by default and none is "
             "available; pass device='cpu' to run the plain PyTorch path")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise RuntimeError(f"unsupported device {dev}")
     return dev

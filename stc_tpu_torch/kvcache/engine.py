@@ -36,6 +36,14 @@ passes the window's page keep rows to ``stream_attention`` (the kernel
 masks dropped keys) and then keeps, per new page, the ceil(S/2) tokens of
 largest mean attention output; ``compress_retrieved`` keeps half of each
 retrieved block's tokens by a ``filter_tokens_*`` strategy.
+
+Tensor parallel (``tp``, a mesh axis): the state holds this rank's kv
+heads.  Wherever a head axis is summed or averaged (the retrieval logits,
+the window keep rows, the retrieved-KV filter's inputs) the functions
+reduce over tp first, so every tp rank selects the same blocks and rows.
+Sequence parallel (``sp`` with ``q_offset``): an append writes every page
+of the chunk but attends only this rank's queries, which start q_offset
+tokens into it (the kernel takes that start in its scalars).
 """
 
 from __future__ import annotations
@@ -252,7 +260,8 @@ def append_stream(kv: StreamKV, q: torch.Tensor, k: torch.Tensor,
                   v: torch.Tensor, cfg: ReKVConfig, *, is_init: bool,
                   rope_base: float = 10000.0,
                   rope_cache: Optional[RopeCache] = None,
-                  active: Optional[torch.Tensor] = None
+                  active: Optional[torch.Tensor] = None,
+                  tp=None, sp=None, q_offset: int = 0
                   ) -> Tuple[torch.Tensor, StreamKV]:
     """One streaming append of T tokens; returns (attn_out, kv) with kv's
     tensors updated in place.
@@ -274,13 +283,18 @@ def append_stream(kv: StreamKV, q: torch.Tensor, k: torch.Tensor,
     reads the current content back and writes it again there: the clipped
     slot of a full store lands on live pages); their attention outputs are
     garbage the caller ignores.
+
+    tp / sp: mesh axes (or None).  With sp, k/v hold the chunk's T tokens
+    and q this rank's Tq of them from token q_offset on: the pages are
+    written whole, the queries attend at their own positions, and the keep
+    rows of window compression are gathered over sp.
     """
-    B, Hq, T, D = q.shape
-    Hkv = k.shape[1]
+    B, Hq, Tq, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
     S = cfg.block_size
 
     if is_init:
-        if T != cfg.n_init:
+        if T != cfg.n_init or Tq != T:
             raise ValueError((T, cfg.n_init))
         rel = cfg.n_local + torch.arange(T, device=q.device)
         q_rot = apply_rope(q, rel, rope_base)
@@ -340,6 +354,12 @@ def append_stream(kv: StreamKV, q: torch.Tensor, k: torch.Tensor,
     # over a bf16 state narrows here, as the Pallas kernel does); the page
     # store's dtype is int8/uint8 when quantized
     dt = kv.init_k.dtype
+    scalars = rc.scalars
+    if Tq != T:  # this rank's queries start q_offset tokens in
+        scalars = scalars.clone()
+        scalars[:, 0] += q_offset
+        rc = rc._replace(cos_q=rc.cos_q[q_offset:q_offset + Tq],
+                         sin_q=rc.sin_q[q_offset:q_offset + Tq])
     q_rot = rotate(q, rc.cos_q, rc.sin_q).to(dt)
     q_one = rotate(q, rc.cos_one, rc.sin_one).to(dt)
     k_init_rot = rotate(kv.init_k, rc.cos_init[:, None], rc.sin_init[:, None])
@@ -349,12 +369,20 @@ def append_stream(kv: StreamKV, q: torch.Tensor, k: torch.Tensor,
     o = stream_attention(
         q_rot.contiguous(), q_one.contiguous(), kv.block_k, kv.block_v,
         rc.cos_cover, rc.sin_cover, k_init_rot.contiguous(), kv.init_v,
-        kv.init_k, rc.scalars, n_local=cfg.n_local,
+        kv.init_k, scalars, n_local=cfg.n_local,
         k_scales=kv.block_k_scale if quant else None,
         v_scales=kv.block_v_scale if quant else None,
         page_keep=kv.page_keep if compress else None).to(q.dtype)
     if compress:
-        score = o.to(torch.float32).mean(dim=(1, 3)).reshape(B, n_new, S)
+        if tp is None:
+            score = o.to(torch.float32).mean(dim=(1, 3))
+        else:  # the mean over every head of the model
+            score = tp.all_reduce(o.to(torch.float32).sum(dim=(1, 3)),
+                                  site="engine.keep_rows") / (
+                Hq * tp.size * D)
+        if Tq != T:
+            score = sp.all_gather(score, dim=1, site="sp.keep_rows")
+        score = score.reshape(B, n_new, S)
         top = topk_lowest(score, -(-S // 2))[1]
         new_keep = torch.zeros((B, n_new, S), dtype=torch.bool,
                                device=q.device).scatter_(2, top, True)
@@ -409,9 +437,11 @@ def save_append_slots(kvs: StreamKV, cfg: ReKVConfig, n_pages: int):
 # ---------------------------------------------------------------------------
 
 def score_block_logits(kv: StreamKV, q: torch.Tensor, cfg: ReKVConfig,
-                       q_valid: Optional[torch.Tensor] = None):
+                       q_valid: Optional[torch.Tensor] = None, tp=None):
     """Mean question query . each block's rep key (GQA-grouped).
-    Returns (logits (B, Rc), blk_valid (B, Rc), q_mean (B, Hq, D))."""
+    Returns (logits (B, Rc), blk_valid (B, Rc), q_mean (B, Hq, D)); under
+    tp the logits are summed over every rank's heads, q_mean is this
+    rank's."""
     B, Hq, Lq, D = q.shape
     Hkv = kv.block_rep.shape[2]
     Rc = kv.block_rep.shape[1]
@@ -424,19 +454,21 @@ def score_block_logits(kv: StreamKV, q: torch.Tensor, cfg: ReKVConfig,
     q_grp = q_mean.reshape(B, Hkv, Hq // Hkv, D).sum(dim=2)
     logits = torch.einsum("bnhd,bhd->bn", kv.block_rep.to(torch.float32),
                           q_grp)
+    if tp is not None:
+        logits = tp.all_reduce(logits, site="engine.retrieval_logits")
     slot_ids = torch.arange(Rc, device=q.device)[None, :]
     blk_valid = slot_ids < kv.num_blocks[:, None]
     return logits, blk_valid, q_mean
 
 
 def score_blocks(kv: StreamKV, q: torch.Tensor, cfg: ReKVConfig,
-                 q_valid: Optional[torch.Tensor] = None):
+                 q_valid: Optional[torch.Tensor] = None, tp=None):
     """Top-k blocks over the full rep history: (abs_idx (B, topk) int32
     ascending, exists (B, topk) bool marking selections of real blocks)."""
     B = q.shape[0]
     Rc = kv.block_rep.shape[1]
     cs = cfg.chunk_size
-    logits, blk_valid, _ = score_block_logits(kv, q, cfg, q_valid)
+    logits, blk_valid, _ = score_block_logits(kv, q, cfg, q_valid, tp)
     lg = torch.where(blk_valid, logits, 0.0).reshape(B, Rc // cs, cs)
     cnt = blk_valid.reshape(B, Rc // cs, cs).sum(dim=-1)
     chunk_score = torch.where(cnt > 0, lg.sum(dim=-1) / cnt.clamp(min=1),
@@ -554,7 +586,8 @@ def _pack_retrieved(kv: StreamKV, cfg: ReKVConfig, gk, gv, sel_valid):
 
 def compress_retrieved(kv: StreamKV, cfg: ReKVConfig, ret_k: torch.Tensor,
                        ret_v: torch.Tensor, valid_len: torch.Tensor,
-                       generator: Optional[torch.Generator] = None):
+                       generator: Optional[torch.Generator] = None,
+                       tp=None):
     """Retrieved-KV compression: keep half of each retrieved block's tokens
     by the configured filter_tokens_* strategy, scored against the mean of
     the stream's rep keys over its real blocks.
@@ -564,16 +597,24 @@ def compress_retrieved(kv: StreamKV, cfg: ReKVConfig, ret_k: torch.Tensor,
     indices are sorted, so block order holds and the valid region stays a
     prefix.  filter_tokens_random draws from `generator` (the JAX engine
     folds the stream length into a fixed key; the port cannot give its
-    threefry bits)."""
-    B, Hkv, R, D = ret_k.shape
+    threefry bits).  Under tp the filter scores every head: the keys and
+    rep keys are gathered over tp (exact), and each rank keeps its own
+    heads' rows of the same tokens."""
+    B, _, R, D = ret_k.shape
     S, nI = cfg.block_size, cfg.n_init
     Rc = kv.block_rep.shape[1]
     blk = torch.arange(Rc, device=ret_k.device)[None, :] < \
         kv.num_blocks[:, None]
     w = blk.to(torch.float32)[:, :, None, None]
-    mem = (kv.block_rep.to(torch.float32) * w).sum(dim=1) / w.sum(
+    rep = kv.block_rep
+    keys = ret_k[:, :, nI:]
+    if tp is not None:
+        rep = tp.all_gather(rep, dim=2, site="engine.compress_reps")
+        keys = tp.all_gather(keys, dim=1, site="engine.compress_keys")
+    Hkv = keys.shape[1]
+    mem = (rep.to(torch.float32) * w).sum(dim=1) / w.sum(
         dim=1).clamp(min=1.0)                                  # (B, Hkv, D)
-    toks = ret_k[:, :, nI:].transpose(1, 2).reshape(B, R - nI, Hkv * D)
+    toks = keys.transpose(1, 2).reshape(B, R - nI, Hkv * D)
     idx = filter_tokens(cfg.retrieved_kv_compression, toks,
                         mem.reshape(B, Hkv * D), S, generator)
     idx = torch.sort(idx, dim=1).values                     # (B, topk*keep)

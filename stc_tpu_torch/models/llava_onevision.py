@@ -9,6 +9,15 @@ The vision side (tower, projector, pooling, pruner) computes in
 features enter the LM in the LM's dtype.  The session config's cacher
 variants (``sim_source``, ``k_proxy_rank``) and ``ingest_format`` reach
 the tower and the preprocessor.
+
+On a mesh (``build_session(mesh=)``): the tower, the projector (column-
+then row-parallel, one all_reduce) and the LM shard over tp; each dp rank
+runs batch / dp streams; over sp each rank runs its share of a chunk's
+frames through the tower, projector and pooling (frame-local), the pooled
+features are gathered over sp before the pruner (its channel variance and
+chunk mean span every frame of the chunk), and the cacher's references,
+which come from the chunk's last frame, are broadcast from the last sp
+rank.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ from stc_tpu_torch.device import resolve_device
 from stc_tpu_torch.models import qwen2 as qw
 from stc_tpu_torch.models import register_model
 from stc_tpu_torch.models import siglip as sg
+from stc_tpu_torch.parallel import sharding
 from stc_tpu_torch.runtime.vlm import PixelPipeline, Preprocessor, VLMSession
 
 # SigLIP image preprocessing constants (HF SiglipImageProcessor defaults)
@@ -76,10 +86,18 @@ class Projector(nn.Module):
 
         self.w1, self.b1 = p(c_in, c_out), p(c_out)
         self.w2, self.b2 = p(c_out, c_out), p(c_out)
+        self.mesh = self.tp = None
+
+    def set_mesh(self, mesh) -> None:
+        tp = mesh.axis("tp")
+        self.mesh, self.tp = mesh, (tp if tp.size > 1 else None)
 
     def forward(self, feats):
         h = F.gelu(feats @ self.w1 + self.b1, approximate="none")
-        return h @ self.w2 + self.b2
+        h = h @ self.w2
+        if self.tp is not None:
+            h = self.tp.all_reduce(h, site="projector.out")
+        return h + self.b2
 
 
 class LlavaOV(nn.Module):
@@ -127,11 +145,16 @@ class LlavaOVVision(PixelPipeline):
                                  IMAGE_STD, self.dtype,
                                  ingest=scfg.ingest_format)
 
+    @property
+    def _mesh(self):
+        return self.model.text.mesh
+
     def init_state(self):
         n_sel = int(self.cfg.text.hidden_size
                     * self.scfg.pruner.channel_keep_ratio)
+        tp = 1 if self._mesh is None else self._mesh.size_of("tp")
         return (sg.init_cacher_state(self.cfg.vision, self.batch, self.dtype,
-                                     device=self.device),
+                                     device=self.device, tp=tp),
                 init_pruner_state(self.batch, n_sel, torch.float32,
                                   device=self.device))
 
@@ -151,14 +174,18 @@ class LlavaOVVision(PixelPipeline):
     def stream_axes(self):
         return (1, 0)  # cacher refs (L, B, T, C); pruner memory (B, ...)
 
-    def _post(self, feats, pstate):
+    def _post(self, feats, pstate, sp=None):
         """Tower features -> (flat (B, F * keep, E), the pruner's kept
-        indices (B, F, keep), or None without the pruner, pstate)."""
+        indices (B, F, keep), or None without the pruner, pstate).  sp:
+        the axis the chunk's frames are split over, whose pooled features
+        are gathered before the pruner."""
         B = self.batch
         feats = apply_pooling(self.model.projector(feats),
                               self.cfg.vision.grid)
         BF, T, E = feats.shape
         feats = feats.reshape(B, BF // B, T, E)
+        if sp is not None:
+            feats = sp.all_gather(feats, dim=1, site="sp.pooled")
         if not self.scfg.pruner.enabled:
             return feats.reshape(B, -1, E), None, pstate
         pruned, idx, pstate = stc_prune(
@@ -170,15 +197,26 @@ class LlavaOVVision(PixelPipeline):
     def encode(self, pixels, vstate, pstate, cached: bool):
         """One chunk on the cacher path (cached) or the full one ->
         (flat, kept indices, vstate, pstate); the cacher path keeps the
-        references it was given."""
+        references it was given.  Over sp (when the chunk's frames split
+        evenly) each rank runs its share of every stream's frames."""
+        sp = None if self._mesh is None else self._mesh.axis("sp")
+        px = pixels if sp is None else sharding.shard_vision_sp(
+            pixels, self.batch, sp)
+        if px.shape[0] == pixels.shape[0]:
+            sp = None
         if cached:
             c = self.scfg.cacher
             feats, _ = self.model.vision.encode_cached(
-                pixels, vstate, c.update_token_ratio, self.batch,
+                px, vstate, c.update_token_ratio, self.batch,
                 sim_source=c.sim_source, k_proxy_rank=c.k_proxy_rank)
         else:
-            feats, vstate = self.model.vision.encode_full(pixels, self.batch)
-        flat, idx, pstate = self._post(feats, pstate)
+            feats, vstate = self.model.vision.encode_full(px, self.batch)
+            if sp is not None:  # the last frame lies on the last sp rank
+                widths = [x.shape[-1] for x in vstate]
+                vstate = sg.CacherState(*sp.broadcast(
+                    torch.cat(list(vstate), dim=-1), sp.size - 1,
+                    site="sp.refs").split(widths, dim=-1))
+        flat, idx, pstate = self._post(feats, pstate, sp)
         return flat, idx, vstate, pstate
 
     def full(self, pixels, vstate, pstate):
@@ -233,20 +271,29 @@ class FrameEncoder:
 
 class LlavaOVSession(VLMSession):
     def __init__(self, model: LlavaOV, scfg: SessionConfig,
-                 state_dtype=torch.bfloat16, batch: int = 1):
+                 state_dtype=torch.bfloat16, batch: int = 1, mesh=None):
         self.model = model
+        if mesh is not None:
+            if scfg.weights_quant != "none":  # quantize before sharding
+                model.text.quantize_int8(scfg.weights_quant_group)
+            if model.text.mesh is None:
+                sharding.shard_module(model, mesh)
+        local = batch // (1 if mesh is None else mesh.size_of("dp"))
         super().__init__(model.text, scfg,
-                         LlavaOVVision(model, scfg, batch=batch),
-                         state_dtype=state_dtype, batch=batch)
+                         LlavaOVVision(model, scfg, batch=local),
+                         state_dtype=state_dtype, batch=batch, mesh=mesh)
 
 
 def build_session(model: LlavaOV, scfg: SessionConfig,
                   state_dtype=torch.bfloat16, device="cuda",
-                  batch: int = 1) -> LlavaOVSession:
+                  batch: int = 1, mesh=None) -> LlavaOVSession:
     """A pixel session of `batch` streams over `model`, moved to
-    `device`."""
+    `device`.  mesh: a parallel.mesh.Mesh (dp x tp, dp x sp x tp or pp x
+    tp); the model is sharded onto it in place unless it already is (for
+    example by parallel.sharding.init_random on a sharded module)."""
     model = model.to(resolve_device(device))
-    return LlavaOVSession(model, scfg, state_dtype=state_dtype, batch=batch)
+    return LlavaOVSession(model, scfg, state_dtype=state_dtype, batch=batch,
+                          mesh=mesh)
 
 
 @register_model("llava_ov_7b")

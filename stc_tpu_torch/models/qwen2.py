@@ -36,6 +36,16 @@ before it enters the decode cache.
 ``Qwen2.quantize_int8`` turns the weights into int8 with float32 scales
 (``stc_tpu``'s ``quantize_params_int8``); every matmul then dequantizes its
 weight inside the call, at ``stc_tpu``'s rounding points (``_mm``).
+
+On a mesh (``parallel.sharding.shard_module``) the module holds one rank's
+part: under tp its Hq/tp and Hkv/tp heads, F/tp of the MLP hidden and
+V/tp of the head's columns (``cfg`` is then the rank's config,
+``full_cfg`` the model's), with one all_reduce after ``wo`` and one after
+``w_down`` and the logits all_gathered before any token is picked, so
+every tp rank picks the same one; under pp one stage's layers, every pass
+a stage relay (parallel/pipeline.py); under sp an append's tokens split
+over the sp ranks: each computes q/k/v of its own tokens, gathers the
+chunk's new K/V rows, writes every page and attends its own queries.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from stc_tpu_torch.device import resolve_device
 from stc_tpu_torch.kvcache import engine
 from stc_tpu_torch.kvcache.state import DecodeKV, StreamKV, layer
 from stc_tpu_torch.ops.topk import argmax_lowest, top2_lowest
+from stc_tpu_torch.parallel import pipeline
 
 
 @dataclasses.dataclass(frozen=True)
@@ -139,7 +150,10 @@ class Qwen2(nn.Module):
                  device="cuda"):
         super().__init__()
         device = resolve_device(device)
-        self.cfg = cfg
+        self.cfg = self.full_cfg = cfg
+        # a mesh's axes (set_mesh); None: unsharded
+        self.mesh = self.tp = self.sp = self.pp = None
+        self.layer_offset = 0  # global index of the first layer held
         E, V = cfg.hidden_size, cfg.vocab_size
         self.embed = nn.Parameter(torch.zeros(V, E, dtype=dtype,
                                               device=device),
@@ -161,6 +175,25 @@ class Qwen2(nn.Module):
         self.spec_rounds = 0
         self.spec_stream_rounds = 0
         self.spec_tokens = 0
+
+    def set_mesh(self, mesh) -> None:
+        """Take the axes of `mesh` (the tensors already hold this rank's
+        slices, parallel/sharding.shard_module): cfg becomes the rank's
+        heads, MLP hidden and layer count."""
+        self.mesh = mesh
+        tp, sp, pp = (mesh.axis(n) for n in ("tp", "sp", "pp"))
+        self.tp = tp if tp.size > 1 else None
+        self.sp = sp if sp.size > 1 else None
+        self.pp = pp if pp.size > 1 else None
+        c = self.full_cfg
+        self.cfg = dataclasses.replace(
+            c, num_heads=c.num_heads // tp.size,
+            num_kv_heads=c.num_kv_heads // tp.size,
+            intermediate_size=c.intermediate_size // tp.size,
+            num_layers=len(self.layers))
+
+    def _tp_sum(self, x, site):
+        return x if self.tp is None else self.tp.all_reduce(x, site=site)
 
     @property
     def dtype(self):
@@ -204,6 +237,10 @@ class Qwen2(nn.Module):
         returned as it is."""
         if self.int8_group is not None:
             return self
+        if self.tp is not None:
+            raise ValueError("quantize the whole Qwen2 before sharding it "
+                             "over tp: a row-parallel weight's per-channel "
+                             "scale is a maximum over all its rows")
         skey = "_gs" if group_size else "_s"
 
         def swap(mod, name, q, suffix, s):
@@ -277,11 +314,13 @@ class Qwen2(nn.Module):
 
     def _proj_out(self, lp: Qwen2Layer, o):
         B, Hq, T, D = o.shape
-        return self._mm(o.transpose(1, 2).reshape(B, T, Hq * D), lp, "wo")
+        return self._tp_sum(self._mm(o.transpose(1, 2).reshape(
+            B, T, Hq * D), lp, "wo"), "qwen2.attn_out")
 
     def _mlp(self, lp: Qwen2Layer, h):
         g, u = self._mm(h, lp, "w_gateup").chunk(2, dim=-1)
-        return self._mm(F.silu(g) * u, lp, "w_down")
+        return self._tp_sum(self._mm(F.silu(g) * u, lp, "w_down"),
+                            "qwen2.mlp_out")
 
     def _finish_layer(self, lp: Qwen2Layer, h, o):
         """Attention output projection and residual, then the MLP."""
@@ -289,8 +328,11 @@ class Qwen2(nn.Module):
         return h + self._mlp(lp, rms_norm(h, lp.ln2, self.cfg.rms_eps))
 
     def _lm_head(self, h):
-        return self._mm(rms_norm(h, self.norm_f, self.cfg.rms_eps), self,
-                        "lm_head")
+        logits = self._mm(rms_norm(h, self.norm_f, self.cfg.rms_eps), self,
+                          "lm_head")
+        if self.tp is None:
+            return logits
+        return self.tp.all_gather(logits, dim=-1, site="qwen2.lm_head")
 
     # ------------------------------------------------------------------ #
     @torch.no_grad()
@@ -300,22 +342,36 @@ class Qwen2(nn.Module):
         """One streaming append of embeds (B, T, E) through every layer;
         kvs is updated in place.  active: optional (B,) bool ragged mask,
         inactive streams' state untouched (engine.append_stream).  Returns
-        (final hidden states, kvs)."""
+        (final hidden states, kvs).  Under sp, when each sp rank's share of
+        a video append is whole pages, the hidden states are this rank's
+        tokens; under pp, the last stage's are the append's."""
         c = self.cfg
+        T = embeds.shape[1]
         rc = None
         if not is_init:  # position tables are shared by every layer
             rc = engine.make_rope_cache(
-                kvs.length[0], kvs.num_blocks[0], embeds.shape[1], rekv,
+                kvs.length[0], kvs.num_blocks[0], T, rekv,
                 c.head_dim, c.rope_base, kvs.page_offset[0])
-        h = embeds
-        for i, lp in enumerate(self.layers):
-            q, k, v = self._qkv(lp, rms_norm(h, lp.ln1, c.rms_eps))
-            o, _ = engine.append_stream(layer(kvs, i), q, k, v, rekv,
-                                        is_init=is_init,
-                                        rope_base=c.rope_base, rope_cache=rc,
-                                        active=active)
-            h = self._finish_layer(lp, h, o)
-        return h, kvs
+        sp = self.sp
+        if sp is not None and (is_init or T % (sp.size * rekv.block_size)):
+            sp = None  # not whole pages a rank: every sp rank runs it all
+        off = 0 if sp is None else sp.rank * (T // sp.size)
+        x = embeds if sp is None else embeds[:, off:off + T // sp.size]
+
+        def layers(h):
+            for i, lp in enumerate(self.layers):
+                q, k, v = self._qkv(lp, rms_norm(h, lp.ln1, c.rms_eps))
+                if sp is not None:  # the chunk's new K/V rows
+                    k, v = sp.all_gather(torch.stack([k, v]), dim=3,
+                                         site="sp.kv").unbind(0)
+                o, _ = engine.append_stream(
+                    layer(kvs, i), q, k, v, rekv, is_init=is_init,
+                    rope_base=c.rope_base, rope_cache=rc, active=active,
+                    tp=self.tp, sp=sp, q_offset=off)
+                h = self._finish_layer(lp, h, o)
+            return h
+
+        return pipeline.pipe(self.pp, layers, x, replicate=False), kvs
 
     @torch.no_grad()
     def qa_retrieve_step(self, rekv: ReKVConfig, kvs: StreamKV,
@@ -359,12 +415,20 @@ class Qwen2(nn.Module):
         if n_tokens is not None:
             n_tokens = torch.as_tensor(n_tokens, device=dev).expand(B)
             q_valid = torch.arange(T, device=dev)[None, :] < n_tokens[:, None]
-        h, picked = embeds, []
-        for i, lp in enumerate(self.layers):
+        picked = []
+
+        def layers(h):
+            for i, lp in enumerate(self.layers):
+                h = layer_pass(i, lp, h)
+            return h
+
+        def layer_pass(i, lp, h):
+            nonlocal host_pages
             q, k, v = self._qkv(lp, rms_norm(h, lp.ln1, c.rms_eps))
             kv = layer(kvs, i)
             if retrieved_indices is None:
-                abs_idx, exists = engine.score_blocks(kv, q, rekv, q_valid)
+                abs_idx, exists = engine.score_blocks(kv, q, rekv, q_valid,
+                                                      tp=self.tp)
             else:
                 abs_idx, exists = engine.external_blocks(kv,
                                                          retrieved_indices)
@@ -385,6 +449,10 @@ class Qwen2(nn.Module):
             h, dkvs.cursor[i] = self._attend_retrieved(
                 i, rekv, kv, layer(dkvs, i), h, q, k, v, ret_k, ret_v,
                 valid_len, compress_generator(seed, dev))
+            return h
+
+        # the pass's hidden states end here: the decode cache holds it all
+        pipeline.pipe(self.pp, layers, embeds, replicate=False)
         abs_idx, exists = (torch.stack([p[j] for p in picked])
                            for j in (0, 1))
         missing = (None if host_pages is None
@@ -404,8 +472,8 @@ class Qwen2(nn.Module):
             n_tokens[:, None]
         q, k, v = self._qkv(self.layers[i], rms_norm(h, self.layers[i].ln1,
                                                      c.rms_eps))
-        logits, blk_valid, q_mean = engine.score_block_logits(kv, q, rekv,
-                                                             q_valid)
+        logits, blk_valid, q_mean = engine.score_block_logits(
+            kv, q, rekv, q_valid, tp=self.tp)
         return q, k, v, logits, blk_valid, q_mean
 
     @torch.no_grad()
@@ -447,7 +515,7 @@ class Qwen2(nn.Module):
         T = h.shape[1]
         if rekv.retrieved_kv_compression != "none":
             ret_k, ret_v, valid_len = engine.compress_retrieved(
-                kv, rekv, ret_k, ret_v, valid_len, generator)
+                kv, rekv, ret_k, ret_v, valid_len, generator, tp=self.tp)
         raw_rows = rekv.n_init if rekv.decode_cap > rekv.n_local else 0
         dkv = engine.decode_write(dkv, ret_k, ret_v, valid_len,
                                   at_start=True, rope_base=c.rope_base,
@@ -466,17 +534,21 @@ class Qwen2(nn.Module):
         c = self.cfg
         B, T, _ = embeds.shape
         ar = torch.arange(T, device=embeds.device)[None, :]
-        h = embeds
-        for i, lp in enumerate(self.layers):
-            q, k, v = self._qkv(lp, rms_norm(h, lp.ln1, c.rms_eps))
-            dl = layer(dkvs, i)
-            start = dl.cursor.clone()
-            dl = engine.decode_write(dl, k, v, n_tokens,
-                                     rope_base=c.rope_base)
-            o = engine.decode_attend(q, start[:, None] + ar, dl, rekv,
-                                     rope_base=c.rope_base)
-            dkvs.cursor[i] = dl.cursor
-            h = self._finish_layer(lp, h, o)
+
+        def layers(h):
+            for i, lp in enumerate(self.layers):
+                q, k, v = self._qkv(lp, rms_norm(h, lp.ln1, c.rms_eps))
+                dl = layer(dkvs, i)
+                start = dl.cursor.clone()
+                dl = engine.decode_write(dl, k, v, n_tokens,
+                                         rope_base=c.rope_base)
+                o = engine.decode_attend(q, start[:, None] + ar, dl, rekv,
+                                         rope_base=c.rope_base)
+                dkvs.cursor[i] = dl.cursor
+                h = self._finish_layer(lp, h, o)
+            return h
+
+        h = pipeline.pipe(self.pp, layers, embeds, replicate=True)
         return self._lm_head(h), dkvs
 
     @torch.no_grad()

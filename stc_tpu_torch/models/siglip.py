@@ -21,6 +21,15 @@ of the chunk, and each stream's cached frames gate against its own.
 
 The port gathers rows by index (the JAX package's one-hot gather exists
 only for TPU costs and gives the same numbers).
+
+Under tp (``parallel.sharding.shard_module``) each rank holds num_heads/tp
+heads of q/k/v and a 1/tp share of the MLP hidden, with one all_reduce
+after ``wo`` and one after ``fc2``; the cacher's K and V references are
+the rank's channels, its attention and MLP references whole.  The gate's
+cosine is over the whole key width, so its dot product and both squared
+norms (or, with k_proxy_rank, the two sketches, each a sum over the key
+channels) are all_reduced before the rows are picked: every tp rank picks
+the same rows.
 """
 
 from __future__ import annotations
@@ -75,11 +84,14 @@ class CacherState(NamedTuple):
 
 
 def init_cacher_state(cfg: SiglipConfig, batch: int, dtype=torch.float32,
-                      *, device) -> CacherState:
-    def z():
-        return torch.zeros((cfg.num_layers, batch, cfg.num_tokens,
-                            cfg.hidden_size), dtype=dtype, device=device)
-    return CacherState(z(), z(), z(), z())
+                      *, device, tp: int = 1) -> CacherState:
+    """Zeroed references; under tp the K and V references hold the rank's
+    hidden_size / tp channels."""
+    def z(width):
+        return torch.zeros((cfg.num_layers, batch, cfg.num_tokens, width),
+                           dtype=dtype, device=device)
+    C = cfg.hidden_size
+    return CacherState(z(C // tp), z(C // tp), z(C), z(C))
 
 
 def layer_norm(x, w, b, eps):
@@ -113,11 +125,19 @@ def _attn_full(q, k, v, num_heads):
     return o.transpose(1, 2).reshape(B, Tq, C).to(q.dtype)
 
 
-def key_similarity(k, ref_k):
+def key_similarity(k, ref_k, tp=None):
     """Cosine similarity in float32 of each token's fresh key (F, T, C) to
-    the reference key (1, T, C): the cacher's gate."""
+    the reference key (1, T, C): the cacher's gate.  Under tp k and ref_k
+    are this rank's channels: the dot product and both squared norms are
+    summed over the ranks (one all_reduce) first."""
     kf, rf = k.to(torch.float32), ref_k.to(torch.float32)
-    return (kf * rf).sum(-1) / (kf.norm(dim=-1) * rf.norm(dim=-1) + 1e-8)
+    if tp is None:
+        return (kf * rf).sum(-1) / (kf.norm(dim=-1) * rf.norm(dim=-1) + 1e-8)
+    dot = (kf * rf).sum(-1)
+    sums = tp.all_reduce(torch.stack([
+        dot, (kf * kf).sum(-1), (rf * rf).sum(-1).expand_as(dot)]),
+        site="siglip.gate")
+    return sums[0] / (sums[1].sqrt() * sums[2].sqrt() + 1e-8)
 
 
 _KPROXY: dict = {}
@@ -162,10 +182,20 @@ class SiglipLayer(nn.Module):
         self.ln2_w, self.ln2_b = p(C), p(C)
         self.fc1, self.fc1_b = p(C, F_), p(F_)
         self.fc2, self.fc2_b = p(F_, C), p(C)
+        self.tp = None  # the tp axis under a mesh (Siglip.set_mesh)
+
+    def _tp_sum(self, x, site):
+        return x if self.tp is None else self.tp.all_reduce(x, site=site)
+
+    def _heads(self, cfg: SiglipConfig) -> int:
+        return cfg.num_heads // (1 if self.tp is None else self.tp.size)
+
+    def _out(self, attn):
+        return self._tp_sum(attn @ self.wo, "siglip.attn_out") + self.bo
 
     def _mlp(self, x):
         x = F.gelu(x @ self.fc1 + self.fc1_b, approximate="tanh")
-        return x @ self.fc2 + self.fc2_b
+        return self._tp_sum(x @ self.fc2, "siglip.mlp_out") + self.fc2_b
 
     def full(self, h, cfg: SiglipConfig):
         """Standard layer; returns (h, (k, v, attn_out, mlp_out))."""
@@ -174,7 +204,7 @@ class SiglipLayer(nn.Module):
         k = hn @ self.wk + self.bk
         q = hn @ self.wq + self.bq
         v = hn @ self.wv + self.bv
-        attn = _attn_full(q, k, v, cfg.num_heads) @ self.wo + self.bo
+        attn = self._out(_attn_full(q, k, v, self._heads(cfg)))
         h = h + attn
         mlp = self._mlp(layer_norm(h, self.ln2_w, self.ln2_b, eps))
         return h + mlp, (k, v, attn, mlp)
@@ -194,17 +224,26 @@ class SiglipLayer(nn.Module):
         if sim_source == "value":
             k_full = hn @ self.wk + self.bk
             v_fresh = hn @ self.wv + self.bv
-            sim = key_similarity(v_fresh, ref_v)
+            sim = key_similarity(v_fresh, ref_v, self.tp)
         elif k_proxy:
             # the fresh side's sketch without forming fresh K: (wk @ R) is
-            # a (C, r) matmul; ref_k already holds its bias
+            # a (C, r) matmul; ref_k already holds its bias.  Under tp each
+            # rank sketches its own key channels (R's rows of them)
             R = kproxy_matrix(C, k_proxy, h.dtype, h.device)
-            sim = key_similarity(hn @ (self.wk @ R) + self.bk @ R,
-                                 ref_k @ R)
+            if self.tp is None:
+                sim = key_similarity(hn @ (self.wk @ R) + self.bk @ R,
+                                     ref_k @ R)
+            else:
+                Cl = self.wk.shape[1]
+                R = R[self.tp.rank * Cl:(self.tp.rank + 1) * Cl]
+                fresh, ref = self.tp.all_reduce(torch.cat([
+                    hn @ (self.wk @ R) + self.bk @ R, ref_k @ R]),
+                    site="siglip.gate").split([F_, 1])
+                sim = key_similarity(fresh, ref)
             k_full = None
         else:
             k_full = hn @ self.wk + self.bk
-            sim = key_similarity(k_full, ref_k)
+            sim = key_similarity(k_full, ref_k, self.tp)
         _, upd = topk_lowest(-sim, num_update)
         upd = torch.sort(upd, dim=-1).values                    # (F, U)
         frow = torch.arange(F_, device=h.device)[:, None]
@@ -215,11 +254,11 @@ class SiglipLayer(nn.Module):
         toks = hn[frow, upd]                                    # (F, U, C)
         q_sel = toks @ self.wq + self.bq
         if sim_source == "value":  # attention against the fresh V
-            attn_sel = _attn_full(q_sel, k_full, v_fresh, cfg.num_heads)
+            attn_sel = _attn_full(q_sel, k_full, v_fresh, self._heads(cfg))
         else:
             attn_sel = self._attn_scattered_v(toks, q_sel, k_full, ref_k,
                                               ref_v, upd, k_proxy, cfg)
-        attn_sel = attn_sel @ self.wo + self.bo
+        attn_sel = self._out(attn_sel)
         h = merge(h, ref_attn, attn_sel)
         hn2 = layer_norm(h, self.ln2_w, self.ln2_b, eps)
         h = merge(h, ref_mlp, self._mlp(hn2[frow, upd]))
@@ -231,10 +270,11 @@ class SiglipLayer(nn.Module):
         the selected rows, the reference elsewhere), without forming it;
         with k_proxy against the scattered K as well.  toks: the selected
         rows' normed inputs (F, U, C).  Returns (F, U, C) in h's dtype."""
-        F_, num_update, C = toks.shape
+        F_, num_update, _ = toks.shape
         T = ref_v.shape[1]
-        H = cfg.num_heads
-        D = C // H
+        D = cfg.head_dim
+        H = self._heads(cfg)
+        C = H * D  # this rank's q/k/v channels
         v_sel = toks @ self.wv + self.bv
         qh = q_sel.reshape(F_, num_update, H, D).transpose(1, 2)
         if k_proxy:
@@ -285,6 +325,15 @@ class Siglip(nn.Module):
         self.layers = nn.ModuleList(SiglipLayer(cfg, dtype, device)
                                     for _ in range(cfg.num_layers))
         self.post_ln_w, self.post_ln_b = p(C), p(C)
+        self.mesh = self.tp = None
+
+    def set_mesh(self, mesh) -> None:
+        """Take the tp axis of `mesh` (the tensors already hold this rank's
+        slices, parallel/sharding.shard_module)."""
+        tp = mesh.axis("tp")
+        self.mesh, self.tp = mesh, (tp if tp.size > 1 else None)
+        for lp in self.layers:
+            lp.tp = self.tp
 
     @torch.no_grad()
     def init_random_params(self, generator: torch.Generator,
@@ -319,7 +368,7 @@ class Siglip(nn.Module):
         refs = []
         for lp in self.layers:
             h, saved = lp.full(h, self.cfg)
-            refs.append([x.reshape(n_streams, -1, T, C)[:, -1]
+            refs.append([x.reshape(n_streams, -1, T, x.shape[-1])[:, -1]
                          for x in saved])
         return h, CacherState(*(torch.stack([r[j] for r in refs])
                                 for j in range(4)))

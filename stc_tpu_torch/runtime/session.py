@@ -23,8 +23,20 @@ drafting also from each stream's earlier questions and answers
 (ReKVConfig.retrieval_scorer 'aks', 'dpc_knn' or 'l2norm') a question runs
 the layerwise retrieval forward: the device computes a layer's rep
 logits, the scorer picks its blocks on the host, and host-tier pages it
-picks are fetched, layer by layer (one host round trip a layer).  Left out
-until its ROADMAP.md item lands: meshes.  stc_tpu's measured-cost router
+picks are fetched, layer by layer (one host round trip a layer).
+
+On a mesh (``mesh=``, parallel/mesh.py; every rank runs the same calls
+with the same arguments): dp x tp, dp x sp x tp or pp x tp.  Each dp rank
+holds batch / dp streams and answers them; the answers, blocks and token
+counts are gathered over dp, so every rank returns what the unsharded
+session returns, B answers in stream order.  tp shards the LM's heads and
+hidden and the page store's kv heads (the model, parallel/sharding.py);
+sp splits an append's tokens (models/qwen2.py); pp runs every LM pass as
+a stage relay (parallel/pipeline.py) and refuses speculative decode,
+host-tier eviction and the layerwise scorers.  sp and pp together are
+refused.  The stream counters behind eviction and ragged ingest are kept
+for all B streams on every rank, so eviction happens on every rank at
+once, as in the unsharded session.  stc_tpu's measured-cost router
 between one merged XLA program and two is a TPU dispatch mechanism the port
 does not keep: ``serve`` always takes its serve path where that path is
 eligible.
@@ -45,6 +57,7 @@ from stc_tpu_torch.kvcache.state import layer
 from stc_tpu_torch.models import qwen2 as qw
 from stc_tpu_torch.models.qwen2 import Qwen2
 from stc_tpu_torch.ops.stream_attention import dequant_rows
+from stc_tpu_torch.parallel import pipeline, sharding
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -63,19 +76,45 @@ def _stop_arr(stop_token_ids) -> np.ndarray:
 
 class StreamingSession:
     def __init__(self, lm: Qwen2, session_cfg: SessionConfig, batch: int = 1,
-                 state_dtype=torch.bfloat16, frame_encoder=None):
+                 state_dtype=torch.bfloat16, frame_encoder=None, mesh=None):
         """frame_encoder: optional callable frames -> pruned features
         (B, n_frames * block_size, E) (models/llava_onevision.FrameEncoder)
         that encode_video runs; clear_cache resets it when it has a
-        reset()."""
+        reset().  mesh: a parallel.mesh.Mesh; the LM is sharded onto it in
+        place unless it already is."""
+        rc = session_cfg.rekv
+        self.mesh = mesh
+        size = (lambda a: 1) if mesh is None else mesh.size_of
+        if size("pp") > 1 and size("sp") > 1:
+            raise ValueError(
+                "sp (sequence-parallel appends) composes with dp/tp; pp "
+                "runs its own stage relay: build either a dp x sp x tp mesh "
+                "or a pp x tp mesh, not both")
+        if size("pp") > 1 and rc.spec_decode_draft:
+            raise ValueError("speculative decode is not supported under pp "
+                             "(greedy only)")
+        if size("pp") > 1 and rc.retrieval_scorer != "mean_dot":
+            raise ValueError("the layerwise block scorers are not supported "
+                             "under pp")
+        if batch % size("dp"):
+            raise ValueError(f"{batch} streams do not split over "
+                             f"dp={size('dp')}")
         if session_cfg.weights_quant != "none":
             # in place, as stc_tpu's session quantizes its params at build
+            # (before any sharding)
             lm.quantize_int8(session_cfg.weights_quant_group)
+        if mesh is not None and lm.mesh is None:
+            sharding.shard_module(lm, mesh)
         self.lm = lm
         self.mcfg = lm.cfg
         self.scfg = session_cfg
-        self.rekv = rc = session_cfg.rekv
-        self.batch = batch
+        self.rekv = rc
+        dp = None if mesh is None else mesh.axis("dp")
+        self._dp = dp if dp is not None and dp.size > 1 else None
+        # all streams, this rank's streams and the first of them
+        self.n_streams = batch
+        self.batch = batch // size("dp")
+        self._b0 = 0 if dp is None else dp.rank * self.batch
         self.state_dtype = state_dtype
         self.device = lm.device
         self.frame_encoder = frame_encoder
@@ -112,8 +151,9 @@ class StreamingSession:
         self.hp_reset()
         self._total_blocks = 0   # the longest stream's blocks
         self._init_len = 0       # n_init once the init prompt is encoded
-        # per-stream block counts of ragged ingest
-        self._stream_blocks = np.zeros(self.batch, dtype=np.int64)
+        # per-stream block counts of ragged ingest, of every stream (on
+        # every dp rank: eviction follows the longest stream of all)
+        self._stream_blocks = np.zeros(self.n_streams, dtype=np.int64)
         self._ragged = False
         self._evicted_pages = 0
         # the speculative decode's draft history: the most recent
@@ -147,6 +187,12 @@ class StreamingSession:
         rc = self.rekv
         while (self._total_blocks - self._evicted_pages
                + incoming_blocks > rc.max_blocks):
+            if self.lm.pp is not None:
+                raise RuntimeError(
+                    "host-tier eviction is not supported under pipeline "
+                    f"parallelism: the stream needs more than max_blocks="
+                    f"{rc.max_blocks} pages. Raise max_blocks (each stage's "
+                    "store holds only its layers' pages).")
             if self._ragged and np.ptp(self._stream_blocks) > 0:
                 raise RuntimeError(
                     "host-tier eviction with diverged ragged streams is not "
@@ -202,17 +248,33 @@ class StreamingSession:
         self._total_blocks = int(self._stream_blocks.max())
 
     def _normalize_active(self, active):
-        """-> (device bool (B,) or None, numpy bool (B,) or None); an
-        all-True mask is the uniform path (None)."""
+        """-> (device bool of this rank's streams or None, numpy bool of
+        all B streams or None); an all-True mask is the uniform path
+        (None)."""
         if active is None:
             return None, None
         a = np.asarray(active, dtype=bool).reshape(-1)
-        if a.shape != (self.batch,):
+        if a.shape != (self.n_streams,):
             raise ValueError(f"active mask of shape {a.shape} for "
-                             f"{self.batch} streams")
+                             f"{self.n_streams} streams")
         if a.all():
             return None, None
-        return torch.as_tensor(a, device=self.device), a
+        mine = self._mine(a)
+        return (None if mine.all()
+                else torch.as_tensor(mine, device=self.device)), a
+
+    def _mine(self, x):
+        """This dp rank's rows of a per-stream array or list of all B."""
+        return x[self._b0:self._b0 + self.batch]
+
+    def _gather_streams(self, x: np.ndarray, axis: int = 0) -> np.ndarray:
+        """Per-stream numpy rows of this rank's streams (on `axis`) -> those
+        of all B streams, on every dp rank."""
+        if self._dp is None:
+            return x
+        t = torch.as_tensor(np.ascontiguousarray(x), device=self.device)
+        return self._dp.all_gather(t, dim=axis,
+                                   site="dp.streams").cpu().numpy()
 
     def _ids(self, arr) -> torch.Tensor:
         return torch.as_tensor(np.array(arr, np.int32), device=self.device)
@@ -236,12 +298,23 @@ class StreamingSession:
         state stays bit-identical.  Streams whose lengths diverged must
         stay within the device store (eviction shifts every stream)."""
         feats = torch.as_tensor(feats, device=self.device).to(self.lm.dtype)
+        if feats.shape[0] != self.n_streams:
+            raise ValueError(f"features of {feats.shape[0]} streams for a "
+                             f"{self.n_streams}-stream session")
+        feats = self._mine(feats)
         B, T, E = feats.shape
         S, exc = self.rekv.block_size, self.rekv.exc_block_size
         if T % S:
             raise ValueError((T, S))
         act_dev, act_np = self._normalize_active(active)
         self._check_rep_capacity(T // S)
+        if self.lm.pp is not None:
+            # nothing is evicted under pp: fail before the first append
+            self._maybe_evict(T // S)
+            pipeline.pp_encode_step(self.lm, self.rekv, self.kvs, feats,
+                                    act_dev)
+            self._track_blocks(T // S, act_np)
+            return
         for i in range(0, T, exc):
             n = min(exc, T - i) // S
             self._maybe_evict(n)
@@ -270,7 +343,7 @@ class StreamingSession:
         prompt_ids.  Returns stream 0's answer ids, or with all_streams one
         list per stream (the question is shared; retrieval and answers are
         per stream)."""
-        B = self.batch
+        B = self.n_streams
         q_ids, q_len = self._pad_ids([question_ids] * B)
         p_ids, p_len = self._pad_ids([prompt_ids] * B)
         tokens, count = self._qa_run(q_ids, q_len, p_ids, p_len,
@@ -292,9 +365,10 @@ class StreamingSession:
         asked: optional (B,) bool, the streams that really asked (the
         others' placeholder rows stay out of the draft history).  Returns
         one answer list per stream."""
-        if len(questions) != self.batch or len(prompts) != self.batch:
+        if len(questions) != self.n_streams or \
+                len(prompts) != self.n_streams:
             raise ValueError(f"{len(questions)} questions and "
-                             f"{len(prompts)} prompts for {self.batch} "
+                             f"{len(prompts)} prompts for {self.n_streams} "
                              "streams")
         q_ids, q_len = self._pad_ids(questions)
         p_ids, p_len = self._pad_ids(prompts)
@@ -302,7 +376,7 @@ class StreamingSession:
                                      stop_token_ids, max_new_tokens,
                                      retrieved_indices, hist_rows=asked)
         return [[int(t) for t in tokens[b, :int(count[b])]]
-                for b in range(self.batch)]
+                for b in range(self.n_streams)]
 
     def serve(self, feats, active, questions, prompts, stop_token_ids,
               max_new_tokens: int = 128, asked=None):
@@ -341,23 +415,26 @@ class StreamingSession:
                 and self._total_blocks + n <= rc.max_blocks)
 
     def _pad_ids(self, seqs):
-        """Right-pad B token sequences to a shared power-of-two bucket."""
+        """Right-pad the B streams' token sequences to a shared power-of-two
+        bucket (of all B, so every dp rank pads as the unsharded session
+        does); returns this rank's rows and lengths."""
         lens = np.asarray([len(s) for s in seqs], np.int32)
         b = _bucket(int(lens.max()), self.rekv.max_prompt_tokens)
         if int(lens.max()) > b:
             raise ValueError((lens, self.rekv.max_prompt_tokens))
-        arr = np.zeros((self.batch, b), dtype=np.int32)
+        arr = np.zeros((len(seqs), b), dtype=np.int32)
         for i, s in enumerate(seqs):
             arr[i, :len(s)] = np.asarray(list(s), dtype=np.int32)
-        return arr, lens
+        return self._mine(arr), self._mine(lens)
 
     def _qa_run(self, q_ids, q_len, p_ids, p_len, stop_token_ids,
                 max_new_tokens: int, retrieved_indices=None,
                 hist_rows=None):
         """Retrieval + prefill + greedy decode, from the device store alone
-        or, once pages were evicted, from both tiers.  hist_rows: optional
-        (B,) bool, the streams whose question joins the draft history (all
-        when None).  Returns (tokens (B, M), count (B,)) as numpy."""
+        or, once pages were evicted, from both tiers; the id arrays are this
+        rank's streams'.  hist_rows: optional (B,) bool, the streams whose
+        question joins the draft history (all when None).  Returns (tokens
+        (B, M), count (B,)) of all B streams as numpy."""
         rc, B = self.rekv, self.batch
         ext = None
         if retrieved_indices is not None:
@@ -389,20 +466,27 @@ class StreamingSession:
                                hist_rows)
 
     def _set_retrieved(self, a, e):
-        """last_retrieved_indices from abs_idx / exists (L, B, topk): each
-        layer's blocks, stream 0's at batch 1, one list per stream
-        above."""
+        """last_retrieved_indices from abs_idx / exists (L, B, topk) of this
+        rank's layers and streams (gathered over pp and dp): each layer's
+        blocks, stream 0's at batch 1, one list per stream above."""
+        pp = self.lm.pp
+        if pp is not None:
+            a, e = (pp.all_gather(torch.as_tensor(x, device=self.device),
+                                  dim=0, site="pp.blocks").cpu().numpy()
+                    for x in (a, e))
+        a, e = self._gather_streams(a, 1), self._gather_streams(e, 1)
         per = [[[int(i) for i in a[l, b][e[l, b]]]
-                for b in range(self.batch)] for l in range(a.shape[0])]
-        self.last_retrieved_indices = (per if self.batch > 1
+                for b in range(self.n_streams)] for l in range(a.shape[0])]
+        self.last_retrieved_indices = (per if self.n_streams > 1
                                        else [p[0] for p in per])
 
     def _qa_finish(self, q_ids, q_len, p_ids, p_len, tokens, count,
                    hist_rows):
         tokens, count = tokens.cpu().numpy(), count.cpu().numpy()
         self._hist_append(q_ids, q_len, p_ids, p_len, tokens, count,
-                          rows=hist_rows)
-        return tokens, count
+                          rows=None if hist_rows is None
+                          else self._mine(np.asarray(hist_rows)))
+        return self._gather_streams(tokens), self._gather_streams(count)
 
     def _qa_retrieve_layerwise(self, q_ids, q_len):
         """Question forward with host-side block selection, layer by layer
@@ -422,16 +506,21 @@ class StreamingSession:
         seed = qw.compress_seed(rc, self.kvs)
         # per-stream block counts: ragged or recycled slots hold fewer
         # blocks than the longest stream and score only their own
-        nbs = [int(self._stream_blocks[b]) if self._ragged
+        nbs = [int(self._stream_blocks[self._b0 + b]) if self._ragged
                else self._total_blocks for b in range(B)]
+        tp = self.lm.tp
         picks = np.full((mc.num_layers, B, rc.topk), -1, np.int32)
         for l in range(mc.num_layers):
             kv = layer(self.kvs, l)
             q, k, v, logits, _, q_mean = self.lm.qa_layer_logits(
                 l, rc, kv, h, n_tok)
             n_max = max(nbs)
+            reps = kv.block_rep[:, :n_max]
+            if tp is not None:  # the scorers see every head
+                reps = tp.all_gather(reps, dim=2, site="scorer.reps")
+                q_mean = tp.all_gather(q_mean, dim=1, site="scorer.q_mean")
             logits_np = logits[:, :n_max].float().cpu().numpy()
-            reps_np = kv.block_rep[:, :n_max].float().cpu().numpy()
+            reps_np = reps.float().cpu().numpy()
             q_mean_np = q_mean.float().cpu().numpy()
             arr = picks[l]
             for b, nb in enumerate(nbs):
@@ -471,6 +560,8 @@ class StreamingSession:
         answers are greedy's either way.  history_tokens: the draft
         history's length per stream (None keeps the config's).  The
         history ring is resized; its most recent tokens survive."""
+        if draft and self.lm.pp is not None:
+            raise ValueError("speculative decode is not supported under pp")
         kw = dict(spec_decode_draft=draft)
         if history_tokens is not None:
             kw["spec_history_tokens"] = history_tokens
@@ -659,7 +750,7 @@ class StreamingSession:
         ingests next) while the other slots' streams continue untouched.
         Refused once pages were evicted: the host tier's pages are shared
         by every stream."""
-        mask = np.zeros(self.batch, dtype=bool)
+        mask = np.zeros(self.n_streams, dtype=bool)
         mask[list(slots)] = True
         if not mask.any():
             raise ValueError("reset_streams needs at least one slot")
@@ -669,14 +760,16 @@ class StreamingSession:
                 "the host tier's page ring is shared across streams. "
                 "clear_cache() the whole session, or size max_blocks to "
                 "keep serving sessions device-resident.")
-        engine.reset_streams(self.kvs, torch.as_tensor(mask),
-                             self._init_len, batch_axis=1)
+        mine = self._mine(mask)
+        if mine.any():
+            engine.reset_streams(self.kvs, torch.as_tensor(mine),
+                                 self._init_len, batch_axis=1)
         self._ensure_ragged()
         self._stream_blocks[mask] = 0
         self._total_blocks = int(self._stream_blocks.max())
         # a recycled slot drafts nothing from its previous stream
-        self._qa_hist[mask] = 0
-        self._qa_hist_len[mask] = 0
+        self._qa_hist[mine] = 0
+        self._qa_hist_len[mine] = 0
 
     def kv_memory_bytes(self) -> int:
         """stc_tpu's figure for the store, kept equal so eval rows match:

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from stc_tpu_torch import native
 from stc_tpu_torch.kvcache import engine
+from stc_tpu_torch.parallel import pipeline
 from stc_tpu_torch.runtime.session import StreamingSession
 from stc_tpu_torch.utils import metrics
 
@@ -198,18 +199,20 @@ class PixelPipeline(VisionPipeline):
 
 
 class VLMSession(StreamingSession):
-    """Pixel session of `batch` streams."""
+    """Pixel session of `batch` streams; on a mesh the vision pipeline runs
+    this dp rank's batch / dp of them (StreamingSession)."""
 
     def __init__(self, lm, scfg, vision: VisionPipeline,
-                 state_dtype=torch.bfloat16, batch: int = 1):
+                 state_dtype=torch.bfloat16, batch: int = 1, mesh=None):
         self.vision = vision
-        super().__init__(lm, scfg, batch=batch, state_dtype=state_dtype)
+        super().__init__(lm, scfg, batch=batch, state_dtype=state_dtype,
+                         mesh=mesh)
 
     def clear_cache(self):
         super().clear_cache()
         self.chunk_idx = 0
-        # each slot's chunk count: its cacher parity is its own
-        self._slot_chunk = np.zeros(self.batch, dtype=np.int64)
+        # each slot's chunk count (of all B): its cacher parity is its own
+        self._slot_chunk = np.zeros(self.n_streams, dtype=np.int64)
         self._vstate, self._pstate = self.vision.init_state()
 
     def reset_streams(self, slots):
@@ -217,12 +220,12 @@ class VLMSession(StreamingSession):
         pruner memory and chunk counts return to a fresh session's (their
         next chunk takes the full path); the other slots keep theirs."""
         super().reset_streams(slots)
-        mask = np.zeros(self.batch, dtype=bool)
+        mask = np.zeros(self.n_streams, dtype=bool)
         mask[list(slots)] = True
         fresh_v, fresh_p = self.vision.init_state()
         self._vstate, self._pstate = self.vision.select_streams(
             fresh_v, fresh_p, self._vstate, self._pstate,
-            torch.as_tensor(mask, device=self.device))
+            torch.as_tensor(self._mine(mask), device=self.device))
         self._slot_chunk[mask] = 0
 
     @torch.no_grad()
@@ -238,15 +241,8 @@ class VLMSession(StreamingSession):
             self._encode_chunk_pixels(frames, frames.shape[0] // self.batch,
                                       active)
             return
-        frames = np.asarray(frames)
+        frames = self._own_frames(frames)
         multi = frames.ndim == (3 if frames.ndim < 4 else 5)
-        if multi:
-            if frames.shape[0] != self.batch:
-                raise ValueError(f"frames of {frames.shape[0]} streams for "
-                                 f"a {self.batch}-stream session")
-        elif self.batch > 1:
-            raise ValueError("a multi-stream session takes (B, n, H, W, 3) "
-                             "frames")
         axis = int(multi)
         n = self.scfg.encode_chunk_frames
         for s in range(0, frames.shape[axis], n):
@@ -254,11 +250,26 @@ class VLMSession(StreamingSession):
             self._encode_chunk_pixels(self.vision.preprocess(chunk),
                                       chunk.shape[axis], active)
 
+    def _own_frames(self, frames) -> np.ndarray:
+        """Frames of one stream, or this dp rank's streams' of (B, n, ...)
+        frames of all B."""
+        frames = np.asarray(frames)
+        if frames.ndim == (3 if frames.ndim < 4 else 5):
+            if frames.shape[0] != self.n_streams:
+                raise ValueError(f"frames of {frames.shape[0]} streams for "
+                                 f"a {self.n_streams}-stream session")
+            return self._mine(frames)
+        if self.n_streams > 1:
+            raise ValueError("a multi-stream session takes (B, n, H, W, 3) "
+                             "frames")
+        return frames
+
     def stage_chunk(self, frames) -> torch.Tensor:
         """One chunk of frames staged on the device (the host half of the
-        preprocess, then the copy), for encode_video."""
-        return torch.as_tensor(self.vision.preprocess(frames)).to(
-            self.device, non_blocking=True)
+        preprocess, then the copy), for encode_video; on a dp mesh this
+        rank's streams' frames."""
+        return torch.as_tensor(self.vision.preprocess(
+            self._own_frames(frames))).to(self.device, non_blocking=True)
 
     @torch.no_grad()
     def serve(self, frames, active, questions, prompts, stop_token_ids,
@@ -269,8 +280,8 @@ class VLMSession(StreamingSession):
         Other arguments, last_serve_fused and the return as
         StreamingSession.serve."""
         frames = np.asarray(frames)
-        if frames.ndim != 5 or frames.shape[0] != self.batch:
-            raise ValueError(f"serve takes (B={self.batch}, n, H, W, 3) "
+        if frames.ndim != 5 or frames.shape[0] != self.n_streams:
+            raise ValueError(f"serve takes (B={self.n_streams}, n, H, W, 3) "
                              f"frames, got {frames.shape}")
         n_frames = frames.shape[1]
         self.last_serve_fused = self._serve_eligible(
@@ -292,7 +303,8 @@ class VLMSession(StreamingSession):
             # the ticking slots disagree: both paths, each slot its own
             flat_f, v_f, p_f = vis.full(px, vstate, pstate)
             flat_c, v_c, p_c = vis.cached(px, vstate, pstate)
-            need_full = torch.as_tensor(~cached, device=self.device)
+            need_full = torch.as_tensor(~self._mine(cached),
+                                        device=self.device)
             flat = torch.where(need_full[:, None, None], flat_f, flat_c)
             new_v, new_p = vis.select_streams(v_f, p_f, v_c, p_c, need_full)
         else:
@@ -309,14 +321,10 @@ class VLMSession(StreamingSession):
 
     def _append_flat(self, flat, active=None):
         """Pruned features (B, n * block_size, E) into the LM, one append
-        a exc_block_size tokens."""
-        flat = flat.to(self.lm.dtype)
-        S, exc = self.rekv.block_size, self.rekv.exc_block_size
-        if flat.shape[1] % S:
-            raise ValueError((flat.shape, S))
-        for i in range(0, flat.shape[1], exc):
-            self.lm.encode_step(self.rekv, self.kvs, flat[:, i:i + exc],
-                                is_init=False, active=active)
+        a exc_block_size tokens (parallel.pipeline.pp_encode_step: under
+        pp each is relayed over the stages)."""
+        pipeline.pp_encode_step(self.lm, self.rekv, self.kvs,
+                                flat.to(self.lm.dtype), active)
 
     @torch.no_grad()
     def estimate_chunk_flops(self, cached: bool = False) -> int:

@@ -4,7 +4,10 @@ The JAX package keeps its weights as nested dicts of arrays with the layers
 stacked on axis 0 and matrices in (in, out) layout.  Given such a tree as
 numpy arrays (for example ``jax.tree.map(np.asarray, params)``), these
 functions fill the port's modules with the same numbers, so that both
-packages compute the same function.  Only numpy is needed here.
+packages compute the same function.  Only numpy is needed here.  Given a
+mesh (parallel/mesh.py), the module keeps this rank's slice of every
+tensor (parallel/sharding.shard_module): a JAX tree becomes one rank's
+sharded module.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from stc_tpu_torch.models import llava_onevision as lo
 from stc_tpu_torch.models import longva as lv
 from stc_tpu_torch.models import qwen2 as qw
 from stc_tpu_torch.models import siglip as sg
+from stc_tpu_torch.parallel import sharding
 
 
 def _t(x) -> torch.Tensor:
@@ -26,12 +30,16 @@ def _t(x) -> torch.Tensor:
 
 @torch.no_grad()
 def qwen2_from_jax(tree, cfg: qw.Qwen2Config, dtype=torch.float32,
-                   device="cuda") -> qw.Qwen2:
+                   device="cuda", mesh=None) -> qw.Qwen2:
     """Unfused JAX Qwen2 params (wq/wk/wv, w_gate/w_up) -> Qwen2 with the
     fused wqkv / w_gateup (the same weights, concatenated); a tree of
     qwen2.quantize_params_int8 -> a Qwen2 on the same int8 weights and
-    scales."""
-    return _fill_qwen2(qw.Qwen2(cfg, dtype, device), tree)
+    scales; with a mesh, this rank's part of it."""
+    return _sharded(_fill_qwen2(qw.Qwen2(cfg, dtype, device), tree), mesh)
+
+
+def _sharded(module, mesh):
+    return module if mesh is None else sharding.shard_module(module, mesh)
 
 
 def _fill_qwen2(lm: qw.Qwen2, tree) -> qw.Qwen2:
@@ -76,8 +84,8 @@ def _fill_qwen2_int8(lm: qw.Qwen2, tree) -> qw.Qwen2:
 
 @torch.no_grad()
 def siglip_from_jax(tree, cfg: sg.SiglipConfig, dtype=torch.float32,
-                    device="cuda") -> sg.Siglip:
-    return _fill_siglip(sg.Siglip(cfg, dtype, device), tree)
+                    device="cuda", mesh=None) -> sg.Siglip:
+    return _sharded(_fill_siglip(sg.Siglip(cfg, dtype, device), tree), mesh)
 
 
 def _fill_siglip(tower: sg.Siglip, tree) -> sg.Siglip:
@@ -92,14 +100,16 @@ def _fill_siglip(tower: sg.Siglip, tree) -> sg.Siglip:
 
 @torch.no_grad()
 def params_from_jax(tree, cfg: lo.LlavaOVConfig, dtype=torch.float32,
-                    vision_dtype=torch.float32, device="cuda") -> lo.LlavaOV:
-    """A JAX LLaVA-OV tree {"vision", "projector", "text"} -> LlavaOV."""
+                    vision_dtype=torch.float32, device="cuda",
+                    mesh=None) -> lo.LlavaOV:
+    """A JAX LLaVA-OV tree {"vision", "projector", "text"} -> LlavaOV (with
+    a mesh, this rank's part of it)."""
     model = lo.LlavaOV(cfg, dtype, vision_dtype, device)
     _fill_siglip(model.vision, tree["vision"])
     for name in ("w1", "b1", "w2", "b2"):
         getattr(model.projector, name).copy_(_t(tree["projector"][name]))
     _fill_qwen2(model.text, tree["text"])
-    return model
+    return _sharded(model, mesh)
 
 
 @torch.no_grad()

@@ -53,3 +53,16 @@ def test_bound_is_the_bytes_where_they_take_longest():
     cs = _chip_smoke()
     ms, by = cs.bound(3.35e9, 1e6, 1e3)
     assert (ms, by) == (pytest.approx(1.0), "bytes")
+
+
+def test_chip_smoke_defines_each_name_once():
+    """A later definition of a module-level function or class in
+    chip_smoke.py would silently replace an earlier one that a phase
+    calls."""
+    import ast
+    import collections
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    names = collections.Counter(
+        n.name for n in tree.body
+        if isinstance(n, (ast.FunctionDef, ast.ClassDef)))
+    assert [k for k, v in names.items() if v > 1] == []

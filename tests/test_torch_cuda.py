@@ -1034,3 +1034,108 @@ def test_frame_encoder_and_chunk_flops_on_card(cuda_device):
     assert res["bare"] == res["vlm"]
     assert flops["vlm"] == flops["cpu"] and flops["cpu"][0] > \
         flops["cpu"][1] > 0
+
+
+# a tp 2 and a tp 4 rank's llava-ov-7b heads (28/4/128 split by kv head)
+TP_HEADS = [(14, 2, 128), (7, 1, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", TP_HEADS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stream_attention_at_tp_rank_heads_on_card(cuda_device, heads,
+                                                   dtype):
+    """stream_attention at a tp rank's heads (Hkv = 1 included) after 12
+    appends of 60-token pages, init_active on, against its plain
+    version."""
+    cfg = ReKVConfig(**dict(BASE, block_size=12, exc_block_size=60))
+    ops = _stream_operands(cfg, 12, 60, seed=heads[0], heads=heads)
+    a = [x.to(cuda_device, dtype if i not in (4, 5, 9) else x.dtype)
+         .contiguous() for i, x in enumerate(ops)]
+    before = sa.launches["float"]
+    got = sa.stream_attention(*a, n_local=cfg.n_local)
+    assert sa.launches["float"] == before + 1
+    assert_agrees(got, sa.stream_attention_ref(*a, n_local=cfg.n_local))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 24, 36])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_stream_attention_at_sp_query_offset_on_card(cuda_device, offset,
+                                                     dtype):
+    """An sp rank's queries: 24 of a 60-token append's tokens from token
+    `offset` on, the offset carried in the kernel's scalars (L + offset),
+    at llava-ov-7b heads, against the plain version at that offset."""
+    cfg = ReKVConfig(**dict(BASE, block_size=12, exc_block_size=60))
+    ops = _stream_operands(cfg, 12, 60, seed=offset, heads=(28, 4, 128))
+    ops[0], ops[1] = ops[0][:, :, :24], ops[1][:, :, :24]
+    ops[9] = ops[9].clone()
+    ops[9][:, 0] += offset
+    a = [x.to(cuda_device, dtype if i not in (4, 5, 9) else x.dtype)
+         .contiguous() for i, x in enumerate(ops)]
+    got = sa.stream_attention(*a, n_local=cfg.n_local)
+    assert_agrees(got, sa.stream_attention_ref(*a, n_local=cfg.n_local))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", TP_HEADS)
+@pytest.mark.parametrize("T", [1, 256])
+def test_decode_attention_at_tp_rank_heads_on_card(cuda_device, heads, T):
+    """decode_attention at a tp rank's heads over a 2304-slot cache: a
+    token step and a 256-token prefill, with the row maxima."""
+    hq, hkv, d = heads
+    C = 2304
+    gen = torch.Generator(device=cuda_device).manual_seed(T + hq)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda_device).bfloat16()
+               for s in ((1, hq, T, d), (1, hkv, C, d), (1, hkv, C, d)))
+    cursor = torch.tensor([2100], dtype=torch.int32, device=cuda_device)
+    start = (cursor - T).to(torch.int32)
+    got, m = da.decode_attention(q, k, v, start, cursor, n_local=8000,
+                                 return_m=True)
+    want, m_ref = da.decode_attention_ref(q, k, v, start, cursor,
+                                          n_local=8000, return_m=True)
+    assert_agrees(got, want)
+    assert_agrees(m, m_ref)
+
+
+def tp2_card_rank(rank, world):
+    """One rank of test_tp2_session_on_card_answers_as_unsharded."""
+    from stc_tpu_torch.parallel import dryrun
+    from stc_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(dp=1, tp=2)
+    return _tiny_card_session(dryrun.tiny_model(3, mesh, device="cuda"),
+                              mesh)
+
+
+def _tiny_card_session(model, mesh=None):
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.parallel import dryrun
+    # n_local 128 keeps the decode cache (128 slots) within the window:
+    # every LM forward runs decode_attention
+    sess = lo.build_session(model, dryrun.tiny_scfg(n_local=128,
+                                                    max_blocks=64),
+                            state_dtype=torch.float32, device="cuda",
+                            batch=2, mesh=mesh)
+    frames = np.random.default_rng(0).integers(0, 256, (2, 8, 56, 56, 3),
+                                               dtype=np.uint8)
+    before = (sa.launches["float"], da.launches)
+    out = dryrun.drive(sess, frames, [([5, 6, 7], [8, 9])])
+    return out, (sa.launches["float"] - before[0], da.launches - before[1])
+
+
+@pytest.mark.cuda
+def test_tp2_session_on_card_answers_as_unsharded(cuda_device):
+    """Two gloo ranks of a tp 2 mesh on the one card (collectives staged
+    through host memory): the tiny float32 LLaVA-OV session's answers and
+    blocks equal the unsharded session's on the card, and every rank's
+    appends and LM forwards went through the kernels."""
+    import os
+    from stc_tpu_torch.parallel import dryrun
+    want, _ = _tiny_card_session(dryrun.tiny_model(3, device=cuda_device))
+    here = os.path.dirname(os.path.abspath(__file__))
+    ranks = dryrun.launch(2, "test_torch_cuda:tp2_card_rank", timeout=300,
+                          env={"PYTHONPATH": os.pathsep.join(
+                              [here, dryrun.ROOT])})
+    for got, (n_stream, n_decode) in ranks:
+        assert got == want
+        assert n_stream > 0 and n_decode > 0

@@ -18,6 +18,8 @@ FORBIDDEN = re.compile(
     r"^\s*(?:import\s+[\w., ]*\b" + NAMES + r"\b(?!\w)"
     r"|from\s+" + NAMES + r"\b(?![\w]))", re.M)
 BLOCKED = ("jax", "stc_tpu", "safetensors", "transformers", "ml_dtypes")
+PARALLEL = tuple(("parallel", f"{m}.py") for m in (
+    "__init__", "mesh", "sharding", "pipeline", "dryrun"))
 EVAL = tuple(("eval", f"{m}.py") for m in (
     "__init__", "datasets", "scorers", "reports", "solvers",
     "streamingbench", "ovobench", "runner"))
@@ -30,7 +32,7 @@ def test_sources_import_no_jax_and_no_stc_tpu():
               ("utils", "checkpoint.py"), ("models", "clip.py"),
               ("models", "longva.py"), ("models", "video_llava.py"),
               ("models", "flash_vstream.py"), ("utils", "metrics.py"),
-              ("runtime", "adapter.py")) + EVAL:
+              ("runtime", "adapter.py")) + EVAL + PARALLEL:
         assert PKG.joinpath(*f) in files, f
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -78,6 +80,26 @@ def test_importing_the_eval_package_loads_no_cv2_and_no_jax():
         leaked = [m for m in sys.modules
                   if m.split(".")[0] in BLOCKED + ("cv2", "decord",
                                                    "matplotlib", "openai")]
+        assert not leaked, leaked
+        print("OK")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split()[-1] == "OK"
+
+
+def test_importing_the_parallel_package_loads_no_jax():
+    """The parallel layouts (meshes, sharding, the pipeline relay, the dry
+    run and its rank launcher) and the parallel tests' rank-side worker
+    import torch and the port only: a fresh interpreter imports them and
+    no blocked package is loaded."""
+    code = f"BLOCKED = {BLOCKED!r}\n" + textwrap.dedent("""
+        import sys
+        sys.path.insert(0, "tests")
+        from stc_tpu_torch.parallel import dryrun, mesh, pipeline, sharding
+        import torch_parallel_worker
+        leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
         assert not leaked, leaked
         print("OK")
     """)

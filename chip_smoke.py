@@ -137,17 +137,18 @@ each of which makes the script exit non-zero when it fails:
      and cached chunks apart), QA p50, page-store and weight bytes;
  15. the eval harnesses at llava-ov-7b width (bf16 LM, float32 SigLIP,
      SessionConfig() with n_init set to the adapter's init prompt, random
-     weights, a hash tokenizer defined here): five .npy videos at 360 x
-     640 (16-260 frames at run_eval's 0.5 frames/s) through run_eval's
+     weights, a hash tokenizer defined here): four .npy videos at 360 x
+     640 (16-96 frames at run_eval's 0.5 frames/s) through run_eval's
      offline ("mlvu"), VideoMME and RVS ("rvs_ego") protocols, four
      StreamingBench and four OVO-Bench questions, open-ended answers at 32
      tokens; gates: no error row or None response, row counts,
      stream_attention launches = appends x layers and decode_attention
      launches on each protocol, three rows equal to direct
      question_answering calls, a video alone in a new session equal to
-     its rows after the others, a world-2 merge (mlvu without its
-     longest video) equal to the world-1 rows, a bare StreamingSession
-     with the FrameEncoder equal to the VLMSession (answers and blocks),
+     its rows after the others (the 20-frame video), a world-2 merge
+     (mlvu's 16- and 40-frame videos) equal to the world-1 rows, a bare
+     StreamingSession with the FrameEncoder equal to the VLMSession
+     (answers and blocks, the 20-frame video),
      both kernels against their plain versions on the session's state;
      estimate_chunk_flops of 1-frame
      (full, cached) and 8-frame chunks against their device times
@@ -168,7 +169,22 @@ each of which makes the script exit non-zero when it fails:
      answers equal to the reference's or departing only at its near-ties,
      blocks departing only at its near-ties (pp bit-equal), launches per
      rank, collective counts per layer and pass, both kernels on each
-     rank's state at its heads (and an sp rank's query offset).
+     rank's state at its heads (and an sp rank's query offset);
+ 17. the command-line entry points (stc_tpu_torch/cli) at llava-ov-7b
+     width: the public llava-onevision-qwen2-7b-ov widths with the LM's
+     depth cut to 4 layers, written as a 2-shard bf16 HF checkpoint with a
+     byte-level BPE tokenizer.json written here (Qwen2's specials at
+     151643-151645), an MLVU annotation over two .npy videos (16 and 40
+     frames at 360 x 640, two questions each); `python -m
+     stc_tpu_torch.cli.run_eval` as a subprocess, with stream_demo (16
+     frames) and serve_demo (8 ticks, --spec 4 --migrate) at
+     llava-ov-0.5b width as subprocesses beside it, then run_eval's main
+     in-process with the launch counts from 0, run_eval over a session
+     loaded from the same directory, and --stream_batch 2; gates: every
+     subprocess exits 0, no error row, the three runs' rows equal, the
+     tokenizer's decode of its encode equal to the NFC text, its init
+     prompt as long as the session's n_init, launches = appends x layers
+     and LM forwards x layers.
 
     python3 chip_smoke.py --planted-faults
 
@@ -200,6 +216,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import unicodedata
 
 import numpy as np
 import torch
@@ -1238,13 +1255,9 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    from stc_tpu_torch.ops import decode_attention as da
-    from stc_tpu_torch.ops import stream_attention as sa
+    from stc_tpu_torch.cli import launch_counts
     torch.cuda.synchronize()
-    return {"stream_attention": dict(sa.launches),
-            "decode_attention": da.launches,
-            "decode_score": da.score_launches,
-            "stream_attention_page_keep": sa.masked_launches}
+    return launch_counts()
 
 
 def stream_phase(model, cfg, scfg, name, n_chunks, questions, card, dev,
@@ -3150,9 +3163,13 @@ class HashTok:
 
 
 # video name -> raw frames (one a second) at 360 x 640: run_eval's 0.5
-# frames/s keeps 16, 40, 64, 96 and 260; the last passes the 250-page
-# window (n_local 15000 / 60 tokens a frame)
-EVAL_VIDEOS = {"v16": 32, "v40": 80, "v64": 128, "v96": 192, "v260": 520}
+# frames/s keeps 16, 40, 64 and 96 (none reaches the 250-page window, for
+# the script's time: phases 6-8 and 10 cross it at the same width)
+EVAL_VIDEOS = {"v16": 32, "v40": 80, "v64": 128, "v96": 192}
+# the videos of the world-2 merge, of the bare-session comparison and of
+# the new-session rerun (the short ones, for the script's time)
+EVAL_WORLD2 = ("v16", "v40")
+EVAL_SHORT = "v40"
 EVAL_HW = (360, 640)
 EVAL_MC_NEW, EVAL_OPEN_NEW = 16, 32
 
@@ -3188,9 +3205,6 @@ def eval_annotations(paths) -> dict:
                        oe("what happens after the cut", "it falls")]),
         sample("v96", [mc("what color is the bag",
                           ["red", "blue", "green", "black"], "green")]),
-        sample("v260", [mc("how many people appear", ["one", "two",
-                                                       "three"], "two"),
-                        oe("summarise the video", "cooking dinner")]),
     ]
     videomme = [
         sample("v16", [mc("what is on the table",
@@ -3622,9 +3636,9 @@ def eval_phase(card, dev) -> dict:
     counts, launches = appends x layers by protocol, decode launches on
     every protocol, three rows equal to direct question_answering calls
     in a cleared session, a video alone in a new session equal to its rows
-    after the others, a world-2 merge (mlvu without v260) equal to the
+    after the others, a world-2 merge (mlvu's v16 and v40) equal to the
     world-1 rows, a bare StreamingSession with the FrameEncoder equal to
-    the VLMSession (answer ids and blocks) on a 64-frame video, both
+    the VLMSession (answer ids and blocks) on a 20-frame video, both
     kernels against their plain versions on the session's state; (d)
     batched eval at 0.5b width; (e) chunk FLOPs and device times."""
     from stc_tpu_torch.config import SessionConfig
@@ -3690,9 +3704,9 @@ def eval_phase(card, dev) -> dict:
                                    "row": row["pred_answer"],
                                    "direct": tok.decode(ids)})
 
-            # the world-2 merge, rank 0 then rank 1, over the mlvu videos
-            # but the longest (its depth cut to keep the script's time)
-            w2 = [s for s in anno["mlvu"] if s["video_id"] != "v260"]
+            # the world-2 merge, rank 0 then rank 1, over two of the mlvu
+            # videos (its depth cut to keep the script's time)
+            w2 = [s for s in anno["mlvu"] if s["video_id"] in EVAL_WORLD2]
             a_path = os.path.join(work, "mlvu_world2.json")
             with open(a_path, "w") as f:
                 json.dump(w2, f)
@@ -3707,7 +3721,7 @@ def eval_phase(card, dev) -> dict:
             kv_gb = max(r["kv_memory_gb"] for r in recs["videomme"]["out"])
 
             # the bare session with the FrameEncoder against the VLMSession
-            frames64 = load_video_frames(paths["v64"], 0.5)
+            frames_short = load_video_frames(paths[EVAL_SHORT], 0.5)
             questions = [(tok("what is on the left"),
                           tok(ad.get_prompt("what is on the left"))),
                          (tok("which object moves"),
@@ -3716,8 +3730,8 @@ def eval_phase(card, dev) -> dict:
             def bare_vs_vlm(s):
                 s.clear_cache()
                 s.encode_init_prompt(tok(ChatTemplate.init_prompt))
-                for i in range(len(frames64)):
-                    s.encode_video(frames64[i:i + 1])
+                for i in range(len(frames_short)):
+                    s.encode_video(frames_short[i:i + 1])
                 res = []
                 for q, p in questions:
                     ids = s.question_answering(q, p, [0],
@@ -3739,7 +3753,7 @@ def eval_phase(card, dev) -> dict:
             torch.cuda.empty_cache()
 
             # one video alone in a newly built session
-            alone = [s for s in anno["mlvu"] if s["video_id"] == "v64"]
+            alone = [s for s in anno["mlvu"] if s["video_id"] == EVAL_SHORT]
             al_path = os.path.join(work, "alone.json")
             with open(al_path, "w") as f:
                 json.dump(alone, f)
@@ -3771,12 +3785,12 @@ def eval_phase(card, dev) -> dict:
     out["d_batched"] = batched_eval_part(card, dev)
 
     enc = [(n, s) for _, k, n, s in logs if k == "encode"]
-    v64 = [r for r in mlvu if r["video_id"] == "v64"]
-    mlvu_w2 = [r for r in mlvu if r["video_id"] != "v260"]
+    short = [r for r in mlvu if r["video_id"] == EVAL_SHORT]
+    mlvu_w2 = [r for r in mlvu if r["video_id"] in EVAL_WORLD2]
     gates = {
         "direct_qa_equal": all(d["row"] == d["direct"] for d in direct)
         and len(direct) == 3,
-        "alone_equal_after_others": alone_rows == v64 and bool(v64),
+        "alone_equal_after_others": alone_rows == short and bool(short),
         "world2_merge_equal": sorted(merged_rows, key=row_key) == sorted(
             mlvu_w2, key=row_key) and merged["n_rows"] == len(mlvu_w2)
         and bool(mlvu_w2),
@@ -4435,6 +4449,323 @@ def par_planted_faults(card, dev) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------
+# phase 17: the command-line entry points at llava-ov-7b width
+# --------------------------------------------------------------------------
+
+CLI_LAYERS = 4            # of llava-ov-7b's 28: the checkpoint's depth cut
+CLI_VIDEOS = {"c16": 16, "c40": 40}     # raw frames at 360 x 640
+QWEN2_SPECIAL_IDS = {"<|endoftext|>": 151643, "<|im_start|>": 151644,
+                     "<|im_end|>": 151645}
+CLI_CORPUS = [
+    "<|im_start|>system \nYou are a helpful assistant.<|im_end|>"
+    "<|im_start|>user ",
+    "\nWhat does the person pick up first?<|im_end|><|im_start|>assistant\n",
+    "Question: which tool is used\nOptions:\n(A) a knife\n(B) a saw\n"
+    "Only give the best option.<|im_end|><|im_start|>assistant\n"
+    "Best option: (",
+    "It's 12 o'clock, THEY'LL see x² and Ⅻ   twice\t\tthen\r\n stop  ",
+    "café 漢字 😀<|im_end|><|im_end|>",
+]
+CLI_DEMOS = {"stream_demo": ["--size", "0.5b", "--frames", "16",
+                              "--question_every", "8"],
+             "serve_demo": ["--size", "0.5b", "--ticks", "8", "--spec", "4",
+                            "--migrate"]}
+CLI_QUESTIONS = {
+    "c16": [("what does the person pick up first",
+             ["a cup", "a phone", "a book"], "a phone"),
+            ("which hand is used", ["left", "right"], "right")],
+    "c40": [("where does the walk end",
+             ["a door", "a car", "a bench", "a shop"], "a bench"),
+            ("what color is the bag", ["red", "blue", "green"], "green")],
+}
+
+
+def write_byte_level_tokenizer(path, corpus, n_merges=200) -> int:
+    """A Qwen2-style tokenizer.json and tokenizer_config.json in `path`,
+    written without the tokenizers library: GPT-2's 256 byte symbols at
+    ids 0-255, up to n_merges byte-level BPE merges counted from `corpus`
+    (the most frequent adjacent pair over its pre-tokenized words, the
+    lowest pair on a tie), then tokens `<t{id}>` that no merge makes up
+    to id 151642 (so that a random model's answers decode to text),
+    Qwen2's special tokens at 151643-151645, NFC and Qwen2's Split +
+    ByteLevel pre-tokenizer; eos_token <|im_end|>.  Returns the number of
+    merges."""
+    from stc_tpu_torch.runtime import tokenizer as tk
+    words = {}
+    for text in corpus:
+        for part in re.split("|".join(map(re.escape, QWEN2_SPECIAL_IDS)),
+                             text):
+            for w in tk._split_isolated(unicodedata.normalize("NFC", part),
+                                        tk._qwen2_match):
+                w = tuple(tk.BYTE_CHAR[b] for b in w.encode())
+                words[w] = words.get(w, 0) + 1
+    vocab = {tk.BYTE_CHAR[b]: b for b in range(256)}
+    merges = []
+    for _ in range(n_merges):
+        pairs = {}
+        for w, n in words.items():
+            for p in zip(w, w[1:]):
+                pairs[p] = pairs.get(p, 0) + n
+        if not pairs:
+            break
+        best = min(pairs, key=lambda p: (-pairs[p], p))
+        merges.append(" ".join(best))
+        vocab.setdefault(best[0] + best[1], len(vocab))
+        new = {}
+        for w, n in words.items():
+            out, i = [], 0
+            while i < len(w):
+                if w[i:i + 2] == best:
+                    out.append(best[0] + best[1])
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            new[tuple(out)] = new.get(tuple(out), 0) + n
+        words = new
+    for i in range(len(vocab), min(QWEN2_SPECIAL_IDS.values())):
+        vocab[f"<t{i}>"] = i
+    byte_level = {"type": "ByteLevel", "add_prefix_space": False,
+                  "trim_offsets": False, "use_regex": False}
+    spec = {
+        "version": "1.0", "truncation": None, "padding": None,
+        "added_tokens": [{"id": i, "content": t, "single_word": False,
+                          "lstrip": False, "rstrip": False,
+                          "normalized": False, "special": True}
+                         for t, i in QWEN2_SPECIAL_IDS.items()],
+        "normalizer": {"type": "NFC"},
+        "pre_tokenizer": {"type": "Sequence", "pretokenizers": [
+            {"type": "Split", "pattern": {"Regex": tk.QWEN2_PATTERN},
+             "behavior": "Isolated", "invert": False}, byte_level]},
+        "post_processor": byte_level, "decoder": byte_level,
+        "model": {"type": "BPE", "dropout": None, "unk_token": None,
+                  "continuing_subword_prefix": "", "end_of_word_suffix": "",
+                  "fuse_unk": False, "byte_fallback": False,
+                  "ignore_merges": False, "vocab": vocab, "merges": merges}}
+    with open(os.path.join(path, "tokenizer.json"), "w",
+              encoding="utf-8") as f:
+        json.dump(spec, f, ensure_ascii=False)
+    with open(os.path.join(path, "tokenizer_config.json"), "w") as f:
+        json.dump({"eos_token": "<|im_end|>",
+                   "clean_up_tokenization_spaces": False}, f)
+    return len(merges)
+
+
+def cli_annotation(paths) -> list:
+    return [{"video_id": name, "video_path": paths[name],
+             "duration": CLI_VIDEOS[name],
+             "conversations": [mc(q, c, a) for q, c, a in qs]}
+            for name, qs in CLI_QUESTIONS.items()]
+
+
+def cli_counters():
+    """A context that counts, at class level, the LM's video appends,
+    retrieval forwards and decode_step forwards (prompt prefills, tokens
+    and verify rounds), the tokenizer's seconds, and the sessions' QA
+    calls, into the dict it yields."""
+    from stc_tpu_torch.models import qwen2 as qw
+    from stc_tpu_torch.runtime.tokenizer import Tokenizer
+    box = {"appends": 0, "retrievals": 0, "decode_steps": 0,
+           "tokenizer_s": 0.0, "tokenizer_calls": 0}
+
+    def count(key, pred=lambda k: True):
+        def wrap(f):
+            def g(*a, **k):
+                if pred(k):
+                    box[key] += 1
+                return f(*a, **k)
+            return g
+        return wrap
+
+    def clock(f):
+        def g(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                box["tokenizer_s"] += time.perf_counter() - t0
+                box["tokenizer_calls"] += 1
+        return g
+
+    @contextlib.contextmanager
+    def ctx():
+        with patched([
+                (qw.Qwen2, "encode_step",
+                 count("appends", lambda k: not k.get("is_init", False))),
+                (qw.Qwen2, "qa_retrieve_step", count("retrievals")),
+                (qw.Qwen2, "decode_step", count("decode_steps")),
+                (Tokenizer, "encode", clock), (Tokenizer, "decode", clock)]):
+            yield box
+
+    return ctx()
+
+
+def cli_phase(card, dev) -> dict:
+    """Phase 17: the eval CLI, its tokenizer and the demos.  A llava-ov-7b
+    checkpoint (Qwen2 3584 wide, 28/4 heads of 128, vocab 152064; SigLIP
+    1152 x 27 at 384 px; depth cut to CLI_LAYERS layers) written as 2 bf16
+    shards with the script's own tokenizer.json, an MLVU annotation over
+    two .npy videos; then (1) `python -m stc_tpu_torch.cli.run_eval` as a
+    subprocess (the two demos at 0.5b width run beside it as subprocesses:
+    stream_demo over 16 frames, serve_demo for 8 ticks with --spec 4
+    --migrate), (2) its main() in-process with the launch counts from 0,
+    (3) run_eval over a session loaded here from the same directory, (4)
+    --stream_batch 2.  Gates: every subprocess exits 0, no error row, (1)
+    = (2) = (3), the tokenizer's decode of its encode = the NFC text over
+    CLI_CORPUS and the init prompt's length = the session's n_init,
+    launches = appends x layers and LM forwards x layers."""
+    from stc_tpu_torch.cli import run_eval as cli
+    from stc_tpu_torch.eval.runner import run_eval
+    from stc_tpu_torch.models import MODEL_REGISTRY
+    from stc_tpu_torch.runtime.adapter import ChatTemplate, SessionAdapter
+    from stc_tpu_torch.runtime.tokenizer import load_tokenizer
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root + (
+        os.pathsep + os.environ["PYTHONPATH"]
+        if os.environ.get("PYTHONPATH") else ""))
+    work = tempfile.mkdtemp(prefix="stc_cli_")
+    out = {"phase": "cli llava-ov-7b", "card": card,
+           "layers": CLI_LAYERS, "seconds_by_step": {}}
+    step = {"t": time.perf_counter()}
+
+    def lap(name):
+        now = time.perf_counter()
+        out["seconds_by_step"][name] = now - step["t"]
+        step["t"] = now
+
+    demos = []
+    try:
+        ckpt = os.path.join(work, "ckpt")
+        os.makedirs(ckpt)
+        model, cfg = make_model(dev, seed=17, text=dict(
+            QWEN2_7B, num_layers=CLI_LAYERS))
+        tie_head_and_round_vision(model)
+        out["checkpoint_bytes"] = write_hf_checkpoint(model, ckpt)
+        del model
+        torch.cuda.empty_cache()
+        out["tokenizer_merges"] = write_byte_level_tokenizer(ckpt,
+                                                             CLI_CORPUS)
+        paths = write_eval_videos(work, CLI_VIDEOS, EVAL_HW, seed=17)
+        anno = cli_annotation(paths)
+        a_path = os.path.join(work, "anno.json")
+        with open(a_path, "w") as f:
+            json.dump(anno, f)
+        lap("write")
+
+        def argv(save, *extra):
+            return ["--dataset", "mlvu", "--model_path", ckpt,
+                    "--anno_path", a_path, "--save_dir",
+                    os.path.join(work, save)] + list(extra)
+
+        def rows(save):
+            with open(os.path.join(work, save, "results_rank0.json")) as f:
+                return json.load(f)
+
+        # (1) the CLI as a subprocess, the demos beside it
+        for name, args in CLI_DEMOS.items():
+            cmd = [sys.executable, "-m", f"stc_tpu_torch.cli.{name}"] + args
+            demos.append((name, cmd, subprocess.Popen(
+                cmd, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        cmd = [sys.executable, "-m", "stc_tpu_torch.cli.run_eval"] + argv(
+            "sub")
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                             timeout=600)
+        out["subprocess_s"] = time.perf_counter() - t0
+        if res.returncode != 0:
+            raise RuntimeError(f"phase 17: {' '.join(cmd)} exited "
+                               f"{res.returncode}: {res.stderr[-3000:]}")
+        out["subprocess_printed"] = json.loads(
+            res.stdout.strip().splitlines()[-1])
+        out["demos"] = {}
+        for name, cmd, proc in demos:
+            text, _ = proc.communicate(timeout=600)
+            lines = text.strip().splitlines()
+            out["demos"][name] = {"returncode": proc.returncode,
+                                  "last_lines": lines[-3:]}
+            if proc.returncode != 0:
+                raise RuntimeError(f"phase 17: {' '.join(cmd)} exited "
+                                   f"{proc.returncode}: {text[-3000:]}")
+        demos = []
+        lap("subprocesses")
+
+        # (2) main() in-process, its launches counted from 0
+        with cli_counters() as box:
+            reset_counts()
+            t0 = time.perf_counter()
+            printed = cli.main(argv("main"))
+            wall = time.perf_counter() - t0
+            launches = read_counts()
+        L, n_q = CLI_LAYERS, sum(len(s["conversations"]) for s in anno)
+        forwards = box["retrievals"] + box["decode_steps"]
+        want = {"stream_attention": {"float": L * box["appends"], "int8": 0,
+                                     "int4": 0},
+                "decode_attention": L * forwards, "decode_score": 0,
+                "stream_attention_page_keep": 0}
+        out.update({"launches": launches, "expected": want,
+                    "appends": box["appends"], "lm_forwards": forwards,
+                    "main_s": wall, "seconds_per_sample": wall / len(anno),
+                    "tokenizer_ms_per_question":
+                    box["tokenizer_s"] * 1e3 / n_q,
+                    "tokenizer_calls": box["tokenizer_calls"],
+                    "score": printed["score"]})
+        lap("main")
+
+        # (3) run_eval over a session loaded here; the tokenizer's gates
+        tok = load_tokenizer(ckpt)
+        args = cli.parse_args(argv("direct"))
+        n_init = len(tok(ChatTemplate.init_prompt))
+        sess, _ = MODEL_REGISTRY["llava_ov_7b"](
+            ckpt, cli.session_config(args, n_init), device=dev,
+            dtype=torch.bfloat16 if dev.type == "cuda" else torch.float32)
+        ad = SessionAdapter(sess, tok)
+        direct, _ = run_eval("mlvu", ad, os.path.join(work, "direct"),
+                             anno_path=a_path, rank=0, world=1)
+        round_trip = [tok.decode(tok(t)) == unicodedata.normalize("NFC", t)
+                      for t in CLI_CORPUS]
+        out["n_init"] = {"init_prompt_ids": ad.init_prompt_len,
+                         "session": sess.rekv.n_init}
+        del sess
+        torch.cuda.empty_cache()
+        lap("direct")
+
+        # (4) --stream_batch 2
+        cli.main(argv("batch2", "--stream_batch", "2"))
+        batched = rows("batch2")
+        lap("stream_batch")
+        sub, main_rows = rows("sub"), rows("main")
+    finally:
+        for _, _, proc in demos:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    bad = [r for r in sub + main_rows + direct + batched if "error" in r]
+    out["rows"] = len(main_rows)
+    out["batched_equal_rows"] = sum(a == b for a, b in zip(batched,
+                                                            main_rows))
+    out["answers"] = [r["pred_answer"] for r in main_rows]
+    gates = {
+        "no_error_row": not bad and len(main_rows) == n_q,
+        "subprocess_rows_equal_main": sub == main_rows,
+        "direct_rows_equal_main": direct == main_rows,
+        "batched_rows": len(batched) == n_q,
+        "decode_of_encode_is_nfc_text": all(round_trip),
+        "init_prompt_is_n_init": len(set(out["n_init"].values())) == 1,
+        "launches": launches == want and box["appends"] > 0
+        and forwards > 0,
+    }
+    out["gates"] = gates
+    out["seconds"] = time.perf_counter() - t_phase
+    if not all(gates.values()):
+        raise RuntimeError(f"phase 17 gates failed {gates}: launches "
+                           f"{launches} expected {want}; errors {bad[:3]}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -4919,6 +5250,11 @@ def main() -> int:
                    "wall_s": [r["wall_s"] for r in lay["per_rank"]]}
              for key, lay in p16["layouts"].items()}})
 
+    # ---- phase 17: the command-line entry points at llava-ov-7b width ----
+    p17 = cli_phase(card, dev)
+    RECORD["phases"]["cli"] = p17
+    emit(p17)
+
     # ---- the kernels line, then the device line ----
     def bound_by(c):
         """bound_by as one word; terms that tie are listed beside it."""
@@ -4981,7 +5317,9 @@ def main() -> int:
                           for k, r in p14.items() if k != "seconds"},
                        **{f"phase 15 ({k})": c["stream_attention"]["float"]
                           for k, c in p15["launches"].items()},
-                       **par_launches(p16, "stream_attention")}),
+                       **par_launches(p16, "stream_attention"),
+                       "phase 17 (cli main)": p17["launches"][
+                           "stream_attention"]["float"]}),
         entry("stream_attention_int8", sa_src, sa_tpu,
               "stream int8 7B heads (28/4/128), 264 pages",
               p6["launches"]["stream_attention"]["int8"], "phase 6",
@@ -5015,7 +5353,9 @@ def main() -> int:
                           for k, r in p14.items() if k != "seconds"},
                        **{f"phase 15 ({k})": c["decode_attention"]
                           for k, c in p15["launches"].items()},
-                       **par_launches(p16, "decode_attention")}),
+                       **par_launches(p16, "decode_attention"),
+                       "phase 17 (cli main)": p17["launches"][
+                           "decode_attention"]}),
         entry("decode_score", "stc_tpu_torch/csrc/decode_score.cu",
               "stc_tpu/ops/decode_attention.py:244",
               "decode_score prefill T=256 at slot 3854", 0,

@@ -44,8 +44,13 @@ def run_eval(
     frame_loader: Optional[Callable] = None,
     max_samples: Optional[int] = None,
     stream_batch: int = 1,
+    tags: Optional[dict] = None,
 ):
     """Run one dataset shard; returns (rows, rank_file).
+
+    tags: fields added to every row (cli/run_eval passes its
+    retrieve_size and chunk_size); None reads them from the STC_TOPK and
+    STC_CHUNK_SIZE environment variables.
 
     stream_batch > 1: CONCURRENT eval — groups of stream_batch samples
     share one batched session (ragged multi-stream ingest + per-stream
@@ -90,11 +95,12 @@ def run_eval(
 
     # tag rows with the sweep knobs so report generators can pivot over
     # retrieve_size x chunk_size (reference eval_videomme heatmaps)
-    tags = {}
-    if os.environ.get("STC_TOPK"):
-        tags["retrieve_size"] = int(os.environ["STC_TOPK"])
-    if os.environ.get("STC_CHUNK_SIZE"):
-        tags["chunk_size"] = int(os.environ["STC_CHUNK_SIZE"])
+    if tags is None:
+        tags = {}
+        if os.environ.get("STC_TOPK"):
+            tags["retrieve_size"] = int(os.environ["STC_TOPK"])
+        if os.environ.get("STC_CHUNK_SIZE"):
+            tags["chunk_size"] = int(os.environ["STC_CHUNK_SIZE"])
 
     for group in groups:
         n0 = len(solver.results)

@@ -299,11 +299,12 @@ def build_session(model: LlavaOV, scfg: SessionConfig,
 @register_model("llava_ov_7b")
 def load_llava_ov_7b(model_path: str, scfg: SessionConfig = None,
                      dtype=torch.bfloat16, vision_dtype=torch.float32,
-                     device="cuda"):
-    """A session over an HF LLaVA-OneVision checkpoint directory
-    (config.json + *.safetensors or *.bin shards), converted tensor by
-    tensor onto `device`: the LM in `dtype`, the tower and projector in
-    `vision_dtype`, the session state in `dtype`.  Returns (session, cfg)."""
+                     device="cuda", batch: int = 1):
+    """A session of `batch` streams over an HF LLaVA-OneVision checkpoint
+    directory (config.json + *.safetensors or *.bin shards), converted
+    tensor by tensor onto `device`: the LM in `dtype`, the tower and
+    projector in `vision_dtype`, the session state in `dtype`.  Returns
+    (session, cfg)."""
     from stc_tpu_torch.models.convert import (convert_projector,
                                               convert_qwen2, convert_siglip,
                                               find_prefix, load_hf_state,
@@ -335,4 +336,4 @@ def load_llava_ov_7b(model_path: str, scfg: SessionConfig = None,
     convert_qwen2(state, model.text, prefix=lpfx)
     del state
     return build_session(model, scfg or SessionConfig(), state_dtype=dtype,
-                         device=device), cfg
+                         device=device, batch=batch), cfg

@@ -49,9 +49,10 @@ NEW_LAYOUT = (("language_model.model.", "model.language_model."),
               ("multi_modal_projector.", "model.multi_modal_projector."))
 
 
-def _hf_dir(root, tie, layout):
+def _hf_dir(root, tie, layout, vocab=256):
     """A tiny LlavaOnevisionForConditionalGeneration saved by transformers
-    (several shards), its keys renamed to `layout`."""
+    (several shards), its keys renamed to `layout`, with a `vocab`-word
+    LM."""
     from transformers import (LlavaOnevisionConfig,
                               LlavaOnevisionForConditionalGeneration,
                               Qwen2Config, SiglipVisionConfig)
@@ -59,13 +60,13 @@ def _hf_dir(root, tie, layout):
     vis = SiglipVisionConfig(hidden_size=32, intermediate_size=64,
                              num_hidden_layers=2, num_attention_heads=4,
                              image_size=56, patch_size=14)
-    txt = Qwen2Config(vocab_size=256, hidden_size=64, intermediate_size=128,
+    txt = Qwen2Config(vocab_size=vocab, hidden_size=64, intermediate_size=128,
                       num_hidden_layers=2, num_attention_heads=4,
                       num_key_value_heads=2, rope_theta=10000.0,
                       tie_word_embeddings=tie)
     model = LlavaOnevisionForConditionalGeneration(LlavaOnevisionConfig(
-        vision_config=vis, text_config=txt, image_token_index=255,
-        video_token_index=254)).eval()
+        vision_config=vis, text_config=txt, image_token_index=vocab - 1,
+        video_token_index=vocab - 2)).eval()
     path = root / f"hf_tie{int(tie)}_{layout}"
     model.save_pretrained(path, safe_serialization=True,
                           max_shard_size="100KB")

@@ -1,7 +1,8 @@
 """The port stands alone: stc_tpu_torch (and chip_smoke.py) import neither
 JAX nor any module of the JAX package stc_tpu, nor safetensors,
-transformers or ml_dtypes (the card machine has none of them); its own
-serving engine and checkpoints included."""
+transformers, tokenizers, regex or ml_dtypes (the card machine has none of
+them); its own serving engine, checkpoints, tokenizer reader and
+command-line entry points included."""
 
 import pathlib
 import re
@@ -13,26 +14,30 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "stc_tpu_torch"
 # word match: `stc_tpu` must not be followed by a word character, so the
 # port's own `stc_tpu_torch` passes
-NAMES = r"(?:jax|stc_tpu|safetensors|transformers|ml_dtypes)"
+NAMES = r"(?:jax|stc_tpu|safetensors|transformers|tokenizers|regex|ml_dtypes)"
 FORBIDDEN = re.compile(
     r"^\s*(?:import\s+[\w., ]*\b" + NAMES + r"\b(?!\w)"
     r"|from\s+" + NAMES + r"\b(?![\w]))", re.M)
-BLOCKED = ("jax", "stc_tpu", "safetensors", "transformers", "ml_dtypes")
+BLOCKED = ("jax", "stc_tpu", "safetensors", "transformers", "tokenizers",
+           "regex", "ml_dtypes")
 PARALLEL = tuple(("parallel", f"{m}.py") for m in (
     "__init__", "mesh", "sharding", "pipeline", "dryrun"))
 EVAL = tuple(("eval", f"{m}.py") for m in (
     "__init__", "datasets", "scorers", "reports", "solvers",
     "streamingbench", "ovobench", "runner"))
+CLI = tuple(("cli", f"{m}.py") for m in (
+    "__init__", "run_eval", "sweep_videomme", "stream_demo", "serve_demo"))
 
 
 def test_sources_import_no_jax_and_no_stc_tpu():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 15
-    for f in (("kvcache", "host_tier.py"), ("runtime", "serving.py"),
+    for f in ((("kvcache", "host_tier.py"), ("runtime", "serving.py"),
               ("utils", "checkpoint.py"), ("models", "clip.py"),
               ("models", "longva.py"), ("models", "video_llava.py"),
               ("models", "flash_vstream.py"), ("utils", "metrics.py"),
-              ("runtime", "adapter.py")) + EVAL + PARALLEL:
+              ("runtime", "adapter.py"), ("runtime", "tokenizer.py"))
+              + EVAL + PARALLEL + CLI):
         assert PKG.joinpath(*f) in files, f
     bad = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}"
            for f in files for m in FORBIDDEN.finditer(f.read_text())]
@@ -42,6 +47,9 @@ def test_sources_import_no_jax_and_no_stc_tpu():
     assert FORBIDDEN.search("from safetensors.torch import load_file")
     assert FORBIDDEN.search("    import transformers")
     assert FORBIDDEN.search("import numpy, ml_dtypes")
+    assert FORBIDDEN.search("from tokenizers import Tokenizer")
+    assert FORBIDDEN.search("import regex as re")
+    assert not FORBIDDEN.search("import re")
     assert not FORBIDDEN.search("from stc_tpu_torch.ops import rope")
 
 
@@ -274,3 +282,54 @@ def test_importing_and_running_the_port_loads_no_jax():
     assert res.returncode == 0, res.stderr[-3000:]
     n_mods = int(res.stdout.split()[-1])
     assert n_mods >= 15, res.stdout
+
+
+def test_the_cli_and_the_tokenizer_load_no_jax(tmp_path):
+    """A fresh interpreter reads a Qwen2-style tokenizer.json with the
+    port's reader, runs `python -m stc_tpu_torch.cli.run_eval`'s main on
+    the CPU over a tiny checkpoint (chip_smoke.py's writer) and an .npy
+    video, then the stream demo; none of jax, stc_tpu, transformers,
+    tokenizers or regex is loaded.  The tokenizer file is written here,
+    by the tokenizers library, outside that interpreter."""
+    from test_torch_tokenizer import write_qwen2_dir
+    write_qwen2_dir(tmp_path / "ckpt")
+    code = f"BLOCKED = {BLOCKED!r}\nD = {str(tmp_path)!r}\n" + \
+        textwrap.dedent("""
+        import json, sys
+        import numpy as np, torch
+        sys.path.insert(0, ".")
+        import chip_smoke
+        from stc_tpu_torch.cli import run_eval, stream_demo
+        from stc_tpu_torch.models import llava_onevision as lo
+        from stc_tpu_torch.models import qwen2 as qw
+        from stc_tpu_torch.models import siglip as sg
+        from stc_tpu_torch.runtime.tokenizer import load_tokenizer
+        tok = load_tokenizer(D + "/ckpt")
+        text = "<|im_start|>system \\nYou are a helpful assistant."
+        assert tok.decode(tok(text)) == text
+        cfg = lo.LlavaOVConfig(vision=sg.SiglipConfig.tiny(),
+                               text=qw.Qwen2Config.tiny(vocab=320))
+        model = lo.LlavaOV(cfg, dtype=torch.float32, device="cpu")
+        model.init_random_params(torch.Generator().manual_seed(0))
+        chip_smoke.write_hf_checkpoint(model, D + "/ckpt")
+        np.save(D + "/v.npy", np.zeros((6, 56, 56, 3), np.uint8))
+        with open(D + "/a.json", "w") as f:
+            json.dump([{"video_id": "v", "video_path": D + "/v.npy",
+                        "conversations": [{"question": "q", "choices":
+                                           ["a", "b"], "answer": "b"}]}], f)
+        out = run_eval.main(["--dataset", "mlvu", "--model_path",
+                             D + "/ckpt", "--anno_path", D + "/a.json",
+                             "--save_dir", D + "/out", "--token_per_frame",
+                             "3", "--n_local", "128", "--retrieve_size", "4",
+                             "--device", "cpu"])
+        assert out["n_rows"] == 1, out
+        stream_demo.main(["--frames", "4", "--question_every", "4",
+                          "--device", "cpu"])
+        leaked = [m for m in sys.modules if m.split(".")[0] in BLOCKED]
+        assert not leaked, leaked
+        print("OK")
+    """)
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.split()[-1] == "OK"

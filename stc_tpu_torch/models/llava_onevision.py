@@ -38,6 +38,7 @@ from stc_tpu_torch.models import register_model
 from stc_tpu_torch.models import siglip as sg
 from stc_tpu_torch.parallel import sharding
 from stc_tpu_torch.runtime.vlm import PixelPipeline, Preprocessor, VLMSession
+from stc_tpu_torch.utils import metrics
 
 # SigLIP image preprocessing constants (HF SiglipImageProcessor defaults)
 IMAGE_MEAN = np.array([0.5, 0.5, 0.5], np.float32)
@@ -188,10 +189,11 @@ class LlavaOVVision(PixelPipeline):
             feats = sp.all_gather(feats, dim=1, site="sp.pooled")
         if not self.scfg.pruner.enabled:
             return feats.reshape(B, -1, E), None, pstate
-        pruned, idx, pstate = stc_prune(
-            feats, pstate,
-            keep_per_frame=self.scfg.pruner.token_per_frame,
-            channel_keep_ratio=self.scfg.pruner.channel_keep_ratio)
+        with metrics.span("pruner"):
+            pruned, idx, pstate = stc_prune(
+                feats, pstate,
+                keep_per_frame=self.scfg.pruner.token_per_frame,
+                channel_keep_ratio=self.scfg.pruner.channel_keep_ratio)
         return pruned.reshape(B, -1, E), idx, pstate
 
     def encode(self, pixels, vstate, pstate, cached: bool):

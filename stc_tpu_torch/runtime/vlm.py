@@ -20,7 +20,9 @@ through) and the device rebuilds RGB before normalising.  ``stage_chunk``
 stages one chunk on the device ahead of time; ``encode_video`` takes such
 a staged tensor as one chunk (runtime/pipeline.py's ``stream_encode``).
 ``estimate_chunk_flops`` counts one chunk's FLOPs at the current state
-and leaves the state as it was.
+and leaves the state as it was.  A chunk records the spans ``chunk``,
+``vision.full`` / ``vision.cached`` and ``append`` while
+``utils.metrics.tracing`` is on (LLaVA-OV's pipeline adds ``pruner``).
 """
 
 from __future__ import annotations
@@ -291,40 +293,50 @@ class VLMSession(StreamingSession):
                              max_new_tokens, asked)
 
     def _encode_chunk_pixels(self, pixels, n_frames: int, active=None):
-        act_dev, act_np = self._normalize_active(active)
-        self._maybe_evict(n_frames)
-        c = self.scfg.cacher
-        cached = c.enabled & (self._slot_chunk % c.cache_interval != 0)
-        ticking = cached if act_np is None else cached[act_np]
-        vis, vstate, pstate = self.vision, self._vstate, self._pstate
-        px = vis.device_preprocess(
-            torch.as_tensor(pixels).to(self.device, non_blocking=True))
-        if ticking.any() and not ticking.all():
-            # the ticking slots disagree: both paths, each slot its own
-            flat_f, v_f, p_f = vis.full(px, vstate, pstate)
-            flat_c, v_c, p_c = vis.cached(px, vstate, pstate)
-            need_full = torch.as_tensor(~self._mine(cached),
-                                        device=self.device)
-            flat = torch.where(need_full[:, None, None], flat_f, flat_c)
-            new_v, new_p = vis.select_streams(v_f, p_f, v_c, p_c, need_full)
-        else:
-            path = vis.cached if ticking.size and ticking.all() else vis.full
-            flat, new_v, new_p = path(px, vstate, pstate)
-        if act_dev is not None:
-            new_v, new_p = vis.select_streams(new_v, new_p, vstate, pstate,
-                                              act_dev)
-        self._vstate, self._pstate = new_v, new_p
-        self._append_flat(flat, act_dev)
-        self._track_blocks(n_frames, act_np)
-        self._slot_chunk += 1 if act_np is None else act_np.astype(np.int64)
-        self.chunk_idx += 1
+        with metrics.span("chunk", self.chunk_idx):
+            act_dev, act_np = self._normalize_active(active)
+            self._maybe_evict(n_frames)
+            c = self.scfg.cacher
+            cached = c.enabled & (self._slot_chunk % c.cache_interval != 0)
+            ticking = cached if act_np is None else cached[act_np]
+            vis, vstate, pstate = self.vision, self._vstate, self._pstate
+            px = vis.device_preprocess(
+                torch.as_tensor(pixels).to(self.device, non_blocking=True))
+            if ticking.any() and not ticking.all():
+                # the ticking slots disagree: both paths, each slot its own
+                with metrics.span("vision.full"):
+                    flat_f, v_f, p_f = vis.full(px, vstate, pstate)
+                with metrics.span("vision.cached"):
+                    flat_c, v_c, p_c = vis.cached(px, vstate, pstate)
+                need_full = torch.as_tensor(~self._mine(cached),
+                                            device=self.device)
+                flat = torch.where(need_full[:, None, None], flat_f,
+                                   flat_c)
+                new_v, new_p = vis.select_streams(v_f, p_f, v_c, p_c,
+                                                  need_full)
+            else:
+                on_cache = bool(ticking.size and ticking.all())
+                path = vis.cached if on_cache else vis.full
+                with metrics.span("vision.cached" if on_cache
+                                  else "vision.full"):
+                    flat, new_v, new_p = path(px, vstate, pstate)
+            if act_dev is not None:
+                new_v, new_p = vis.select_streams(new_v, new_p, vstate,
+                                                  pstate, act_dev)
+            self._vstate, self._pstate = new_v, new_p
+            self._append_flat(flat, act_dev)
+            self._track_blocks(n_frames, act_np)
+            self._slot_chunk += 1 if act_np is None else \
+                act_np.astype(np.int64)
+            self.chunk_idx += 1
 
     def _append_flat(self, flat, active=None):
         """Pruned features (B, n * block_size, E) into the LM, one append
         a exc_block_size tokens (parallel.pipeline.pp_encode_step: under
         pp each is relayed over the stages)."""
-        pipeline.pp_encode_step(self.lm, self.rekv, self.kvs,
-                                flat.to(self.lm.dtype), active)
+        with metrics.span("append", self.chunk_idx):
+            pipeline.pp_encode_step(self.lm, self.rekv, self.kvs,
+                                    flat.to(self.lm.dtype), active)
 
     @torch.no_grad()
     def estimate_chunk_flops(self, cached: bool = False) -> int:

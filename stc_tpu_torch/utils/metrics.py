@@ -1,7 +1,9 @@
 """Performance instrumentation for streaming sessions.
 
 Per-frame latency percentiles, throughput and KV memory (``Timer``,
-``StreamingStats``), and the FLOPs of one call (``estimate_flops``).
+``StreamingStats``), the FLOPs of one call (``estimate_flops``), and spans
+of the ingest path on the host clock (``tracing``, ``span``,
+``take_spans``).
 
 ``Timer`` reads the host clock; on a CUDA device the caller passes a
 ``sync`` (``device_sync`` gives ``torch.cuda.synchronize`` for one), since
@@ -14,18 +16,38 @@ of its plain version (a formula of the call's shapes, next to the wrapper)
 to every count open while it launches (``add_kernel_flops``).  On a CPU
 tensor the counter sees the plain version itself and the wrapper adds
 nothing, so both devices count the same.
+
+The span recorder is off until ``tracing(True)``; off, ``span`` returns
+one shared object that does nothing, after one check of a module flag.
+On, a span reads ``time.perf_counter_ns`` when it opens and when it
+closes and keeps ``(name, start_ns, end_ns, parent, chunk)`` in a list in
+memory: ``parent`` is the index of the span open around it (-1 for none),
+``chunk`` the session's ``chunk_idx`` when the outermost span of a chunk
+opened, shared by every span inside it.  No span makes a CUDA call (no
+event, no synchronize), so it leaves the launches it is used to attribute
+as they were; a reader lines the spans up with a device trace on its own
+clock.  ``take_spans`` hands the spans over and starts a new list.  The
+recorder serves one thread.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
 # the kernel products of the estimate_flops calls in progress, innermost
 # last (one entry each)
 _open_counts: List[List[int]] = []
+
+# the span recorder: whether it is on, the spans recorded
+# ([name, start_ns, end_ns, parent, chunk], end_ns 0 while open) and the
+# indices of those open, innermost last
+_tracing = False
+_spans: List[list] = []
+_open_spans: List[int] = []
 
 
 def device_sync(device) -> Optional[Callable[[], None]]:
@@ -119,3 +141,58 @@ def estimate_flops(fn, *args, **kwargs) -> int:
     finally:
         _open_counts.pop()
     return int(mode.get_total_flops()) + count[0]
+
+
+# what span returns while tracing is off: one shared, reusable no-op
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Span:
+    __slots__ = ("name", "chunk", "index")
+
+    def __init__(self, name: str, chunk: Optional[int]):
+        self.name, self.chunk = name, chunk
+
+    def __enter__(self):
+        parent = _open_spans[-1] if _open_spans else -1
+        chunk = self.chunk
+        if chunk is None:
+            chunk = _spans[parent][4] if parent >= 0 else -1
+        self.index = len(_spans)
+        _open_spans.append(self.index)
+        _spans.append([self.name, time.perf_counter_ns(), 0, parent,
+                       int(chunk)])
+        return self
+
+    def __exit__(self, *exc):
+        _spans[self.index][2] = time.perf_counter_ns()
+        _open_spans.pop()
+        return False
+
+
+def tracing(on: bool) -> None:
+    """Turn the span recorder on or off; spans already recorded stay until
+    take_spans."""
+    global _tracing
+    _tracing = bool(on)
+
+
+def span(name: str, chunk: Optional[int] = None):
+    """A context manager that records one span while tracing is on.  chunk:
+    the session's chunk_idx; None takes the enclosing span's (-1 outside
+    any span)."""
+    if not _tracing:
+        return _NO_SPAN
+    return _Span(name, chunk)
+
+
+def take_spans() -> List[Tuple[str, int, int, int, int]]:
+    """The spans recorded since the last call, in the order they opened, as
+    (name, start_ns, end_ns, parent, chunk); the recorder starts a new
+    list.  Raises while a span is open (its parent indices would point
+    into the list handed over)."""
+    if _open_spans:
+        raise RuntimeError(f"{len(_open_spans)} span(s) still open")
+    out = [tuple(s) for s in _spans]
+    _spans.clear()
+    return out

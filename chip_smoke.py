@@ -48,12 +48,16 @@ each of which makes the script exit non-zero when it fails:
      layers in bf16, random weights from a seeded torch.Generator): init
      prompt, 16 one-frame chunks, two 8-frame chunks, two questions, four
      more frames, one more question; its kernel launch counts against the
-     appends and LM forwards it ran;
+     appends and LM forwards it ran, and its appends' CUDA graph
+     (runtime/append_graph.py) warmed up, captured and replayed as each
+     run of one chunk shape should;
   4. a second session (n_local 1200) that crosses the init-fill trigger,
      with its own launch counts;
-  5. where the time goes: device time per part of a chunk and a question,
-     and the device's busy share of each, measured by issuing the same
-     call behind a sleep kernel;
+  5. where the time goes: device time per part of a chunk (the append
+     timed whole, a graph replay, and again on chunks whose appends run
+     eager, stream_attention timed inside) and a question, and the
+     device's busy share of each, measured by issuing the same call
+     behind a sleep kernel (an LM append layer on an eager append);
   6. the session at llava-ov-7b width (Qwen2 3584 x 28 layers, 28/4 heads
      of 128, the same SigLIP) on an int8 page store: 40 eight-frame chunks,
      past the full 264-page window (the last 8 chunks stream at it) and the
@@ -1375,14 +1379,13 @@ def stream_phase(model, cfg, scfg, name, n_chunks, questions, card, dev,
         (sess.vision, "full", "vision_full"),
         (sess.vision, "cached", "vision_cached"),
         (sg, "_attn_full", "siglip_attention_full_path"),
-        (sg, "_f32_mm", "siglip_f32_attention_products"),
-        (sess.lm, "encode_step", "lm_append"),
-        (sa, "_launch", "stream_attention_kernel")]
-    split = [segments(lambda: sess.encode_video(rng.integers(
-        0, 256, size=(8, 384, 384, 3), dtype=np.uint8)), targets)
-        for _ in range(2)]
-    for sp in split:
+        (sg, "_f32_mm", "siglip_f32_attention_products")]
+    split, split_eager = chunk_splits(sess, lambda: sess.encode_video(
+        rng.integers(0, 256, size=(8, 384, 384, 3), dtype=np.uint8)),
+        targets, 2)
+    for sp in split + split_eager:
         sp["path"] = "cached" if "vision_cached_ms" in sp else "full"
+    for sp in split_eager:
         sp["stream_attention_share"] = (sp["stream_attention_kernel_ms"]
                                         / sp["span_ms"])
     store = sum(x.numel() * x.element_size() for x in (
@@ -1414,7 +1417,9 @@ def stream_phase(model, cfg, scfg, name, n_chunks, questions, card, dev,
            "init_active_on_state": int(rc.scalars[0, 3]),
            "decode_attention_vs_plain_on_decode_cache": decode_check,
            "decode_score_vs_plain_on_decode_cache": score_check,
-           "time_split_full_window_chunk": split, **extra}
+           "time_split_full_window_chunk": split,
+           "time_split_full_window_chunk_appends_eager": split_eager,
+           **extra}
     del sess, captured, args, kw, dargs, got, sargs
     torch.cuda.empty_cache()
     rec["seconds"] = time.perf_counter() - t_phase
@@ -1691,14 +1696,14 @@ def host_tier_phase(card, dev) -> dict:
             return g
 
         def rec(f):
-            def g(rekv, kvs, embeds, **kw):
-                if record is not None and not kw.get("is_init"):
-                    record.append(embeds.clone())
-                return f(rekv, kvs, embeds, **kw)
+            def g(flat, active=None):
+                if record is not None:
+                    record.append(flat.to(sess.lm.dtype).clone())
+                return f(flat, active)
             return g
 
         with patched([(sess, "_evict", evict_timed),
-                      (sess.lm, "encode_step", rec)]):
+                      (sess, "_append_flat", rec)]):
             for i in range(n_chunks):
                 x = frames(i) if feats is None else feats[i]
                 fn = sess.encode_video if feats is None else \
@@ -2495,6 +2500,7 @@ def serving_phase(card, dev) -> dict:
         before = spec_counters(lm)
         reset_counts()
         with patched([(lm, c, counting(c)) for c in calls]
+                     + [replays_into(calls, "encode_step")]
                      + [(sess, f, recording(last)) for f in (
                          "serve", "question_answering_batch")]):
             for t, (feed, asks) in enumerate(traffic):
@@ -2856,6 +2862,65 @@ def segments(fn, targets) -> dict:
     return out
 
 
+# On a card a pixel session's streaming append replays one CUDA graph
+# (runtime/append_graph.py): a replay calls nothing inside the LM, so a
+# patch there sees no call.  The appends are timed whole at the session's
+# _append_flat; what happens inside them is timed on appends run eager.
+
+@contextlib.contextmanager
+def eager_appends(sess):
+    """While the block runs, the session's appends run eager, as
+    pipeline.pp_encode_step (what the graph replays), on the same state:
+    patches inside the LM see every call."""
+    from stc_tpu_torch.parallel import pipeline
+
+    def eager(f):
+        def g(flat, active=None):
+            pipeline.pp_encode_step(sess.lm, sess.rekv, sess.kvs,
+                                    flat.to(sess.lm.dtype), active)
+        return g
+
+    with patched([(sess, "_append_flat", eager)]):
+        yield
+
+
+def replays_into(box, key):
+    """A patched() entry that adds to box[key] the encode_step calls each
+    replay of an append graph stands for (one a exc_block_size
+    microbatch): a count of encode_step calls (is_init False) plus these
+    counts every streaming append."""
+    from stc_tpu_torch.runtime.append_graph import AppendGraph
+    from stc_tpu_torch.utils import metrics
+
+    def wrap(f):
+        def g(self, lm, rekv, kvs, x, active=None):
+            n = metrics.append_counts()["replays"]
+            out = f(self, lm, rekv, kvs, x, active)
+            if metrics.append_counts()["replays"] > n:
+                box[key] += -(-x.shape[1] // rekv.exc_block_size)
+            return out
+        return g
+
+    return (AppendGraph, "append", wrap)
+
+
+def chunk_splits(sess, chunk, targets, n) -> tuple:
+    """segments() of n chunks on the main path, the append timed whole at
+    sess._append_flat ("lm_append"), then of n chunks with the appends
+    eager, the LM's encode_step ("lm_append") and stream_attention's
+    launches ("stream_attention_kernel") timed inside.  A session's chunk
+    count alternates the vision paths, so for an even n both lists take
+    them in the same order."""
+    from stc_tpu_torch.ops import stream_attention as sa
+    main = [segments(chunk, targets + [(sess, "_append_flat", "lm_append")])
+            for _ in range(n)]
+    with eager_appends(sess):
+        eager = [segments(chunk, targets + [
+            (sess.lm, "encode_step", "lm_append"),
+            (sa, "_launch", "stream_attention_kernel")]) for _ in range(n)]
+    return main, eager
+
+
 def probe(fn, starts, end, nth=1, sleep=False) -> dict:
     """Run fn once and time one stretch of it: from the nth call of any
     (obj, attr) in starts to the return of end's nth call.  The span
@@ -3085,12 +3150,11 @@ def clip_backbone_run(case, mod_name, n_frames, chunk, stop, card,
                (cl.ClipLayer, "mlp", "clip_mlp"),
                (cl, "residual_similarity", "cacher_similarity"),
                (cl, "recompute_rows", "cacher_selection"),
-               (sess.model.projector, "forward", "projector"),
-               (sess.lm, "encode_step", "lm_append"),
-               (sa, "_launch", "stream_attention_kernel")]
-    split = [segments(lambda: sess.encode_video(frames[:chunk]), targets)
-             for _ in range(2 if scfg.cacher.enabled else 1)]
-    for sp in split:
+               (sess.model.projector, "forward", "projector")]
+    split, split_eager = chunk_splits(
+        sess, lambda: sess.encode_video(frames[:chunk]), targets,
+        2 if scfg.cacher.enabled else 1)
+    for sp in split + split_eager:
         sp["path"] = "cached" if "vision_cached_ms" in sp else "full"
 
     def fps(kind):
@@ -3126,7 +3190,7 @@ def clip_backbone_run(case, mod_name, n_frames, chunk, stop, card,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
            "kernel_vs_plain_on_session_state": stream_check,
            "decode_attention_vs_plain_on_decode_cache": decode_check,
-           "time_split": split}
+           "time_split": split, "time_split_appends_eager": split_eager}
     del sess, model, captured, args, dargs, kv, dkv
     torch.cuda.empty_cache()
     rec["seconds"] = time.perf_counter() - t_phase
@@ -3295,8 +3359,8 @@ def make_timed_adapter(session, tok):
 
 
 def count_appends(sess):
-    """Patch sess.lm.encode_step to count video appends (is_init False)
-    into the returned dict's "n"."""
+    """Patch sess.lm.encode_step and the append graphs' replays to count
+    video appends (is_init False) into the returned dict's "n"."""
     box = {"n": 0}
 
     def wrap(f):
@@ -3306,7 +3370,8 @@ def count_appends(sess):
             return f(*a, **k)
         return g
 
-    return box, patched([(sess.lm, "encode_step", wrap)])
+    return box, patched([(sess.lm, "encode_step", wrap),
+                         replays_into(box, "n")])
 
 
 def row_key(r):
@@ -3450,9 +3515,10 @@ def chunk_flops(sess, n_chunks) -> list:
     """For the session's next n_chunks chunks (each on the path its chunk
     count gives): estimate_chunk_flops of that chunk, the vision part's
     FLOPs (tower, projector, pooling, pruner) apart, then the chunk run
-    and its device time split (CUDA events), and TFLOP/s achieved."""
+    and its device time split (CUDA events; the LM append timed whole, on
+    a card a graph replay), and TFLOP/s achieved."""
     from stc_tpu_torch.utils.metrics import estimate_flops
-    vis, lm = sess.vision, sess.lm
+    vis = sess.vision
     n = sess.scfg.encode_chunk_frames
     hw = vis.cfg.vision.image_size
     frames = np.random.default_rng(15).integers(
@@ -3468,7 +3534,7 @@ def chunk_flops(sess, n_chunks) -> list:
                                              sess._pstate))
         split = segments(lambda: sess.encode_video(frames[i * n:(i + 1) * n]),
                          [(vis, "full", "vision"), (vis, "cached", "vision"),
-                          (lm, "encode_step", "lm_append")])
+                          (sess, "_append_flat", "lm_append")])
         ms = split["span_ms"]
         out.append({
             "frames": n, "path": "cached" if cached else "full",
@@ -4593,6 +4659,7 @@ def cli_counters():
         with patched([
                 (qw.Qwen2, "encode_step",
                  count("appends", lambda k: not k.get("is_init", False))),
+                replays_into(box, "appends"),
                 (qw.Qwen2, "qa_retrieve_step", count("retrievals")),
                 (qw.Qwen2, "decode_step", count("decode_steps")),
                 (Tokenizer, "encode", clock), (Tokenizer, "decode", clock)]):
@@ -4776,6 +4843,7 @@ def main() -> int:
     from stc_tpu_torch.models import llava_onevision as lo
     from stc_tpu_torch.ops import decode_attention as da
     from stc_tpu_torch.ops import stream_attention as sa
+    from stc_tpu_torch.utils import metrics
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4932,6 +5000,7 @@ def main() -> int:
     n_append = 0
     lm_forwards = 0
     reset_counts()
+    metrics.reset_append_counts()
     sess.encode_init_prompt(list(range(100, 114)))
     chunk_s = []
     for i in range(16):
@@ -4967,6 +5036,13 @@ def main() -> int:
     if launches != want:
         raise RuntimeError(f"main path launch counts {launches} != "
                            f"expected {want}")
+    # the append graph: each run of one chunk shape (16 one-frame, 2
+    # eight-frame, 4 one-frame) warms up, captures, then replays
+    graph = metrics.append_counts()
+    graph_want = {"replays": 16, "captures": 3, "eager": {"warmup": 3}}
+    if graph != graph_want:
+        raise RuntimeError(f"main path append graph {graph} != expected "
+                           f"{graph_want}")
     nb = int(sess.kvs.num_blocks[0, 0].item())
     if nb != 36 or sess._total_blocks != 36:
         raise RuntimeError(f"num_blocks {nb} != 36 frames sent")
@@ -4979,7 +5055,7 @@ def main() -> int:
     p3 = {"phase": "session llava-ov-0.5b", "card": card,
           "frames": nb, "answers": answers,
           "appends": n_append, "lm_forwards": lm_forwards,
-          "launches": launches, "expected": want,
+          "launches": launches, "expected": want, "append_graph": graph,
           "ingest_fps_1frame_chunks": len(one) / sum(one),
           "ingest_fps_8frame_chunks": 8 * len(eight) / sum(eight),
           "qa_latency_s_mean": float(np.mean(qa_s)),
@@ -5046,18 +5122,28 @@ def main() -> int:
     kern = [(sa, "_launch", "stream_attention_kernel"),
             (da, "_launch", "decode_attention_kernel")]
     chunk_targets = [(vis, "full", "vision_full"),
-                     (vis, "cached", "vision_cached"),
-                     (lm, "encode_step", "lm_append")] + kern
+                     (vis, "cached", "vision_cached")]
     qa = (list(range(800, 812)), list(range(900, 920)), stop)
+    nxt = iter(range(10 ** 6))
+
+    def chunk():
+        i = 36 + next(nxt) % 8
+        sess.encode_video(frames[i:i + 1])
+
+    def eager_chunk():
+        with eager_appends(sess):
+            chunk()
 
     def question():
         sess.question_answering(*qa, max_new_tokens=16)
 
+    # chunk_idx alternates the full and cached paths (interval 2): the
+    # main path's chunks, then the same two with the appends eager
+    main_split, eager_split = chunk_splits(sess, chunk, chunk_targets, 2)
     p5 = {"phase": "time split", "card": card,
-          "chunk_full": segments(lambda: sess.encode_video(frames[36:37]),
-                                 chunk_targets),
-          "chunk_cached": segments(lambda: sess.encode_video(
-              frames[37:38]), chunk_targets),
+          "chunk_full": main_split[0], "chunk_cached": main_split[1],
+          "chunk_full_appends_eager": eager_split[0],
+          "chunk_cached_appends_eager": eager_split[1],
           "question": segments(question,
                                [(lm, "qa_retrieve_step", "retrieval_forward"),
                                 (lm, "decode_step", "decode_step")] + kern)}
@@ -5065,14 +5151,9 @@ def main() -> int:
     # of each layer loop), each issued as usual and then behind a sleep.  A
     # whole chunk or decode step issues more launches than the driver
     # queues ahead (its host time behind a sleep exceeds the sleep), so the
-    # stretch is one layer.
+    # stretch is one layer; an LM append layer's on an eager append.
     n_v, n_t = cfg.vision.num_layers, cfg.text.num_layers
     lm_layer = ([(lm, "_qkv")], (lm, "_finish_layer"))
-    nxt = iter(range(10 ** 6))
-
-    def chunk():
-        i = 36 + next(nxt) % 8
-        sess.encode_video(frames[i:i + 1])
 
     pairs = {k: [] for k in ("vision_layer_full", "vision_layer_cached",
                              "lm_append_layer", "retrieval_layer",
@@ -5088,7 +5169,7 @@ def main() -> int:
         pairs["vision_layer_full"].append((u[0], f[0]))
         pairs["vision_layer_cached"].append((u[1], f[1]))
         li = n_t * frac // 4 + 1          # the nth _qkv call of a run
-        for name, fn, nth in (("lm_append_layer", chunk, li),
+        for name, fn, nth in (("lm_append_layer", eager_chunk, li),
                               ("retrieval_layer", question, li),
                               ("prompt_prefill_layer", question, n_t + li),
                               ("token_step_layer", question, 3 * n_t + li)):

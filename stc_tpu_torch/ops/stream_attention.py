@@ -48,7 +48,9 @@ On a CPU tensor the wrapper runs ``stream_attention_ref``; on a CUDA tensor
 it launches the kernel or raises.  ``launches`` counts kernel launches by
 page kind; ``masked_launches`` counts those of them that read a page_keep
 mask.  A launch adds ``stream_attention_flops`` to the FLOPs counts open
-(utils/metrics.py), the products the plain version computes.
+(utils/metrics.py), the products the plain version computes.  Launches
+that do not pass the wrapper, a CUDA graph's replay of those it recorded,
+are counted with ``add_launches`` (runtime/append_graph.py).
 """
 
 from __future__ import annotations
@@ -67,6 +69,16 @@ masked_launches = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_KINDS = {torch.int8: "int8", torch.uint8: "int4"}
 _PAGE_CODES = {"float": 0, "int8": 1, "int4": 2}
+
+
+def add_launches(by_kind: dict, masked: int = 0) -> None:
+    """Add launches that did not pass the wrapper (a graph replay's) to the
+    counters: by page kind, and those of them that read a page_keep
+    mask."""
+    global masked_launches
+    for kind, n in by_kind.items():
+        launches[kind] += n
+    masked_launches += masked
 
 
 def pages_per_tile(S: int) -> int:

@@ -23,6 +23,8 @@ a staged tensor as one chunk (runtime/pipeline.py's ``stream_encode``).
 and leaves the state as it was.  A chunk records the spans ``chunk``,
 ``vision.full`` / ``vision.cached`` and ``append`` while
 ``utils.metrics.tracing`` is on (LLaVA-OV's pipeline adds ``pruner``).
+On a CUDA card a chunk's LM append replays one CUDA graph where it can
+(runtime/append_graph.py).
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ import torch.nn.functional as F
 
 from stc_tpu_torch import native
 from stc_tpu_torch.kvcache import engine
-from stc_tpu_torch.parallel import pipeline
+from stc_tpu_torch.runtime.append_graph import AppendGraph
 from stc_tpu_torch.runtime.session import StreamingSession
 from stc_tpu_torch.utils import metrics
 
@@ -207,10 +209,15 @@ class VLMSession(StreamingSession):
     def __init__(self, lm, scfg, vision: VisionPipeline,
                  state_dtype=torch.bfloat16, batch: int = 1, mesh=None):
         self.vision = vision
+        # the streaming append as a CUDA graph (_append_flat)
+        self.append_graph = AppendGraph()
         super().__init__(lm, scfg, batch=batch, state_dtype=state_dtype,
                          mesh=mesh)
 
     def clear_cache(self):
+        # the graph's pool goes before the new store is made: it would
+        # otherwise sit on top of the two stores alive
+        self.append_graph.release()
         super().clear_cache()
         self.chunk_idx = 0
         # each slot's chunk count (of all B): its cacher parity is its own
@@ -333,10 +340,11 @@ class VLMSession(StreamingSession):
     def _append_flat(self, flat, active=None):
         """Pruned features (B, n * block_size, E) into the LM, one append
         a exc_block_size tokens (parallel.pipeline.pp_encode_step: under
-        pp each is relayed over the stages)."""
+        pp each is relayed over the stages), replayed as one CUDA graph
+        where runtime/append_graph.py finds the call eligible."""
         with metrics.span("append", self.chunk_idx):
-            pipeline.pp_encode_step(self.lm, self.rekv, self.kvs,
-                                    flat.to(self.lm.dtype), active)
+            self.append_graph.append(self.lm, self.rekv, self.kvs, flat,
+                                     active)
 
     @torch.no_grad()
     def estimate_chunk_flops(self, cached: bool = False) -> int:

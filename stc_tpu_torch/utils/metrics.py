@@ -1,9 +1,9 @@
 """Performance instrumentation for streaming sessions.
 
 Per-frame latency percentiles, throughput and KV memory (``Timer``,
-``StreamingStats``), the FLOPs of one call (``estimate_flops``), and spans
-of the ingest path on the host clock (``tracing``, ``span``,
-``take_spans``).
+``StreamingStats``), the FLOPs of one call (``estimate_flops``), spans of
+the ingest path on the host clock (``tracing``, ``span``, ``take_spans``)
+and how each streaming append ran (``count_append``, ``append_counts``).
 
 ``Timer`` reads the host clock; on a CUDA device the caller passes a
 ``sync`` (``device_sync`` gives ``torch.cuda.synchronize`` for one), since
@@ -28,6 +28,11 @@ event, no synchronize), so it leaves the launches it is used to attribute
 as they were; a reader lines the spans up with a device trace on its own
 clock.  ``take_spans`` hands the spans over and starts a new list.  The
 recorder serves one thread.
+
+The append counts say how each streaming append of a pixel session ran
+(runtime/append_graph.py): replayed from a CUDA graph captured earlier,
+captured (and then replayed once), or eager, by the reason that sent it
+eager.  ``append_hit_share`` is the share of appends that were replays.
 """
 
 from __future__ import annotations
@@ -48,6 +53,10 @@ _open_counts: List[List[int]] = []
 _tracing = False
 _spans: List[list] = []
 _open_spans: List[int] = []
+
+# how the streaming appends ran: replays and captures of the append's
+# CUDA graph, and eager appends by reason
+_appends = {"replays": 0, "captures": 0, "eager": {}}
 
 
 def device_sync(device) -> Optional[Callable[[], None]]:
@@ -127,6 +136,11 @@ def add_kernel_flops(n: int) -> None:
         c[0] += int(n)
 
 
+def counting_flops() -> bool:
+    """Whether an estimate_flops count is open."""
+    return bool(_open_counts)
+
+
 def estimate_flops(fn, *args, **kwargs) -> int:
     """FLOPs of one call of `fn(*args, **kwargs)`: the products
     FlopCounterMode sees, plus those of the hand kernels launched inside
@@ -196,3 +210,30 @@ def take_spans() -> List[Tuple[str, int, int, int, int]]:
     out = [tuple(s) for s in _spans]
     _spans.clear()
     return out
+
+
+def count_append(how: str) -> None:
+    """One streaming append: 'replay', 'capture', or the reason it ran
+    eager (runtime/append_graph.py)."""
+    if how in ("replay", "capture"):
+        _appends[how + "s"] += 1
+    else:
+        eager = _appends["eager"]
+        eager[how] = eager.get(how, 0) + 1
+
+
+def append_counts() -> dict:
+    """{'replays': n, 'captures': n, 'eager': {reason: n}} since the last
+    reset_append_counts."""
+    return dict(_appends, eager=dict(_appends["eager"]))
+
+
+def reset_append_counts() -> None:
+    _appends.update(replays=0, captures=0, eager={})
+
+
+def append_hit_share() -> Optional[float]:
+    """Replays over all appends counted (None before any)."""
+    n = _appends["replays"] + _appends["captures"] + sum(
+        _appends["eager"].values())
+    return _appends["replays"] / n if n else None

@@ -1139,3 +1139,153 @@ def test_tp2_session_on_card_answers_as_unsharded(cuda_device):
     for got, (n_stream, n_decode) in ranks:
         assert got == want
         assert n_stream > 0 and n_decode > 0
+
+
+# the streaming append's CUDA graph (runtime/append_graph.py): kv_quant
+# none / int8 / int4 and window compression, at B = 1 and 2
+GRAPH_CASES = [("none", False, 1), ("none", False, 2), ("int8", False, 1),
+               ("int4", False, 2), ("none", True, 2), ("int8", True, 1),
+               ("int4", True, 1)]
+
+
+def hand_kernels_run(fn, path) -> dict:
+    """{kernel name: launches} of the port's own device kernels (namespace
+    stc: stream_attention's pre-pass, tile and combine) that fn runs, read
+    from a torch.profiler trace (written to path) as stcbench's harness
+    reads one."""
+    import json
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return Counter(e["name"] for e in events if e.get("cat") == "kernel"
+                   and e["name"].startswith("void stc::"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant,compress,batch", GRAPH_CASES)
+def test_append_graph_equals_eager_on_card(cuda_device, tmp_path, quant,
+                                           compress, batch):
+    """44 one-page appends of a bf16 3-layer LM through the graph and
+    through pipeline.pp_encode_step, side by side: the 16-page window
+    fills after 16 appends, the cover's start tile moves whenever the
+    store holds 24 pages, and the store evicts 6 pages in place four
+    times.  Hidden states, every
+    store tensor and the stream_attention counters agree bit for bit
+    after every append; the graph warmed up once, captured once and
+    replayed the rest, in a pool of its own.  Then one more append of
+    each, profiled: the replay runs the eager append's hand kernels, as
+    many of each, and as many stream_attention tiles as the launches it
+    adds to the counters."""
+    from stc_tpu_torch.kvcache import host_tier
+    from stc_tpu_torch.models.qwen2 import Qwen2, Qwen2Config
+    from stc_tpu_torch.parallel import pipeline
+    from stc_tpu_torch.runtime.append_graph import AppendGraph
+    from stc_tpu_torch.utils import metrics
+    cfg = ReKVConfig(**dict(
+        BASE, max_blocks=24, kv_quant=quant,
+        window_kv_compression="select_top_half" if compress else "none"))
+    lm = Qwen2(Qwen2Config(vocab_size=256, hidden_size=128, num_layers=3,
+                           num_heads=4, num_kv_heads=2, head_dim=32,
+                           intermediate_size=256, rope_base=10000.0),
+               dtype=torch.bfloat16, device=cuda_device).init_random_params(
+                   torch.Generator().manual_seed(7))
+    gen = torch.Generator(device=cuda_device).manual_seed(batch)
+    ids = torch.randint(0, 256, (batch, cfg.n_init), generator=gen,
+                        device=cuda_device)
+    stores = []
+    for _ in range(2):
+        kvs = lm.init_stream_state(cfg, batch)
+        lm.encode_step(cfg, kvs, lm.embed_tokens(ids), is_init=True)
+        stores.append(kvs)
+    eager, graphed = stores
+    graph = AppendGraph()
+    metrics.reset_append_counts()
+    resident = 0
+
+    def counters():
+        return dict(sa.launches), sa.masked_launches
+
+    for step in range(44):
+        if resident + 1 > cfg.max_blocks:
+            for kvs in stores:
+                host_tier.evict_pages(kvs, 6, None)
+            resident -= 6
+        x = torch.randn((batch, cfg.block_size, 128), generator=gen,
+                        device=cuda_device)
+        c0 = counters()
+        want = pipeline.pp_encode_step(lm, cfg, eager, x.to(lm.dtype))
+        c1 = counters()
+        got = graph.append(lm, cfg, graphed, x)
+        c2 = counters()
+        resident += 1
+        assert torch.equal(got, want), step
+        for a, b in zip(graphed, eager):
+            assert torch.equal(a, b), step
+        kind = "float" if quant == "none" else quant
+        assert c1[0][kind] - c0[0][kind] == 3
+        assert c2[0][kind] - c1[0][kind] == 3, step
+        assert c2[1] - c1[1] == c1[1] - c0[1] == (3 if compress else 0)
+    assert int(eager.page_offset.max()) == 24
+    assert metrics.append_counts() == dict(replays=42, captures=1,
+                                           eager={"warmup": 1})
+    assert graph.pool_bytes > 0
+    x = torch.randn((batch, cfg.block_size, 128), generator=gen,
+                    device=cuda_device)
+    want = hand_kernels_run(lambda: pipeline.pp_encode_step(
+        lm, cfg, eager, x.to(lm.dtype)), tmp_path / "eager.json")
+    c0 = counters()
+    got = hand_kernels_run(lambda: graph.append(lm, cfg, graphed, x),
+                           tmp_path / "replay.json")
+    added = sum(counters()[0].values()) - sum(c0[0].values())
+    assert got == want
+    # stcbench's rule (harness.op_time): a combine kernel is not a launch
+    assert added == 3 and sum(
+        n for k, n in got.items()
+        if "stream_attention" in k and "combine" not in k) == added
+    assert sum(n for k, n in got.items() if "stream_cover" in k) == added
+    for a, b in zip(graphed, eager):
+        assert torch.equal(a, b)
+    metrics.reset_append_counts()
+
+
+@pytest.mark.cuda
+def test_append_graph_recaptures_after_clear_cache_on_card(cuda_device):
+    """A tiny LLaVA-OV session on the card streams one video, clears its
+    cache and streams a second: its store then equals a fresh session's
+    after the second video alone, bit for bit; each store warmed up once
+    and captured once, and an estimate_chunk_flops call ran eager."""
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.utils import metrics
+    torch.backends.cuda.matmul.allow_tf32 = False
+    model = lo.LlavaOV(lo.LlavaOVConfig.tiny(), dtype=torch.float32,
+                       device="cpu").init_random_params(
+                           torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(3)
+    videos = [rng.integers(0, 256, (6, 56, 56, 3), dtype=np.uint8)
+              for _ in range(2)]
+    metrics.reset_append_counts()
+    stores = []
+    for first in (videos[0], None):
+        sess = lo.build_session(model, _tiny_pixel_cfg(),
+                                state_dtype=torch.float32,
+                                device=cuda_device)
+        if first is not None:
+            sess.encode_init_prompt([1, 2, 3, 4])
+            sess.encode_video(first)
+            sess.estimate_chunk_flops()
+            sess.clear_cache()
+            assert sess.append_graph._graph is None
+        sess.encode_init_prompt([1, 2, 3, 4])
+        sess.encode_video(videos[1])
+        stores.append(sess.kvs)
+    for a, b in zip(*stores):
+        assert torch.equal(a, b)
+    assert metrics.append_counts() == dict(
+        replays=12, captures=3, eager={"warmup": 3, "flops": 1})
+    metrics.reset_append_counts()

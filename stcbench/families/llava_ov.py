@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from stcbench import counts, weights
+from stcbench.lms.qwen2 import Qwen2LM
 from stcbench.reference import vision as rv
 
 VISION = "vision_tower.vision_model."
@@ -78,9 +79,20 @@ def build(cfg: dict, seed: int, device):
                             device=device)
 
 
-def frame_flops(v: dict, cached: bool, ratio: float) -> float:
-    """float32 products of one frame through the tower."""
-    return counts.siglip_frame(v, cached, ratio)
+def vision_work(cfg: dict, cached: bool, frame=counts.siglip_frame):
+    """The work of one frame through the tower (frame: its float32
+    products) and the projector."""
+    v, t = cfg["vision_config"], cfg["text_config"]
+    ratio = cfg["session"]["cacher"]["update_token_ratio"]
+    rows = (v["image_size"] // v["patch_size"]) ** 2
+    return counts.Work(f32=frame(v, cached, ratio),
+                       bytes=counts.vit_bytes(v)) + \
+        counts.projector(v["hidden_size"], t["hidden_size"], rows)
+
+
+def lm(cfg: dict, get, device):
+    """The language model: Qwen2."""
+    return Qwen2LM(cfg, get, device, LM, HEAD)
 
 
 def instrument(session, run):

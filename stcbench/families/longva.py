@@ -10,7 +10,9 @@ from __future__ import annotations
 import torch
 
 from stcbench import counts, weights
+from stcbench.families import llava_ov
 from stcbench.families.llava_ov import qwen2_config, session_config
+from stcbench.lms.qwen2 import Qwen2LM
 from stcbench.reference import vision as rv
 
 VISION = "model.vision_tower.vision_tower.vision_model."
@@ -54,9 +56,14 @@ def build(cfg: dict, seed: int, device):
                             device=device)
 
 
-def frame_flops(v: dict, cached: bool, ratio: float) -> float:
-    """float32 products of one frame through the tower."""
-    return counts.clip_frame(v, cached, ratio)
+def vision_work(cfg: dict, cached: bool):
+    """The work of one frame through the tower and the projector."""
+    return llava_ov.vision_work(cfg, cached, counts.clip_frame)
+
+
+def lm(cfg: dict, get, device):
+    """The language model: Qwen2."""
+    return Qwen2LM(cfg, get, device, LM, HEAD)
 
 
 def instrument(session, run):

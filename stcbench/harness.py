@@ -3,13 +3,16 @@ traced sub-window (with --trace 1), the check against the plain reference,
 and the result line.
 
 A cell is ``BENCHMARK.json``'s workload: its configuration file names the
-model family (``families/<family>.py`` builds the program and the vision
-reference), its traffic file names the loop it runs (``ingest``, the one
-there is).  The harness measures from outside the program: host clocks
-ending in a synchronize, CUDA events around calls it wraps on the session
-instance it built, a device-activity profiler over a fixed sub-window, and
-the program's launch counters.  What the per-layer metrics read is in the run record (``rec``)
-handed to ``metrics/<name>.py``.
+model family (``families/<family>.py`` builds the program, the vision
+reference and the work of a frame, and brings its language model: its
+sizes, its reference check of the pages, its work counts and its ops,
+``stcbench/lms``), its traffic file names the loop it runs (``ingest``,
+the one there is).  The harness measures from outside the program: host
+clocks ending in a synchronize, CUDA events around calls it wraps on the
+session instance it built, a device-activity profiler over a fixed
+sub-window, and the program's launch counters.  What the per-layer
+metrics read is in the run record (``rec``) handed to
+``metrics/<name>.py``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 
 from stcbench import counts, traffic, weights
-from stcbench.reference import lm as rlm
+from stcbench.compare import rel, row_rel
 from stcbench.reference.precision import Precision
 
 HERE = Path(__file__).resolve().parent
@@ -74,19 +77,6 @@ def forbidden_modules():
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-
-
-def rel(a: torch.Tensor, b: torch.Tensor) -> float:
-    """|a - b| / |b| (Frobenius)."""
-    return float((a.float() - b.float()).norm() / b.float().norm().clamp(
-        min=1e-30))
-
-
-def row_rel(a: torch.Tensor, b: torch.Tensor) -> float:
-    """The largest |a_i - b_i| / |b_i| over rows."""
-    a, b = a.float(), b.float()
-    return float(((a - b).norm(dim=-1) / b.norm(dim=-1).clamp(
-        min=1e-30)).max())
 
 
 class Hooks:
@@ -252,10 +242,10 @@ class Run:
         self.fam = importlib.import_module(
             f"stcbench.families.{self.cfg['family']}")
         self.specs = self.fam.specs(self.cfg)
-        t, s = self.cfg["text_config"], self.cfg["session"]
-        self.dims = rlm.LMDims(t, s["rekv"])
+        self.lm = self.fam.lm(self.cfg, self.get, self.dev)
         self.hooks = Hooks(self)
-        self.rec = dict(kind=self.mix["kind"], spans={}, profile=None)
+        self.rec = dict(kind=self.mix["kind"], spans={}, profile=None,
+                        op_kernels=self.lm.ops)
         self.peaks, self.held = [], 0
         self.records = []
         # (video, frame) of the chunk in flight; the pruner state each
@@ -281,9 +271,8 @@ class Run:
         h.wrap(s.vision, "preprocess", "preprocess", "host")
         h.wrap(s, "_append_flat", "append", "cuda")
         self.fam.instrument(s, self)
-        t = self.cfg["text_config"]
         self.init_ids = traffic.init_prompt(
-            self.seed, self.dims.n_init, t["vocab_size"])
+            self.seed, self.lm.n_init, self.lm.vocab_size)
         s.encode_init_prompt(self.init_ids)
 
     def render(self, n_videos: int, n_frames: int):
@@ -343,14 +332,14 @@ class Run:
         prof_at = self.mix["profile_after"]
         prof_n = self.mix["profile_units"]
         prof = None
-        sa0 = da0 = None
+        launches0 = None
         sync(self.dev)
         self.hooks.on = self.trace
         t0 = time.perf_counter()
         deadline = t0 + self.seconds
         while True:
             if self.trace and units == prof_at:
-                sa0 = launch_counts()
+                launches0 = self.launch_counts()
                 t_enter = time.perf_counter()
                 prof = Profile(self.dev).__enter__()
                 deadline += time.perf_counter() - t_enter
@@ -366,7 +355,9 @@ class Run:
                 # reading the trace is no part of the window's work
                 deadline += time.perf_counter() - t_exit
                 self.rec["profile"] = prof.data
-                self.rec["launches"] = diff(launch_counts(), sa0)
+                self.rec["launches"] = {
+                    n: diff(c, launches0[n])
+                    for n, c in self.launch_counts().items()}
                 prof = None
             if time.perf_counter() >= deadline and prof is None:
                 break
@@ -381,24 +372,22 @@ class Run:
             self.rec["spans"][name] = self.hooks.seconds(name)
 
     # --------------------------------------------------------- the work --
-    def chunk_work(self, k: int):
-        """The stream_attention calls and the least time of chunk k of a
-        video (k pages before it)."""
-        d, t, v = self.dims, self.cfg["text_config"], self.cfg["vision_config"]
+    def cached(self, k: int) -> bool:
+        """Whether frame k of a video takes the cacher's path."""
         c = self.cfg["session"]["cacher"]
-        cached = c["strategy"] == "cacher" and k % c["cache_interval"] != 0
-        L = d.n_init + k * d.S
-        call = counts.stream_attention(d.Hq, d.Hkv, d.D, d.S, L, d.n_init,
-                                       d.n_local)
-        attn = counts.Work()
-        for _ in range(d.L):
-            attn = attn + call
-        lm = counts.lm_pass(t, d.S, attn)
-        vf = self.fam.frame_flops(v, cached, c["update_token_ratio"])
-        rows = (v["image_size"] // v["patch_size"]) ** 2
-        vis = counts.Work(f32=vf, bytes=counts.vit_bytes(v)) + \
-            counts.projector(v["hidden_size"], t["hidden_size"], rows)
-        return dict(calls=[call] * d.L, least_s=(vis + lm).least_s())
+        return c["strategy"] == "cacher" and k % c["cache_interval"] != 0
+
+    def chunk_work(self, k: int):
+        """The LM's op calls by op and the least time of chunk k of a
+        video (k pages before it)."""
+        lm = self.lm.chunk_work(k)
+        vis = self.fam.vision_work(self.cfg, self.cached(k))
+        return dict(ops=lm["ops"], least_s=(vis + lm["lm"]).least_s())
+
+    def launch_counts(self) -> dict:
+        """The program's launch counter of each op, None where it is
+        gone."""
+        return {n: op.launches() for n, op in self.lm.ops.items()}
 
     # -------------------------------------------------------------- fill --
     def setup(self):
@@ -453,11 +442,9 @@ class Run:
                 print(f"stcbench: check failed: {e!r}", file=sys.stderr)
         return out
 
-    def _precs(self):
-        sides = [("", None)]
-        if self.control:
-            sides.append(("control.", Precision(True)))
-        return sides
+    def _control(self):
+        """The control's precision, or None."""
+        return Precision(True) if self.control else None
 
     def choices(self, v: int, k: int) -> dict:
         """The program's choices in frame k of video v, for the reference
@@ -497,11 +484,10 @@ class Run:
                     cmem.update({(v, k): m for k, m in ctl.replay(
                         frames, upto).items()})
                 mem.update({(v, k): m for k, m in got.items()})
-        c = self.cfg["session"]["cacher"]
         out = {}
         for r in recs:
             v, k = r["v"], r["k"]
-            cached = c["strategy"] == "cacher" and k % c["cache_interval"] != 0
+            cached = self.cached(k)
             prev = (torch.as_tensor(self.frame(v, k - 1), device=self.dev)
                     if cached else None)
             cur = torch.as_tensor(self.frame(v, k), device=self.dev)
@@ -524,72 +510,23 @@ class Run:
         out["cacher_ties_followed"] = ref.tower.followed
         return out
 
-    def _lm(self):
-        return rlm.LMWeights(self.get, self.fam.LM, self.fam.HEAD)
-
     def check_pages(self, recs) -> dict:
         """Each checked chunk's new page, every layer, from the program's
         own vision output and the program's earlier pages (the reference
         follows the stream step by step); the worst layer's gap."""
-        d = self.dims
-        W = self._lm()
-        span = -(-d.n_local // d.S) + 1
-        h = [r["flat"].float().clone() for r in recs]
-        hc = [x.clone() for x in h] if self.control else None
-        worst = [0.0] * len(recs)
-        cworst = [0.0] * len(recs)
-        for l in range(d.L):
-            Wl = W.layer(l)
-            for i, r in enumerate(recs):
-                kv, k = r["kvs"], r["k"]
-                if int(kv.page_offset[l, 0]) != 0:
-                    raise RuntimeError("a checked stream was evicted")
-                p0 = max(0, k - span)
-                ik, iv = kv.init_k[l, 0].float(), kv.init_v[l, 0].float()
-                wk = kv.block_k[l, 0, :, p0:k].float().flatten(1, 2)
-                wv = kv.block_v[l, 0, :, p0:k].float().flatten(1, 2)
-                pos = d.n_init + torch.arange(p0 * d.S, k * d.S,
-                                              device=self.dev)
-                L = d.n_init + k * d.S
-                h[i], nk, nv = rlm.append_layer(d, Wl, h[i], L, ik, iv, wk,
-                                                wv, pos, Precision())
-                got_k = kv.block_k[l, 0, :, k]
-                got_v = kv.block_v[l, 0, :, k]
-                worst[i] = max(worst[i], rel(got_k, nk), rel(got_v, nv))
-                if hc is not None:
-                    hc[i], ck, cv = rlm.append_layer(
-                        d, Wl, hc[i], L, ik, iv, wk, wv, pos,
-                        Precision(True))
-                    cworst[i] = max(cworst[i], rel(ck, nk), rel(cv, nv))
-            del Wl
-        out = dict(page_gap=max(worst))
-        if hc is not None:
-            out["control.page_gap"] = max(cworst)
+        gaps, ctl = self.lm.page_gaps(recs, self._control())
+        out = dict(page_gap=max(gaps))
+        if ctl is not None:
+            out["control.page_gap"] = max(ctl)
         return out
 
     def check_init(self, stores: dict) -> dict:
         if not stores:
             return {}
-        d = self.dims
-        W = self._lm()
-        x = W.embed(self.init_ids)
-        h = {s: (x, x) for s in stores}
-        out = {"init_gap": 0.0}
-        if self.control:
-            out["control.init_gap"] = 0.0
-        for l in range(d.L):
-            Wl = W.layer(l)
-            for key, kv in stores.items():
-                hr, hc = h[key]
-                hr, k, v = rlm.init_layer(d, Wl, hr, Precision())
-                out["init_gap"] = max(out["init_gap"],
-                                      rel(kv.init_k[l, 0], k),
-                                      rel(kv.init_v[l, 0], v))
-                if self.control:
-                    hc, ck, cv = rlm.init_layer(d, Wl, hc, Precision(True))
-                    out["control.init_gap"] = max(out["control.init_gap"],
-                                                  rel(ck, k), rel(cv, v))
-                h[key] = (hr, hc)
+        gap, ctl = self.lm.init_gaps(stores, self.init_ids, self._control())
+        out = {"init_gap": gap}
+        if ctl is not None:
+            out["control.init_gap"] = ctl
         return out
 
     # ------------------------------------------------------------ result --
@@ -621,16 +558,6 @@ class Run:
             if v is not None and math.isfinite(v):
                 out[m["name"]] = dict(value=v, unit=m["unit"])
         return out
-
-
-def launch_counts():
-    """The program's stream_attention launch counter, or None where it is
-    gone."""
-    try:
-        from stc_tpu_torch.ops import stream_attention as sa
-        return sum(sa.launches.values())
-    except (ImportError, AttributeError):
-        return None
 
 
 def diff(a, b):
@@ -698,8 +625,8 @@ def run_cell(spec: dict, seed: int, seconds: float, trace: bool, device,
     if prof:
         result["profile_counts"] = dict(
             launches=run.rec.get("launches"),
-            traced=op_time(prof["kernels"], ("stream_attention",),
-                           "stream_attention")[1],
+            traced={n: op_time(prof["kernels"], op.words, op.main)[1]
+                    for n, op in run.lm.ops.items()},
             kernels=len(prof["kernels"]))
     prof_at = run.rec.get("profiled")
     if prof_at:

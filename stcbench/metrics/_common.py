@@ -1,9 +1,7 @@
 """What the per-layer readers share: the window's units outside the
-profiled sub-window, and a kernel family's share of its roofline."""
+profiled sub-window, and an op's share of its roofline."""
 
 from __future__ import annotations
-
-STREAM = ("stream_attention", "stream_cover")
 
 
 def outside(rec) -> list:
@@ -26,18 +24,22 @@ def per_frame_ms(rec, span: str):
     return sum(xs[i] for i in idx) / len(idx) * 1e3 if idx else None
 
 
-def roofline(rec, words, main: str):
-    """Sum of the profiled calls' least times over the device time of the
-    kernels named by `words`, in %.  The port's launch counter has to
-    match the calls the harness expects; the profiler may drop a few of
-    the trace's records, so the device time is scaled to all the calls
-    when it holds at least 98% of them, and None is returned otherwise."""
+def roofline(rec, op: str):
+    """Sum of the profiled calls' least times of op `op` over the device
+    time of its kernels (the LM's ``Op``), in %.  The port's launch
+    counter has to match the calls the harness expects; the profiler may
+    drop a few of the trace's records, so the device time is scaled to all
+    the calls when it holds at least 98% of them, and None is returned
+    otherwise."""
     from stcbench.harness import op_time
-    prof, launches = rec.get("profile"), rec.get("launches")
-    if not prof or not prof["kernels"] or launches is None:
+    prof = rec.get("profile")
+    launches = (rec.get("launches") or {}).get(op)
+    kern = (rec.get("op_kernels") or {}).get(op)
+    if not prof or not prof["kernels"] or launches is None or kern is None:
         return None
-    calls = [c for i in inside(rec) for c in rec["items"][i]["calls"]]
-    seconds, n = op_time(prof["kernels"], words, main)
+    calls = [c for i in inside(rec) for c in rec["items"][i]["ops"].get(
+        op, [])]
+    seconds, n = op_time(prof["kernels"], kern.words, kern.main)
     if not calls or seconds <= 0 or launches != len(calls) or \
             abs(n - len(calls)) > 0.02 * len(calls):
         return None

@@ -78,3 +78,68 @@ def test_tail_and_rate_take_every_request_over_the_window():
     assert counts.rate(100, 8.0) == 12.5
     with pytest.raises(ValueError):
         counts.tail([], 0.5)
+
+
+# Run.chunk_work of both published cells as the harness computed it before
+# the families brought their language models (stcbench/lms): (cell, k,
+# least_s, stream_attention calls, one call's (bf16, f32, bytes, exps)).
+# Every other chunk takes the cacher's path (cache_interval 2).
+CHUNKS = [
+    ("ov7b-ingest", 0, 0.010740979593129672, 28,
+     (38277120, 0.0, 1456128, 74760)),
+    ("ov7b-ingest", 1, 0.004402876599402985, 28,
+     (89886720, 0.0, 1579008, 175560)),
+    ("ov7b-ingest", 100, 0.010887030263770506, 28,
+     (5199237120, 0.0, 13744128, 10154760)),
+    ("ov7b-ingest", 249, 0.0046575866650746265, 28,
+     (12899604480, 0.0, 32053248, 25194540)),
+    ("ov7b-ingest", 250, 0.011105363845489333, 28,
+     (12914442240, 0.0, 32174080, 25223520)),
+    ("ov7b-ingest", 300, 0.011105363845489333, 28,
+     (12914442240, 0.0, 32174080, 25223520)),
+    ("longva7b-ingest", 0, 0.007888645639172008, 28,
+     (178569216, 0.0, 3434496, 348768)),
+    ("longva7b-ingest", 1, 0.005126563861920324, 28,
+     (475840512, 0.0, 3729408, 929376)),
+    ("longva7b-ingest", 100, 0.008351772315774095, 28,
+     (16543973376, 0.0, 19816448, 32312448)),
+    ("longva7b-ingest", 249, 0.005581278019893499, 28,
+     (16543973376, 0.0, 19816448, 32312448)),
+    ("longva7b-ingest", 250, 0.008351772315774095, 28,
+     (16543973376, 0.0, 19816448, 32312448)),
+    ("longva7b-ingest", 300, 0.008351772315774095, 28,
+     (16543973376, 0.0, 19816448, 32312448)),
+]
+# the same cells' odd (cached) chunks with the cacher off: full chunks
+FULL = [("ov7b-ingest", 1, 0.01074244009983608),
+        ("ov7b-ingest", 249, 0.011104943949811241),
+        ("longva7b-ingest", 1, 0.00789705815780092),
+        ("longva7b-ingest", 249, 0.008351772315774095)]
+
+
+def chunk_run(cell, cacher=True):
+    import copy
+    import time
+
+    from stcbench import harness
+    spec = copy.deepcopy(harness.resolve(cell))
+    if not cacher:
+        spec["config"]["session"]["cacher"]["strategy"] = "none"
+    return harness.Run(spec, 1, 1.0, False, "cpu", time.perf_counter())
+
+
+@pytest.mark.parametrize("cell, k, least_s, n, call", CHUNKS,
+                         ids=lambda x: str(x)[:16])
+def test_chunk_work_is_the_parents(cell, k, least_s, n, call):
+    w = chunk_run(cell).chunk_work(k)
+    assert w["least_s"] == least_s
+    assert list(w["ops"]) == ["stream_attention"]
+    calls = w["ops"]["stream_attention"]
+    assert len(calls) == n
+    for c in calls:
+        assert (c.bf16, c.f32, c.bytes, c.exps) == call
+
+
+@pytest.mark.parametrize("cell, k, least_s", FULL, ids=lambda x: str(x)[:16])
+def test_full_chunk_work_is_the_parents(cell, k, least_s):
+    assert chunk_run(cell, cacher=False).chunk_work(k)["least_s"] == least_s

@@ -7,6 +7,7 @@ from pathlib import Path
 import pytest
 
 from stcbench import counts, harness
+from stcbench.lms.qwen2 import Qwen2LM
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -46,17 +47,25 @@ def test_read_trace(tmp_path):
     assert dict(t["ops"])["gemm"] == pytest.approx(40e-6)
 
 
+# the ops of the Qwen2 LM both families bring
+OPS = Qwen2LM(dict(text_config=dict(
+    hidden_size=32, num_attention_heads=4, num_key_value_heads=2,
+    num_hidden_layers=1, rms_norm_eps=1e-6, rope_theta=1e4, vocab_size=8),
+    session=dict(rekv=dict(n_init=4, n_local=30, block_size=3, topk=1))),
+    None, "cpu", "", "").ops
+
+
 def rec_ingest():
     call = counts.stream_attention(4, 2, 8, 3, 50, 4, 30)
     kernels = [("stream_cover", 0.0, 1.0), ("stream_attention_tc", 1.0,
                                             call.least_s() * 2e6),
                ("combine_kernel", 5.0, 0.0)] * 4
-    items = [dict(calls=[call, call], least_s=0.01)] * 6
+    items = [dict(ops=dict(stream_attention=[call, call]), least_s=0.01)] * 6
     return dict(kind="ingest", units=6, profiled=(2, 4),
                 lat=[0.02] * 6, items=items,
                 spans=dict(preprocess=[0.001] * 6, vision=[0.004] * 6,
                            append=[0.005] * 6),
-                launches=4,
+                op_kernels=OPS, launches=dict(stream_attention=4),
                 profile=dict(kernels=kernels, busy_s=0.5, window_s=2.0))
 
 
@@ -73,7 +82,7 @@ def test_ingest_readers():
 
 def test_roofline_left_out_when_the_counts_disagree():
     rec = rec_ingest()
-    rec["launches"] = 5
+    rec["launches"] = dict(stream_attention=5)
     assert reader("stream_attention_roofline")(rec) is None
     rec = rec_ingest()
     rec["profile"]["kernels"] = []
@@ -83,11 +92,12 @@ def test_roofline_left_out_when_the_counts_disagree():
 
 def test_roofline_scales_over_a_few_dropped_records():
     rec = rec_ingest()
-    rec["items"] = [dict(calls=it["calls"] * 50, least_s=it["least_s"])
-                    for it in rec["items"]]
+    rec["items"] = [dict(ops=dict(stream_attention=it["ops"][
+        "stream_attention"] * 50), least_s=it["least_s"])
+        for it in rec["items"]]
     calls = 2 * 2 * 50                     # two profiled chunks
     triple = rec["profile"]["kernels"][:3]
-    rec["launches"] = calls
+    rec["launches"] = dict(stream_attention=calls)
     rec["profile"]["kernels"] = triple * calls
     whole = reader("stream_attention_roofline")(rec)
     rec["profile"]["kernels"] = triple * (calls - 1)   # one record lost

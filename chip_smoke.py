@@ -188,7 +188,23 @@ each of which makes the script exit non-zero when it fails:
      subprocess exits 0, no error row, the three runs' rows equal, the
      tokenizer's decode of its encode equal to the NFC text, its init
      prompt as long as the session's n_init, launches = appends x layers
-     and LM forwards x layers.
+     and LM forwards x layers;
+ 18. Kimi-VL's latent attention (stc_tpu_torch/csrc/latent_attention.cu)
+     against its plain version at the kimivl-ingest cell's shapes (60
+     queries of 16 heads over 576-wide rows, an empty and a 300-page
+     window), four planted faults rejected, its device time and that of
+     DeepseekV3._moe on one MoE layer at the cell's widths against their
+     floors (the experts its router hit, and all 64), and its launches on
+     a small Kimi-VL session's encode_video (appends x layers).
+
+    python3 chip_smoke.py --kimi
+
+builds the kernels and runs phase 18 alone: Kimi-VL's latent_attention
+against its plain version at the kimivl-ingest cell's shapes (60 queries
+of 16 heads, 576-wide rows, an empty and a 300-page window), four planted
+faults rejected, the kernel's and one MoE layer's device times against
+their floors, its launches on a small session; it exits non-zero unless
+every case agrees, every fault is rejected and the launches count.
 
     python3 chip_smoke.py --planted-faults
 
@@ -352,12 +368,13 @@ def sass_hmma(path) -> dict:
 
 def tensor_core_check(paths: dict, logs: dict) -> dict:
     """Every bf16 instance (the *_attention_tc and decode_score_tc kernels)
-    of stream_attention, decode_attention and decode_score: HMMA in its
-    SASS and no spill; the float32 (FMA) instances and stream_attention's
-    bf16 pre-pass (stream_cover, no products) are listed beside them, each
-    with its registers."""
+    of stream_attention, decode_attention, decode_score and
+    latent_attention: HMMA in its SASS and no spill; the float32 (FMA)
+    instances and the bf16 pre-passes (stream_cover, latent_attention_rope:
+    no products) are listed beside them, each with its registers."""
     rows = {}
-    for name in ("stream_attention", "decode_attention", "decode_score"):
+    for name in ("stream_attention", "decode_attention", "decode_score",
+                 "latent_attention"):
         hmma, regs = sass_hmma(paths[name]), ptxas_functions(logs[name])
         for fn, r in regs.items():
             if "combine" in fn:
@@ -4833,6 +4850,229 @@ def cli_phase(card, dev) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# phase 18: Kimi-VL's latent attention and experts at the kimivl-ingest
+# cell's shapes
+# ---------------------------------------------------------------------------
+
+# the kimivl-ingest cell's store (stcbench/configs/kimi-vl-a3b.json)
+KIMI_REKV = dict(n_init=14, n_local=15000, block_size=60, exc_block_size=60,
+                 max_blocks=1024)
+KIMI_HEADS, KIMI_BASE = 16, 800000.0
+
+
+def latent_operands(dev, n_pages: int, seed: int = 0):
+    """latent_attention's operands of a 60-token append after n_pages
+    pages at the kimivl-ingest cell's shapes (16 heads, 576-wide bf16 rows
+    of which 64 rope dims, n_local 15000): random rows and queries, through
+    the store's own writers and tables.  Returns (args, kwargs)."""
+    from stc_tpu_torch.config import ReKVConfig
+    from stc_tpu_torch.kvcache import engine, latent
+    cfg = ReKVConfig(**KIMI_REKV)
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    kv = latent.init_latent_kv(cfg, 1, 576, device=dev)
+    kv.init_c.copy_(r(1, cfg.n_init, 576))
+    kv.block_c[:, :n_pages + 1] = r(1, n_pages + 1, 60, 576)
+    kv.num_blocks.fill_(n_pages)
+    kv.length.fill_(cfg.n_init + 60 * n_pages)
+    rc = engine.make_rope_cache(kv.length, kv.num_blocks, 60, cfg, 64,
+                                KIMI_BASE, kv.page_offset)
+    q_rot, q_one, k_init_rot = latent.attend_operands(
+        kv, r(1, 60, KIMI_HEADS, 512), r(1, 60, KIMI_HEADS, 64), rc)
+    return ((q_rot, q_one, kv.block_c, rc.cos_cover, rc.sin_cover,
+             k_init_rot, kv.init_c, rc.scalars),
+            dict(n_local=cfg.n_local, scale=192 ** -0.5))
+
+
+def latent_faults(args) -> list:
+    """(name, operands) of latent_attention with one planted fault each:
+    a key group dropped or moved, or the queries' first 512 dims turned as
+    their rope dims are (a RoPE over the whole row)."""
+    from stc_tpu_torch.ops.rope import rope_cos_sin, rotate
+
+    def scalar(col, delta=None, value=None):
+        sc = args[7].clone()
+        if value is None:
+            sc[:, col] += delta
+        else:
+            sc[:, col] = value
+        return args[:7] + (sc,)
+
+    def whole_row():
+        q_rot, q_one = args[0].clone(), args[1].clone()
+        T, dev, n_local = q_rot.shape[1], q_rot.device, KIMI_REKV["n_local"]
+        cos, sin = rope_cos_sin(n_local + torch.arange(T, device=dev), 512,
+                                KIMI_BASE)
+        q_rot[..., :512] = rotate(q_rot[..., :512], cos[:, None],
+                                  sin[:, None])
+        cos, sin = rope_cos_sin(torch.tensor(n_local - 1, device=dev), 512,
+                                KIMI_BASE)
+        q_one[..., :512] = rotate(q_one[..., :512], cos, sin)
+        return (q_rot, q_one) + args[2:]
+
+    return [("the append's own 60-row page dropped (total pages - 1)",
+             scalar(2, -1)),
+            ("the init rows at the one angle dropped (init_active 0)",
+             scalar(3, value=0)),
+            ("the window one page late (page_offset + 1)", scalar(4, 1)),
+            ("dims 0-511 of the queries rotated as the rope dims",
+             whole_row())]
+
+
+def event_ms(fn, n: int = 20) -> float:
+    """Device milliseconds a call of fn, over n calls after a warm-up."""
+    fn()
+    e0, e1 = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / n
+
+
+def kimi_card_model(dev):
+    """A Kimi-VL whose LM keeps the published latent row (512 + 64 dims,
+    the only one the kernel is built for) at small other widths: 3 layers
+    (1 dense, 2 MoE of 8 experts, top 2, 1 shared), 4 heads; a 2-layer
+    MoonViT on 56 x 84 frames (6 merged tokens)."""
+    from stc_tpu_torch.models import deepseek_v3 as ds
+    from stc_tpu_torch.models import kimi_vl as kv
+    from stc_tpu_torch.models import moonvit as mv
+    text = ds.DeepseekV3Config(
+        vocab_size=512, hidden_size=256, num_layers=3, num_heads=4,
+        qk_nope_head_dim=32, qk_rope_head_dim=64, v_head_dim=32,
+        kv_lora_rank=512, intermediate_size=512, moe_intermediate_size=64,
+        n_routed_experts=8, num_experts_per_tok=2, n_shared_experts=1)
+    cfg = kv.KimiVLConfig(vision=mv.MoonViTConfig.tiny(), text=text)
+    return kv.KimiVL(cfg, device="cpu").init_random_params(
+        torch.Generator().manual_seed(5)).to(dev)
+
+
+def kimi_card_cfg():
+    from stc_tpu_torch.config import (CacherConfig, PrunerConfig,
+                                      ReKVConfig, SessionConfig)
+    return SessionConfig(
+        rekv=ReKVConfig(n_init=4, n_local=128, block_size=3,
+                        exc_block_size=3, topk=4, max_blocks=128,
+                        max_prompt_tokens=16, max_new_tokens=4),
+        cacher=CacherConfig(update_token_ratio=0.5),
+        pruner=PrunerConfig(token_per_frame=3, model_spec="kimi_vl"))
+
+
+def kimi_session_launches(dev, n_frames: int = 8) -> dict:
+    """kimi_card_model's session streams n_frames one-frame chunks on the
+    card (build_session, encode_init_prompt, encode_video): the
+    latent_attention launches counted from just before the chunks (one
+    per append and layer), the appends' replays, and the routing
+    counters."""
+    from stc_tpu_torch.models import kimi_vl as kv
+    from stc_tpu_torch.ops import latent_attention as la
+    from stc_tpu_torch.utils import metrics
+    sess = kv.build_session(kimi_card_model(dev), kimi_card_cfg(),
+                            device=dev)
+    frames = np.random.default_rng(0).integers(0, 256, (n_frames, 50, 80, 3),
+                                               dtype=np.uint8)
+    sess.encode_init_prompt([1, 2, 3, 4])
+    metrics.reset_append_counts()
+    metrics.reset_moe_counts(sess.lm)
+    n0 = la.launches
+    for f in frames:
+        sess.encode_video(f[None])
+    torch.cuda.synchronize()
+    n = la.launches - n0
+    layers = sess.lm.cfg.num_layers
+    moe = metrics.moe_counts(sess.lm)
+    return {"frames": n_frames, "latent_attention": n,
+            "appends_x_layers": n_frames * layers,
+            "appends": metrics.append_counts(),
+            "routing_appends": moe["appends"],
+            "experts_hit": moe["hits"].tolist(),
+            "ok": n == n_frames * layers and moe["appends"] == n_frames}
+
+
+def moe_layer_times(dev, T: int = 60) -> dict:
+    """DeepseekV3._moe of one MoE layer at the cell's widths (2048 wide,
+    64 experts of 1408, top 6, 2 shared) over T tokens, seeded weights:
+    its device time; the experts the router hit; its floor, the bytes of
+    the gate, the shared experts and the experts hit (the work), and of
+    all 64 (what its batched GEMMs read)."""
+    from stcbench import counts
+    from stc_tpu_torch.models import deepseek_v3 as ds
+    cfg = ds.DeepseekV3Config(vocab_size=512, num_layers=2)
+    lm = ds.DeepseekV3(cfg, device=dev).init_random_params(
+        torch.Generator(device=dev).manual_seed(0))
+    lp = lm.layers[1]
+    x = torch.randn((1, T, cfg.hidden_size), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1)
+                    ).to(lm.dtype)
+    lm._step_tokens.zero_()
+    lm._moe(1, lp, x, None, True)
+    hit = int((lm._step_tokens[1] > 0).sum())
+    ms = event_ms(lambda: lm._moe(1, lp, x, None, False))
+    E, Fe = cfg.hidden_size, cfg.moe_intermediate_size
+    expert = 2 * 3 * E * Fe
+    rest = 2 * (3 * E * Fe * cfg.n_shared_experts) + 4 * E * \
+        cfg.n_routed_experts
+    floor = (rest + hit * expert) / counts.HBM_BYTES * 1e3
+    floor_all = (rest + cfg.n_routed_experts * expert) / counts.HBM_BYTES \
+        * 1e3
+    return {"tokens": T, "experts_hit": hit, "ms": ms, "floor_ms": floor,
+            "roofline": floor / ms, "floor_all_ms": floor_all,
+            "bandwidth_share": floor_all / ms}
+
+
+def kimi_phase(card, dev) -> dict:
+    """latent_attention against its plain version at the cell's shapes
+    (an empty and a full window), each planted fault rejected, the
+    kernel's and one MoE layer's device times against their floors
+    (stcbench/lms/kimi.py's counts), and the kernel's launches on a small
+    Kimi-VL session's encode_video."""
+    from stc_tpu_torch.kernels.agreement import disagreement
+    from stc_tpu_torch.ops import latent_attention as la
+    from stcbench import counts
+    t0 = time.perf_counter()
+    out = {"phase": "kimi", "card": card, "cases": [], "faults": []}
+    ok = True
+    for name, n_pages in (("empty window (0 pages)", 0),
+                          ("full window (300 pages)", 300)):
+        args, kw = latent_operands(dev, n_pages)
+        want = la.latent_attention_ref(*args, **kw)
+        got = la.latent_attention(*args, **kw)
+        d = disagreement(got, want)
+        ok &= d["agrees"]
+        L = int(args[7][0, 0])
+        pairs, live = counts.stream_pairs(60, L, 14, 15000)
+        H, W, R = KIMI_HEADS, 576, 512
+        flops = 2 * H * (W + R) * pairs
+        by = 2 * (2 * 60 * H * W + 60 * H * R + 2 * 14 * W + live * W)
+        floor = max(by / counts.HBM_BYTES, flops / counts.BF16_FLOPS,
+                    H * pairs / counts.EXPS)
+        ms = event_ms(lambda: la.latent_attention(*args, **kw))
+        out["cases"].append({"case": name, **d, "kernel_ms": ms,
+                             "floor_ms": floor * 1e3,
+                             "roofline": floor * 1e3 / ms})
+        if n_pages:
+            for fname, fargs in latent_faults(args):
+                fd = disagreement(la.latent_attention(*fargs, **kw), want)
+                out["faults"].append({"fault": fname, **fd,
+                                      "rejected": not fd["agrees"]})
+                ok &= not fd["agrees"]
+    out["experts"] = moe_layer_times(dev)
+    sess = kimi_session_launches(dev)
+    out["session"] = sess
+    ok &= sess["ok"]
+    out["ok"] = bool(ok)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA card available", file=sys.stderr)
@@ -4849,7 +5089,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_script = time.perf_counter()
     faults_only = sys.argv[1:] == ["--planted-faults"]
-    if sys.argv[1:] and not faults_only:
+    kimi_only = sys.argv[1:] == ["--kimi"]
+    if sys.argv[1:] and not (faults_only or kimi_only):
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}",
               file=sys.stderr)
         return 2
@@ -4867,6 +5108,13 @@ def main() -> int:
     t0 = time.perf_counter()
     paths = _build.build_all()
     build_s = time.perf_counter() - t0
+    if kimi_only:
+        p18 = kimi_phase(card, dev)
+        emit({**p18, "build_s": build_s, "ptxas": [
+            ln.strip() for ln in _build.build_log["latent_attention"]
+            .splitlines() if "registers" in ln or "spill" in ln]})
+        print(card, flush=True)
+        return 0 if p18["ok"] else 1
     if faults_only:
         pf = par_planted_faults(card, dev)
         emit({**{k: v for k, v in pf.items() if k != "faults"},
@@ -5336,6 +5584,13 @@ def main() -> int:
     RECORD["phases"]["cli"] = p17
     emit(p17)
 
+    # ---- phase 18: Kimi-VL's latent attention and experts ----
+    p18 = kimi_phase(card, dev)
+    RECORD["phases"]["kimi"] = p18
+    emit(p18)
+    if not p18["ok"]:
+        raise RuntimeError(f"phase 18 failed: {p18}")
+
     # ---- the kernels line, then the device line ----
     def bound_by(c):
         """bound_by as one word; terms that tie are listed beside it."""
@@ -5443,6 +5698,12 @@ def main() -> int:
               "no session path calls it",
               also=("decode_score prefill T=256 at slot 3854 7B heads "
                     "(28/4/128)",)),
+        {"name": "latent_attention", "route": "cuda",
+         "source": "stc_tpu_torch/csrc/latent_attention.cu",
+         "replaces": "none (no stc_tpu kernel: Kimi-VL is the port's own)",
+         "launches": p18["session"]["latent_attention"],
+         "launches_on": "phase 18 (a small Kimi-VL session's encode_video)",
+         **p18["cases"][-1]},
     ]
     RECORD["kernels"] = kernels
     out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),

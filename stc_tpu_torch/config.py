@@ -150,6 +150,8 @@ MODEL_SPECS = {
     "llava_vid": ModelSpec(tokens_per_frame=169,
                            index_mapper_type="grid_13x13"),
     "clip": ModelSpec(tokens_per_frame=144, index_mapper_type="flat"),
+    # Kimi-VL: a 364 x 644 frame's 13 x 23 merged patches
+    "kimi_vl": ModelSpec(tokens_per_frame=299, index_mapper_type="flat"),
 }
 
 

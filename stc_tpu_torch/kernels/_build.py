@@ -24,7 +24,8 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
 BUILD = PKG.parent / "build" / "stc_tpu_torch"
-SOURCES = ("stream_attention", "decode_attention", "decode_score")
+SOURCES = ("stream_attention", "decode_attention", "decode_score",
+           "latent_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -408,19 +408,21 @@ def save_append_slots(kvs: StreamKV, cfg: ReKVConfig, n_pages: int):
     2 * n_pages pages a stream, not the store."""
     nb = kvs.num_blocks[0].tolist()
     off = kvs.page_offset[0].tolist()
-    Nb, R = kvs.block_k.shape[3], kvs.block_rep.shape[2]
+    Nb, R = kvs.page_keep.shape[2], kvs.block_rep.shape[2]
     every = slice(None)
     saved = []
     for b in range(len(nb)):
         res = nb[b] - off[b]
         pg = slice(max(0, res - n_pages), min(Nb, res + n_pages))
         rp = slice(max(0, nb[b] - n_pages), min(R, nb[b] + n_pages))
-        for x, ix in ((kvs.block_k, (every, b, every, pg)),
-                      (kvs.block_v, (every, b, every, pg)),
-                      (kvs.block_k_scale, (every, b, every, pg)),
-                      (kvs.block_v_scale, (every, b, every, pg)),
-                      (kvs.page_keep, (every, b, pg)),
-                      (kvs.block_rep, (every, b, rp))):
+        # a latent store's pages (kvcache/latent.py), or the K/V pages
+        pages = ((kvs.block_c, (every, b, pg)),) if hasattr(
+            kvs, "block_c") else tuple(
+            (x, (every, b, every, pg)) for x in (
+                kvs.block_k, kvs.block_v, kvs.block_k_scale,
+                kvs.block_v_scale))
+        for x, ix in pages + ((kvs.page_keep, (every, b, pg)),
+                              (kvs.block_rep, (every, b, rp))):
             saved.append((x, ix, x[ix].clone()))
     for x in (kvs.num_blocks, kvs.length):
         saved.append((x, every, x.clone()))

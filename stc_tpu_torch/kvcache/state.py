@@ -38,6 +38,29 @@ class DecodeKV(NamedTuple):
     cursor: torch.Tensor  # (B,) int32 number of valid tokens
 
 
+class LatentKV(NamedTuple):
+    """Per-layer streaming state of a latent-attention LM (kvcache/latent.py):
+    one row [c (R) | k_pe (P)] a token, unrotated, keys and values in one;
+    the counters, keep rows and rep keys as StreamKV's, over one latent
+    head."""
+
+    init_c: torch.Tensor      # (B, n_init, W)
+    block_c: torch.Tensor     # (B, max_blocks, S, W) pages of rows
+    block_rep: torch.Tensor   # (B, rep_cap, 1, W) mean row per block
+    page_keep: torch.Tensor   # (B, max_blocks, S) bool
+    num_blocks: torch.Tensor  # (B,) int32 total blocks appended
+    page_offset: torch.Tensor  # (B,) int32 absolute index of slot 0
+    length: torch.Tensor      # (B,) int32 total stream tokens appended
+
+
+class DecodeLatent(NamedTuple):
+    """Per-layer QA cache of a latent-attention LM: rows with their rope
+    dims rotated at their slot."""
+
+    c: torch.Tensor       # (B, decode_cap, W)
+    cursor: torch.Tensor  # (B,) int32 number of valid rows
+
+
 def layer(state, i: int):
     """Layer i's slice of a layer-stacked state (views, no copy)."""
     return type(state)(*(x[i] for x in state))

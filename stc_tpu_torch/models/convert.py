@@ -1,6 +1,7 @@
 """HF checkpoint -> the port's modules (port of ``stc_tpu/models/convert.py``):
 Qwen2 / Llama LMs, the SigLIP and CLIP towers, the linear_{1,2} and mlp2x
-projectors, and the config helpers of the four backbones.
+projectors, and the config helpers of the four backbones; and Kimi-VL's
+MoonViT, merge projector and DeepSeek-V3 LM (latent attention, experts).
 
 The converters fill the port's ``nn.Module``s in place, in their (in, out)
 layout with q/k/v and gate/up fused, one tensor at a time: each checkpoint
@@ -315,4 +316,105 @@ def convert_mlp2x(state, proj: Projector,
     _put(proj.b1, state[prefix + "0.bias"])
     _put(proj.w2, state[prefix + "2.weight"], True)
     _put(proj.b2, state[prefix + "2.bias"])
+    return proj
+
+
+@torch.no_grad()
+def convert_deepseek_v3(state, lm, prefix: str = "language_model.model.",
+                        head: str = "language_model.lm_head.weight"):
+    """Fill a DeepseekV3 LM from HF names under `prefix`: q_proj,
+    kv_a_proj_with_mqa (their rope rows permuted from interleaved pairs to
+    halves, deepseek_v3.rope_perm), kv_a_layernorm, kv_b_proj split into
+    each head's W_UK (nope, R) and W_UV^T (R, v), o_proj; the dense MLP's
+    or the MoE's gate (to float32), e_score_correction_bias, experts.<e>.
+    and shared_experts. projections."""
+    from stc_tpu_torch.models.deepseek_v3 import rope_perm
+    c = lm.cfg
+    H, N, P, R, V = (c.num_heads, c.qk_nope_head_dim, c.qk_rope_head_dim,
+                     c.kv_lora_rank, c.v_head_dim)
+    perm = rope_perm(P)
+    q_rows = torch.cat([torch.cat([torch.arange(N), N + perm]) + h * (N + P)
+                        for h in range(H)])
+    kva_rows = torch.cat([torch.arange(R), R + perm])
+    for i, lp in enumerate(lm.layers):
+        pre = f"{prefix}layers.{i}."
+        _put(lp.ln1, state[pre + "input_layernorm.weight"])
+        _put(lp.ln2, state[pre + "post_attention_layernorm.weight"])
+        a = pre + "self_attn."
+        _put(lp.wq, state[a + "q_proj.weight"][q_rows], True)
+        _put(lp.w_kva, state[a + "kv_a_proj_with_mqa.weight"][kva_rows],
+             True)
+        _put(lp.kv_ln, state[a + "kv_a_layernorm.weight"])
+        kvb = state[a + "kv_b_proj.weight"].reshape(H, N + V, R)
+        _put(lp.w_uk, kvb[:, :N])
+        _put(lp.w_uv, kvb[:, N:].transpose(1, 2))
+        _put(lp.wo, state[a + "o_proj.weight"], True)
+        m = pre + "mlp."
+        if not lp.moe:
+            F_ = c.intermediate_size
+            _put(lp.w_gateup[:, :F_], state[m + "gate_proj.weight"], True)
+            _put(lp.w_gateup[:, F_:], state[m + "up_proj.weight"], True)
+            _put(lp.w_down, state[m + "down_proj.weight"], True)
+            continue
+        Fe, Fs = c.moe_intermediate_size, lp.s_down.shape[0]
+        _put(lp.gate_w, state[m + "gate.weight"], True)
+        _put(lp.e_bias, state[m + "gate.e_score_correction_bias"])
+        for e in range(c.n_routed_experts):
+            x = f"{m}experts.{e}."
+            _put(lp.e_gateup[e, :, :Fe], state[x + "gate_proj.weight"], True)
+            _put(lp.e_gateup[e, :, Fe:], state[x + "up_proj.weight"], True)
+            _put(lp.e_down[e], state[x + "down_proj.weight"], True)
+        s = m + "shared_experts."
+        _put(lp.s_gateup[:, :Fs], state[s + "gate_proj.weight"], True)
+        _put(lp.s_gateup[:, Fs:], state[s + "up_proj.weight"], True)
+        _put(lp.s_down, state[s + "down_proj.weight"], True)
+    _put(lm.embed, state[prefix + "embed_tokens.weight"])
+    _put(lm.norm_f, state[prefix + "norm.weight"])
+    _put(lm.lm_head, state[head], True)
+    return lm
+
+
+# MoonViT's encoder-block parameters: HF name under encoder.blocks.<i>.,
+# and whether it is an (out, in) matrix to transpose (wqkv is split)
+MOONVIT_LAYER_KEYS = {
+    "ln1_w": ("norm0.weight", False), "ln1_b": ("norm0.bias", False),
+    "wo": ("wo.weight", True), "bo": ("wo.bias", False),
+    "ln2_w": ("norm1.weight", False), "ln2_b": ("norm1.bias", False),
+    "fc1": ("mlp.fc0.weight", True), "fc1_b": ("mlp.fc0.bias", False),
+    "fc2": ("mlp.fc1.weight", True), "fc2_b": ("mlp.fc1.bias", False)}
+
+
+@torch.no_grad()
+def convert_moonvit(state, tower, prefix: str = "vision_tower."):
+    """Fill a MoonViT from HF names under `prefix`: the patch conv
+    (C, 3, P, P) as the (3·P·P, C) matrix, the (64, 64, C) position grid,
+    each block's packed wqkv split into q, k and v, the final LayerNorm."""
+    patch = state[prefix + "patch_embed.proj.weight"]
+    _put(tower.patch_w, patch.reshape(patch.shape[0], -1), True)
+    _put(tower.patch_b, state[prefix + "patch_embed.proj.bias"])
+    _put(tower.pos_embed, state[prefix + "patch_embed.pos_emb.weight"])
+    C = tower.cfg.hidden_size
+    for i, lp in enumerate(tower.layers):
+        b = f"{prefix}encoder.blocks.{i}."
+        for name, (key, tr) in MOONVIT_LAYER_KEYS.items():
+            _put(getattr(lp, name), state[b + key], tr)
+        w, bias = state[b + "wqkv.weight"], state[b + "wqkv.bias"]
+        for j, (wn, bn) in enumerate((("wq", "bq"), ("wk", "bk"),
+                                      ("wv", "bv"))):
+            _put(getattr(lp, wn), w[j * C:(j + 1) * C], True)
+            _put(getattr(lp, bn), bias[j * C:(j + 1) * C])
+    _put(tower.post_ln_w, state[prefix + "encoder.final_layernorm.weight"])
+    _put(tower.post_ln_b, state[prefix + "encoder.final_layernorm.bias"])
+    return tower
+
+
+@torch.no_grad()
+def convert_kimi_projector(state, proj,
+                           prefix: str = "multi_modal_projector."):
+    _put(proj.ln_w, state[prefix + "pre_norm.weight"])
+    _put(proj.ln_b, state[prefix + "pre_norm.bias"])
+    _put(proj.w1, state[prefix + "linear_1.weight"], True)
+    _put(proj.b1, state[prefix + "linear_1.bias"])
+    _put(proj.w2, state[prefix + "linear_2.weight"], True)
+    _put(proj.b2, state[prefix + "linear_2.bias"])
     return proj

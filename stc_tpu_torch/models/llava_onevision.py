@@ -180,9 +180,12 @@ class LlavaOVVision(PixelPipeline):
         indices (B, F, keep), or None without the pruner, pstate).  sp:
         the axis the chunk's frames are split over, whose pooled features
         are gathered before the pruner."""
+        return self._prune(apply_pooling(self.model.projector(feats),
+                                         self.cfg.vision.grid), pstate, sp)
+
+    def _prune(self, feats, pstate, sp=None):
+        """Projected tokens (B * F, T, E) of the chunk -> _post's triple."""
         B = self.batch
-        feats = apply_pooling(self.model.projector(feats),
-                              self.cfg.vision.grid)
         BF, T, E = feats.shape
         feats = feats.reshape(B, BF // B, T, E)
         if sp is not None:

@@ -19,6 +19,12 @@ With n_streams > 1 the frames of B streams ride the batch axis stream-major
 (B * F), each stream's references come from the last frame of its own part
 of the chunk, and each stream's cached frames gate against its own.
 
+A tower with rotary positions (MoonViT, models/moonvit.py) gives each
+layer a ``rope``: queries and keys are rotated where they are projected,
+so the cacher's references hold rotated keys; the gate's cosine of a
+token's fresh and kept keys, both rotated at its own position, is that of
+the unrotated ones.
+
 The port gathers rows by index (the JAX package's one-hot gather exists
 only for TPU costs and gives the same numbers).
 
@@ -183,6 +189,12 @@ class SiglipLayer(nn.Module):
         self.fc1, self.fc1_b = p(C, F_), p(F_)
         self.fc2, self.fc2_b = p(F_, C), p(C)
         self.tp = None  # the tp axis under a mesh (Siglip.set_mesh)
+        # a tower with rotary positions sets rope(x, idx): x (F, T, C), or
+        # the tokens idx (F, U) of each frame, rotated at their positions
+        self.rope = None
+
+    def _rope(self, x, idx=None):
+        return x if self.rope is None else self.rope(x, idx)
 
     def _tp_sum(self, x, site):
         return x if self.tp is None else self.tp.all_reduce(x, site=site)
@@ -201,8 +213,8 @@ class SiglipLayer(nn.Module):
         """Standard layer; returns (h, (k, v, attn_out, mlp_out))."""
         eps = cfg.layer_norm_eps
         hn = layer_norm(h, self.ln1_w, self.ln1_b, eps)
-        k = hn @ self.wk + self.bk
-        q = hn @ self.wq + self.bq
+        k = self._rope(hn @ self.wk + self.bk)
+        q = self._rope(hn @ self.wq + self.bq)
         v = hn @ self.wv + self.bv
         attn = self._out(_attn_full(q, k, v, self._heads(cfg)))
         h = h + attn
@@ -222,7 +234,7 @@ class SiglipLayer(nn.Module):
         k_proxy = k_proxy_rank if sim_source == "key" else 0
         hn = layer_norm(h, self.ln1_w, self.ln1_b, eps)
         if sim_source == "value":
-            k_full = hn @ self.wk + self.bk
+            k_full = self._rope(hn @ self.wk + self.bk)
             v_fresh = hn @ self.wv + self.bv
             sim = key_similarity(v_fresh, ref_v, self.tp)
         elif k_proxy:
@@ -242,7 +254,7 @@ class SiglipLayer(nn.Module):
                 sim = key_similarity(fresh, ref)
             k_full = None
         else:
-            k_full = hn @ self.wk + self.bk
+            k_full = self._rope(hn @ self.wk + self.bk)
             sim = key_similarity(k_full, ref_k, self.tp)
         _, upd = topk_lowest(-sim, num_update)
         upd = torch.sort(upd, dim=-1).values                    # (F, U)
@@ -252,7 +264,7 @@ class SiglipLayer(nn.Module):
             return _scatter_tokens(h + ref, upd, h[frow, upd] + vals)
 
         toks = hn[frow, upd]                                    # (F, U, C)
-        q_sel = toks @ self.wq + self.bq
+        q_sel = self._rope(toks @ self.wq + self.bq, upd)
         if sim_source == "value":  # attention against the fresh V
             attn_sel = _attn_full(q_sel, k_full, v_fresh, self._heads(cfg))
         else:

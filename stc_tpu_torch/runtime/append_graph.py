@@ -28,14 +28,14 @@ decides how from what it can see:
 - replayed on every later call: the features are copied, and cast, into
   the static input, then one graph launch.
 
-A replay does not pass the stream_attention wrapper, so each replay adds
-the launches recorded at capture to its counters, and the counters are
-put back as they were before the capture, whose wrapper calls launched
-nothing.  ``pool_bytes`` is the device memory the last capture reserved
-(the graph's pool).  The LM's weights are read where they lie: they keep
-their storage for the session's life (the session quantizes them at
-build).  utils/metrics counts the appends by how they ran
-(``count_append``).
+A replay does not pass the stream_attention (or latent_attention)
+wrapper, so each replay adds the launches recorded at capture to its
+counters, and the counters are put back as they were before the capture,
+whose wrapper calls launched nothing.  ``pool_bytes`` is the device
+memory the last capture reserved (the graph's pool).  The LM's weights
+are read where they lie: they keep their storage for the session's life
+(the session quantizes them at build).  utils/metrics counts the appends
+by how they ran (``count_append``).
 """
 
 from __future__ import annotations
@@ -44,6 +44,7 @@ from typing import Optional
 
 import torch
 
+from stc_tpu_torch.ops import latent_attention as la
 from stc_tpu_torch.ops import stream_attention as sa
 from stc_tpu_torch.parallel import pipeline
 from stc_tpu_torch.utils import metrics
@@ -100,7 +101,7 @@ class AppendGraph:
         """Drop the graph held, its static tensors and its memory pool."""
         self._key = None
         self._graph = self._static_in = self._static_out = None
-        self._launches = ({}, 0)
+        self._launches = ({}, 0, 0)
         self.pool_bytes = 0  # device memory the last capture reserved
 
     def append(self, lm, rekv, kvs, x: torch.Tensor,
@@ -130,13 +131,15 @@ class AppendGraph:
                                            active)
         self._static_in.copy_(x)
         self._graph.replay()
-        sa.add_launches(*self._launches)
+        sa.add_launches(*self._launches[:2])
+        la.add_launches(self._launches[2])
         return self._static_out
 
     def _capture(self, lm, rekv, kvs, x):
         dev = x.device
         self._static_in = torch.empty(x.shape, dtype=lm.dtype, device=dev)
         by_kind, masked = dict(sa.launches), sa.masked_launches
+        latent = la.launches
         reserved = torch.cuda.memory_reserved(dev)
         graph = torch.cuda.CUDAGraph()
 
@@ -151,8 +154,9 @@ class AppendGraph:
             self._static_out = _on_side_stream(dev, capture)
         finally:  # the wrapper calls of the capture launched nothing
             recorded = ({k: n - by_kind[k] for k, n in sa.launches.items()},
-                        sa.masked_launches - masked)
+                        sa.masked_launches - masked, la.launches - latent)
             sa.launches.update(by_kind)
             sa.masked_launches = masked
+            la.launches = latent
         self._graph, self._launches = graph, recorded
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved

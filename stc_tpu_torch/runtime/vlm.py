@@ -358,8 +358,9 @@ class VLMSession(StreamingSession):
         appends write, and the counters, are saved before and written back
         after (engine.save_append_slots).  Nothing is evicted."""
         n = self.scfg.encode_chunk_frames
-        hw = self.vision.cfg.vision.image_size
-        pixels = torch.zeros((n * self.batch, hw, hw, 3), dtype=torch.uint8,
+        v = self.vision.cfg.vision
+        h, w = getattr(v, "image_hw", (v.image_size, v.image_size))
+        pixels = torch.zeros((n * self.batch, h, w, 3), dtype=torch.uint8,
                              device=self.device)
         path = self.vision.cached if cached else self.vision.full
 

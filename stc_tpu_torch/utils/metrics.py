@@ -33,6 +33,11 @@ The append counts say how each streaming append of a pixel session ran
 (runtime/append_graph.py): replayed from a CUDA graph captured earlier,
 captured (and then replayed once), or eager, by the reason that sent it
 eager.  ``append_hit_share`` is the share of appends that were replays.
+
+An MoE language model (models/deepseek_v3.py) keeps its routing counters
+on the device, added to inside every video append (a CUDA graph's replays
+included): ``moe_counts(lm)`` reads them to the host with one sync, and
+``reset_moe_counts(lm)`` zeroes them on the device.
 """
 
 from __future__ import annotations
@@ -237,3 +242,21 @@ def append_hit_share() -> Optional[float]:
     n = _appends["replays"] + _appends["captures"] + sum(
         _appends["eager"].values())
     return _appends["replays"] / n if n else None
+
+
+def moe_counts(lm) -> Dict[str, object]:
+    """An MoE LM's routing since its last reset, on the host: ``tokens``
+    (layers, experts) int64, the tokens routed to each expert; ``hits``
+    (layers,) int64, the experts each layer hit (routed a token to),
+    summed over the appends; ``appends``, the video appends counted.
+    Layers before the first MoE layer read 0."""
+    L, n = lm.expert_tokens.shape
+    flat = torch.cat([lm.expert_tokens.reshape(-1), lm.expert_hits,
+                      lm.moe_appends.reshape(1)]).cpu()
+    return dict(tokens=flat[:L * n].reshape(L, n), hits=flat[L * n:-1],
+                appends=int(flat[-1]))
+
+
+def reset_moe_counts(lm) -> None:
+    for t in (lm.expert_tokens, lm.expert_hits, lm.moe_appends):
+        t.zero_()

@@ -1289,3 +1289,132 @@ def test_append_graph_recaptures_after_clear_cache_on_card(cuda_device):
     assert metrics.append_counts() == dict(
         replays=12, captures=3, eager={"warmup": 3, "flops": 1})
     metrics.reset_append_counts()
+
+
+# ---------------------------------------------------------------------------
+# Kimi-VL: latent attention and the expert LM on the card
+# ---------------------------------------------------------------------------
+
+def _kimi_card_model(dev):
+    import chip_smoke
+    return chip_smoke.kimi_card_model(dev)
+
+
+def _kimi_card_cfg():
+    import chip_smoke
+    return chip_smoke.kimi_card_cfg()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_pages", [0, 300], ids=["empty", "full"])
+def test_latent_attention_agrees_with_plain_on_card(cuda_device, n_pages):
+    """The latent kernel against its plain version at the kimivl-ingest
+    cell's shapes (T 60, 16 heads, 576-wide rows, n_local 15000): a window
+    of the append's own page, and a full one (300 pages, the init rows at
+    the one angle active); one launch counted a call."""
+    import chip_smoke
+    from stc_tpu_torch.ops import latent_attention as la
+    args, kw = chip_smoke.latent_operands(cuda_device, n_pages)
+    want = la.latent_attention_ref(*args, **kw)
+    n0 = la.launches
+    assert_agrees(la.latent_attention(*args, **kw), want)
+    assert la.launches == n0 + 1
+
+
+@pytest.mark.cuda
+def test_latent_attention_planted_faults_rejected_on_card(cuda_device):
+    """Each planted fault (a page dropped, the far init group dropped, the
+    window one page late, a RoPE over dims 0-511 of the queries) makes the
+    kernel's output fail agreement.py's limits against the plain version
+    of the true operands."""
+    import chip_smoke
+    from stc_tpu_torch.ops import latent_attention as la
+    args, kw = chip_smoke.latent_operands(cuda_device, 300)
+    want = la.latent_attention_ref(*args, **kw)
+    for name, fargs in chip_smoke.latent_faults(args):
+        d = disagreement(la.latent_attention(*fargs, **kw), want)
+        assert not d["agrees"], (name, d)
+
+
+@pytest.mark.cuda
+def test_kimi_append_graph_equals_eager_on_card(cuda_device):
+    """66 one-page appends of the Kimi LM through the graph and eagerly,
+    side by side: hidden states, every store tensor, the router's choices
+    and counts and the latent_attention counter agree bit for bit after
+    every append; after the warm-up and the capture, the 64 appends of the
+    stream are all replays (hit share 1 >= 0.99), and a replayed append
+    and an eager one make no host sync."""
+    from stc_tpu_torch.ops import latent_attention as la
+    from stc_tpu_torch.parallel import pipeline
+    from stc_tpu_torch.runtime.append_graph import AppendGraph
+    from stc_tpu_torch.utils import metrics
+    lm = _kimi_card_model(cuda_device).text
+    cfg = _kimi_card_cfg().rekv
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    ids = torch.randint(0, 512, (1, cfg.n_init), generator=gen,
+                        device=cuda_device)
+    stores = []
+    for _ in range(2):
+        kvs = lm.init_stream_state(cfg, 1)
+        lm.encode_step(cfg, kvs, lm.embed_tokens(ids), is_init=True)
+        stores.append(kvs)
+    eager, graphed = stores
+    graph = AppendGraph()
+    for step in range(66):
+        if step == 2:
+            metrics.reset_append_counts()
+        x = torch.randn((1, cfg.block_size, 256), generator=gen,
+                        device=cuda_device)
+        c0 = la.launches
+        metrics.reset_moe_counts(lm)
+        want = pipeline.pp_encode_step(lm, cfg, eager, x.to(lm.dtype))
+        route, counts_eager = lm.route.clone(), metrics.moe_counts(lm)
+        c1 = la.launches
+        metrics.reset_moe_counts(lm)
+        if step == 65:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = graph.append(lm, cfg, graphed, x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert la.launches - c1 == c1 - c0 == 3, step
+        assert torch.equal(got, want), step
+        assert torch.equal(lm.route, route), step
+        counts = metrics.moe_counts(lm)
+        assert counts["appends"] == counts_eager["appends"] == 1, step
+        for name in ("tokens", "hits"):
+            assert torch.equal(counts[name], counts_eager[name]), step
+        for a, b in zip(graphed, eager):
+            assert torch.equal(a, b), step
+    assert metrics.append_counts() == dict(replays=64, captures=0, eager={})
+    assert metrics.append_hit_share() >= 0.99
+    # an eager routing pass makes no host sync either
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pipeline.pp_encode_step(lm, cfg, eager, x.to(lm.dtype))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+def test_kimi_question_answering_raises_on_card(cuda_device):
+    """A Kimi-VL session streams on the card, every append after the
+    first two replayed; question_answering raises the error that names the
+    open item (no latent decode kernel), and the session streams on."""
+    from stc_tpu_torch.kvcache.latent import LATENT_DECODE_ON_CARD
+    from stc_tpu_torch.models import kimi_vl as kv
+    from stc_tpu_torch.utils import metrics
+    sess = kv.build_session(_kimi_card_model(cuda_device), _kimi_card_cfg(),
+                            device=cuda_device)
+    frames = np.random.default_rng(0).integers(0, 256, (6, 50, 80, 3),
+                                               dtype=np.uint8)
+    metrics.reset_append_counts()
+    sess.encode_init_prompt([1, 2, 3, 4])
+    sess.encode_video(frames)
+    with pytest.raises(NotImplementedError) as err:
+        sess.question_answering([5, 6], [7], [0], max_new_tokens=2)
+    assert str(err.value) == LATENT_DECODE_ON_CARD
+    sess.encode_video(frames[:2])
+    assert metrics.append_counts() == dict(replays=6, captures=1,
+                                           eager={"warmup": 1})
+    assert int(sess.kvs.num_blocks[0, 0]) == 8

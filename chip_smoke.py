@@ -49,13 +49,19 @@ each of which makes the script exit non-zero when it fails:
      prompt, 16 one-frame chunks, two 8-frame chunks, two questions, four
      more frames, one more question; its kernel launch counts against the
      appends and LM forwards it ran, and its appends' CUDA graph
-     (runtime/append_graph.py) warmed up, captured and replayed as each
-     run of one chunk shape should;
+     (runtime/append_graph.py) and its tower paths' graphs
+     (runtime/vision_graph.py) warmed up, captured and replayed as each
+     run of one chunk shape should; then the tower graphs over a stream
+     shaped like the ov7b-ingest cell (600 one-frame chunks of 360 x 640
+     frames): every call after a key's warm-up and capture a replay (hit
+     share at least 0.99), and the vision time a frame against the same
+     chunks with the towers eager;
   4. a second session (n_local 1200) that crosses the init-fill trigger,
      with its own launch counts;
   5. where the time goes: device time per part of a chunk (the append
-     timed whole, a graph replay, and again on chunks whose appends run
-     eager, stream_attention timed inside) and a question, and the
+     and the tower paths timed whole, graph replays, and again on chunks
+     whose appends and towers run eager, stream_attention timed inside)
+     and a question, and the
      device's busy share of each, measured by issuing the same call
      behind a sleep kernel (an LM append layer on an eager append);
   6. the session at llava-ov-7b width (Qwen2 3584 x 28 layers, 28/4 heads
@@ -1914,7 +1920,8 @@ class VisionLog:
     """What the vision path selected, call by call: each cached layer's
     key similarities (one record per layer and stream) and each pruner
     call's channel variances and order, combined token scores and keeps.
-    Used to find where a batch-4 slot and its batch-1 twin first part."""
+    Used to find where a batch-4 slot and its batch-1 twin first part.
+    While it captures, the towers run eager (a replay calls no layer)."""
 
     def __init__(self):
         self.sims, self.prunes = [], []
@@ -1958,7 +1965,7 @@ class VisionLog:
             return g
 
         with patched([(sg, "key_similarity", sims),
-                      (lo, "stc_prune", prune)]):
+                      (lo, "stc_prune", prune)]), eager_vision():
             yield
 
 
@@ -2901,6 +2908,17 @@ def eager_appends(sess):
         yield
 
 
+@contextlib.contextmanager
+def eager_vision():
+    """While the block runs, the towers' paths run their eager body (what
+    the vision graphs replay): patches inside a tower see every call."""
+    from stc_tpu_torch.runtime import vision_graph
+
+    with patched([(vision_graph, "run",
+                   lambda f: lambda path, fn, x, *a, **k: fn(x))]):
+        yield
+
+
 def replays_into(box, key):
     """A patched() entry that adds to box[key] the encode_step calls each
     replay of an append graph stands for (one a exc_block_size
@@ -2921,17 +2939,83 @@ def replays_into(box, key):
     return (AppendGraph, "append", wrap)
 
 
+def vision_graph_phase(model, card, dev, n_chunks: int = 600,
+                       n_eager: int = 40) -> dict:
+    """The tower graphs over a stream shaped like the ov7b-ingest cell: a
+    session over `model` (phase 3's SigLIP and LM) with one-frame chunks,
+    cache interval 2 and the cell's 250-page window streams n_chunks
+    frames of 360 x 640 (32 seeded frames in turn) after its init prompt.
+    Gates: every tower call after a key's warm-up and capture is a replay
+    (hit share at least 0.99, no eager reason but the warm-ups).  Times
+    (CUDA events around the pipeline's full / cached calls, as the
+    benchmark's vision_ms_per_frame; host clock around each chunk, which
+    ends in a synchronize) on the chunks after the first ten, then on
+    n_eager more chunks with the towers eager, the same session."""
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.utils import metrics
+    t_phase = time.perf_counter()
+    sess = lo.build_session(model, session_cfg(15000, 64, 256, 16, 1, 1024),
+                            state_dtype=torch.bfloat16, device=dev)
+    frames = np.random.default_rng(3).integers(
+        0, 256, size=(32,) + EVAL_HW + (3,), dtype=np.uint8)
+    targets = [(sess.vision, "full", "vision"),
+               (sess.vision, "cached", "vision")]
+    sess.encode_init_prompt(list(range(100, 114)))
+    metrics.reset_vision_counts()
+    nxt = iter(range(10 ** 6))
+
+    def chunks(n):
+        out = {"full": [], "cached": []}
+        for _ in range(n):
+            k = next(nxt)
+            path = "cached" if sess._slot_chunk[0] % 2 else "full"
+            rec = segments(lambda: sess.encode_video(frames[k % 32][None]),
+                           targets)
+            out[path].append((rec["vision_ms"], rec["wall_ms"]))
+        return out
+
+    graphed = chunks(n_chunks)
+    counts = metrics.vision_counts()
+    share = metrics.vision_hit_share()
+    with eager_vision():
+        eager = chunks(n_eager)
+
+    def per_frame(runs, skip):
+        rows = [r for p in ("full", "cached") for r in runs[p][skip:]]
+        return {"vision_ms_per_frame": float(np.mean([v for v, _ in rows])),
+                "chunk_ms_mean": float(np.mean([w for _, w in rows])),
+                "full_vision_ms_p50": p50([v for v, _ in runs["full"][skip:]]),
+                "cached_vision_ms_p50": p50(
+                    [v for v, _ in runs["cached"][skip:]])}
+
+    rec = {"phase": "vision graphs, cell-shaped stream", "card": card,
+           "chunks": n_chunks, "frames_hw": list(EVAL_HW),
+           "vision_graphs": counts, "hit_share": share,
+           "pool_bytes": dict(sess.vision_graph.pool_bytes),
+           "graphed": per_frame(graphed, 5),
+           "eager_chunks": n_eager, "eager": per_frame(eager, 0),
+           "ok": bool(share is not None and share >= 0.99
+                      and set(counts["eager"]) <= {"warmup"})}
+    rec["vision_speedup"] = (rec["eager"]["vision_ms_per_frame"]
+                             / rec["graphed"]["vision_ms_per_frame"])
+    del sess
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_phase
+    return rec
+
+
 def chunk_splits(sess, chunk, targets, n) -> tuple:
     """segments() of n chunks on the main path, the append timed whole at
-    sess._append_flat ("lm_append"), then of n chunks with the appends
-    eager, the LM's encode_step ("lm_append") and stream_attention's
-    launches ("stream_attention_kernel") timed inside.  A session's chunk
-    count alternates the vision paths, so for an even n both lists take
-    them in the same order."""
+    sess._append_flat ("lm_append"), then of n chunks with the appends and
+    the towers eager, the LM's encode_step ("lm_append") and
+    stream_attention's launches ("stream_attention_kernel") timed inside
+    (and the targets inside a tower, which a replay does not call).  A
+    session's chunk count alternates the vision paths, so for an even n
+    both lists take them in the same order."""
     from stc_tpu_torch.ops import stream_attention as sa
     main = [segments(chunk, targets + [(sess, "_append_flat", "lm_append")])
             for _ in range(n)]
-    with eager_appends(sess):
+    with eager_appends(sess), eager_vision():
         eager = [segments(chunk, targets + [
             (sess.lm, "encode_step", "lm_append"),
             (sa, "_launch", "stream_attention_kernel")]) for _ in range(n)]
@@ -3046,6 +3130,7 @@ def clip_backbone_run(case, mod_name, n_frames, chunk, stop, card,
     from stc_tpu_torch.models.longva import ClipVLM
     from stc_tpu_torch.ops import decode_attention as da
     from stc_tpu_torch.ops import stream_attention as sa
+    from stc_tpu_torch.utils import metrics
     t_phase = time.perf_counter()
     mod = importlib.import_module(f"stc_tpu_torch.models.{mod_name}")
     cfg_cls = {"longva": "LongVAConfig", "video_llava": "VideoLlavaConfig",
@@ -3067,6 +3152,7 @@ def clip_backbone_run(case, mod_name, n_frames, chunk, stop, card,
         0, 256, size=(n_frames, vc.image_size, vc.image_size, 3),
         dtype=np.uint8)
     reset_counts()
+    metrics.reset_vision_counts()
     sess.encode_init_prompt(list(range(100, 100 + rekv.n_init)))
     chunks, init_active = [], []
     rows_skipped = rows_processed = 0
@@ -3086,6 +3172,18 @@ def clip_backbone_run(case, mod_name, n_frames, chunk, stop, card,
                             for r in model.vision.last_rows
                             if r is not None)
     n_pages = int(sess.kvs.num_blocks[0, 0].item())
+    # the tower graphs: one chunk shape; with the cacher the full path warms
+    # up and captures, the cached one warms up twice (the second time on the
+    # full graph's references) and captures; the rest replay
+    vision = metrics.vision_counts()
+    n_chunks = -(-n_frames // chunk)
+    vision_want = ({"replays": n_chunks - 5, "captures": 2,
+                    "eager": {"warmup": 3}} if scfg.cacher.enabled else
+                   {"replays": n_chunks - 2, "captures": 1,
+                    "eager": {"warmup": 1}})
+    if vision != vision_want:
+        raise RuntimeError(f"phase 14 ({case}) vision graphs {vision} != "
+                           f"expected {vision_want}")
     qa_s, answers, lm_forwards = [], [], 0
     captured = {}
 
@@ -3196,7 +3294,7 @@ def clip_backbone_run(case, mod_name, n_frames, chunk, stop, card,
            "first_init_active_frame": k_init,
            "answers": answers, "answer_tokens": [len(a) for a in answers],
            "lm_forwards": lm_forwards, "launches": counts,
-           "expected": want, "cache_stats": stats,
+           "expected": want, "cache_stats": stats, "vision_graphs": vision,
            "frames_per_s": fps(None),
            "frames_per_s_full_chunks": fps("full"),
            "frames_per_s_cached_chunks": fps("cached"),
@@ -4970,7 +5068,9 @@ def kimi_session_launches(dev, n_frames: int = 8) -> dict:
     """kimi_card_model's session streams n_frames one-frame chunks on the
     card (build_session, encode_init_prompt, encode_video): the
     latent_attention launches counted from just before the chunks (one
-    per append and layer), the appends' replays, and the routing
+    per append and layer), the appends' replays, MoonViT's graph runs
+    (each path warms up and captures, the cached one warms up again on the
+    full graph's references; the rest replay), and the routing
     counters."""
     from stc_tpu_torch.models import kimi_vl as kv
     from stc_tpu_torch.ops import latent_attention as la
@@ -4981,6 +5081,7 @@ def kimi_session_launches(dev, n_frames: int = 8) -> dict:
                                                dtype=np.uint8)
     sess.encode_init_prompt([1, 2, 3, 4])
     metrics.reset_append_counts()
+    metrics.reset_vision_counts()
     metrics.reset_moe_counts(sess.lm)
     n0 = la.launches
     for f in frames:
@@ -4989,12 +5090,16 @@ def kimi_session_launches(dev, n_frames: int = 8) -> dict:
     n = la.launches - n0
     layers = sess.lm.cfg.num_layers
     moe = metrics.moe_counts(sess.lm)
+    vision = metrics.vision_counts()
+    vision_want = {"replays": n_frames - 5, "captures": 2,
+                   "eager": {"warmup": 3}}
     return {"frames": n_frames, "latent_attention": n,
             "appends_x_layers": n_frames * layers,
-            "appends": metrics.append_counts(),
+            "appends": metrics.append_counts(), "vision_graphs": vision,
             "routing_appends": moe["appends"],
             "experts_hit": moe["hits"].tolist(),
-            "ok": n == n_frames * layers and moe["appends"] == n_frames}
+            "ok": n == n_frames * layers and moe["appends"] == n_frames
+            and vision == vision_want}
 
 
 def moe_layer_times(dev, T: int = 60) -> dict:
@@ -5249,6 +5354,7 @@ def main() -> int:
     lm_forwards = 0
     reset_counts()
     metrics.reset_append_counts()
+    metrics.reset_vision_counts()
     sess.encode_init_prompt(list(range(100, 114)))
     chunk_s = []
     for i in range(16):
@@ -5291,6 +5397,17 @@ def main() -> int:
     if graph != graph_want:
         raise RuntimeError(f"main path append graph {graph} != expected "
                            f"{graph_want}")
+    # the tower graphs, each path its own: the 16 one-frame chunks' full
+    # path warms up, captures, replays 6; their cached path warms up twice
+    # (the second time on the references the full graph holds, from chunk
+    # 2), captures, replays 5; each 8-frame path warms up once; the last
+    # four one-frame chunks warm up both paths, capture the full one and
+    # warm up the cached one again
+    vision = metrics.vision_counts()
+    vision_want = {"replays": 11, "captures": 3, "eager": {"warmup": 8}}
+    if vision != vision_want:
+        raise RuntimeError(f"main path vision graphs {vision} != expected "
+                           f"{vision_want}")
     nb = int(sess.kvs.num_blocks[0, 0].item())
     if nb != 36 or sess._total_blocks != 36:
         raise RuntimeError(f"num_blocks {nb} != 36 frames sent")
@@ -5304,6 +5421,7 @@ def main() -> int:
           "frames": nb, "answers": answers,
           "appends": n_append, "lm_forwards": lm_forwards,
           "launches": launches, "expected": want, "append_graph": graph,
+          "vision_graphs": vision,
           "ingest_fps_1frame_chunks": len(one) / sum(one),
           "ingest_fps_8frame_chunks": 8 * len(eight) / sum(eight),
           "qa_latency_s_mean": float(np.mean(qa_s)),
@@ -5314,6 +5432,11 @@ def main() -> int:
           "seconds": time.perf_counter() - t_phase}
     emit(p3)
     RECORD["phases"]["session"] = p3
+    p3v = vision_graph_phase(model, card, dev)
+    emit(p3v)
+    RECORD["phases"]["vision_graphs"] = p3v
+    if not p3v["ok"]:
+        raise RuntimeError(f"vision graphs over a cell-shaped stream {p3v}")
 
     # ---- phase 4: crossing the init-fill trigger ----
     t_phase = time.perf_counter()
@@ -5412,8 +5535,10 @@ def main() -> int:
         vl = model.vision.layers[n_v * frac // 4]
         vf, vc = ([(vl, "full")], (vl, "full")), ([(vl, "cached")],
                                                   (vl, "cached"))
-        u = [probe(chunk, *vf), probe(chunk, *vc)]
-        f = [probe(chunk, *vf, sleep=True), probe(chunk, *vc, sleep=True)]
+        with eager_vision():  # a replay calls no layer
+            u = [probe(chunk, *vf), probe(chunk, *vc)]
+            f = [probe(chunk, *vf, sleep=True),
+                 probe(chunk, *vc, sleep=True)]
         pairs["vision_layer_full"].append((u[0], f[0]))
         pairs["vision_layer_cached"].append((u[1], f[1]))
         li = n_t * frac // 4 + 1          # the nth _qkv call of a run

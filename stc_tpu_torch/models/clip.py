@@ -26,6 +26,10 @@ frame and each stream's frames compare against its own.  Attention keeps
 the JAX package's rounding points: both products accumulate in float32,
 the probabilities round to the input dtype before P @ V
 (siglip._attn_full).
+
+On a CUDA card each path replays one CUDA graph where
+runtime/vision_graph.py finds the call eligible; the counters advance
+outside it, as eager, and the features and last_rows are copies.
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ from torch import nn
 from stc_tpu_torch.device import resolve_device
 from stc_tpu_torch.models.siglip import _attn_full, layer_norm
 from stc_tpu_torch.ops.topk import topk_lowest
+from stc_tpu_torch.runtime import vision_graph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -306,24 +311,31 @@ class CLIP(nn.Module):
         layer's references refreshed from each stream's last frame)."""
         eps, H = self.cfg.layer_norm_eps, self.cfg.num_heads
         n_out = self._n_out(feature_layer)
-        h = self.embed(pixels)
-        F_, T, C = h.shape
         B = n_streams
-        out = torch.zeros_like(h)
-        pre, post = [], []
-        for i, lp in enumerate(self.layers):
-            h = h + lp.attn(layer_norm(h, lp.ln1_w, lp.ln1_b, eps), H)
-            residual2 = h
-            mlp = lp.mlp(layer_norm(h, lp.ln2_w, lp.ln2_b, eps))
-            h = residual2 + mlp
-            if i + 1 == n_out:
-                out = h
-            pre.append(residual2.reshape(B, F_ // B, T, C)[:, -1])
-            post.append(mlp.reshape(B, F_ // B, T, C)[:, -1])
+
+        def run(px):
+            h = self.embed(px)
+            F_, T, C = h.shape
+            out = torch.zeros_like(h)
+            pre, post = [], []
+            for i, lp in enumerate(self.layers):
+                h = h + lp.attn(layer_norm(h, lp.ln1_w, lp.ln1_b, eps), H)
+                residual2 = h
+                mlp = lp.mlp(layer_norm(h, lp.ln2_w, lp.ln2_b, eps))
+                h = residual2 + mlp
+                if i + 1 == n_out:
+                    out = h
+                pre.append(residual2.reshape(B, F_ // B, T, C)[:, -1])
+                post.append(mlp.reshape(B, F_ // B, T, C)[:, -1])
+            return out, torch.stack(pre), torch.stack(post)
+
+        out, pre, post = vision_graph.run(
+            "full", run, pixels, (feature_layer, n_streams), keep=(1, 2))
         return out, cacher._replace(
-            ref_pre_ln2=torch.stack(pre), ref_mlp_post=torch.stack(post),
+            ref_pre_ln2=pre, ref_mlp_post=post,
             has_ref=torch.ones_like(cacher.has_ref),
-            tokens_processed=cacher.tokens_processed + (F_ // B) * T)
+            tokens_processed=cacher.tokens_processed
+            + (pixels.shape[0] // B) * self.cfg.num_tokens)
 
     @torch.no_grad()
     def encode_cached(self, pixels: torch.Tensor, cacher: ClipCacherState,
@@ -336,37 +348,47 @@ class CLIP(nn.Module):
         the references stay); last_rows keeps each layer's computed rows."""
         eps, H = self.cfg.layer_norm_eps, self.cfg.num_heads
         n_out = self._n_out(feature_layer)
-        h = self.embed(pixels)
-        F_, T, C = h.shape
-        Fs = F_ // n_streams  # frames per stream
+        Fs = pixels.shape[0] // n_streams  # frames per stream
         n_skips = skip_counts(self.cfg, skip_ratio, ratio_strategy)
-        frow = torch.arange(F_, device=h.device)[:, None]
-        out = torch.zeros_like(h)
-        skipped = 0
-        self.last_rows = []
-        for i, lp in enumerate(self.layers):
-            h = h + lp.attn(layer_norm(h, lp.ln1_w, lp.ln1_b, eps), H)
-            residual2 = h
-            n_skip = n_skips[i]
-            if n_skip == 0:
-                h = residual2 + lp.mlp(layer_norm(h, lp.ln2_w, lp.ln2_b,
-                                                  eps))
-                self.last_rows.append(None)
-            else:
-                # each frame against its own stream's reference
-                ref_pre = cacher.ref_pre_ln2[i].repeat_interleave(Fs, dim=0)
-                ref_mlp = cacher.ref_mlp_post[i].repeat_interleave(Fs, dim=0)
-                comp = recompute_rows(
-                    residual_similarity(residual2, ref_pre), T - n_skip)
-                toks = lp.mlp(layer_norm(h[frow, comp], lp.ln2_w, lp.ln2_b,
-                                         eps))
-                mlp_full = ref_mlp.to(h.dtype, copy=True)
-                mlp_full[frow, comp] = toks
-                h = residual2 + mlp_full
-                skipped += Fs * n_skip
-                self.last_rows.append(comp)
-            if i + 1 == n_out:
-                out = h
+
+        def run(px):
+            h = self.embed(px)
+            F_, T, C = h.shape
+            frow = torch.arange(F_, device=h.device)[:, None]
+            out = torch.zeros_like(h)
+            rows = []
+            for i, lp in enumerate(self.layers):
+                h = h + lp.attn(layer_norm(h, lp.ln1_w, lp.ln1_b, eps), H)
+                residual2 = h
+                n_skip = n_skips[i]
+                if n_skip == 0:
+                    h = residual2 + lp.mlp(layer_norm(h, lp.ln2_w, lp.ln2_b,
+                                                      eps))
+                else:
+                    # each frame against its own stream's reference
+                    ref_pre = cacher.ref_pre_ln2[i].repeat_interleave(Fs,
+                                                                      dim=0)
+                    ref_mlp = cacher.ref_mlp_post[i].repeat_interleave(Fs,
+                                                                       dim=0)
+                    comp = recompute_rows(
+                        residual_similarity(residual2, ref_pre), T - n_skip)
+                    toks = lp.mlp(layer_norm(h[frow, comp], lp.ln2_w,
+                                             lp.ln2_b, eps))
+                    mlp_full = ref_mlp.to(h.dtype, copy=True)
+                    mlp_full[frow, comp] = toks
+                    h = residual2 + mlp_full
+                    rows.append(comp)
+                if i + 1 == n_out:
+                    out = h
+            return (out, *rows)
+
+        out, *rows = vision_graph.run(
+            "cached", run, pixels,
+            (skip_ratio, ratio_strategy, feature_layer, n_streams),
+            (cacher.ref_pre_ln2, cacher.ref_mlp_post))
+        rows = iter(rows)
+        self.last_rows = [next(rows) if n else None for n in n_skips]
         return out, cacher._replace(
-            tokens_processed=cacher.tokens_processed + Fs * T,
-            tokens_skipped=cacher.tokens_skipped + skipped)
+            tokens_processed=cacher.tokens_processed
+            + Fs * self.cfg.num_tokens,
+            tokens_skipped=cacher.tokens_skipped + Fs * sum(n_skips))

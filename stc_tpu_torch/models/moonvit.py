@@ -130,17 +130,11 @@ class MoonViT(sg.Siglip):
                              self.cfg.layer_norm_eps)
 
     @torch.no_grad()
-    def encode_full(self, pixels: torch.Tensor, n_streams: int = 1):
-        h, refs = super().encode_full(pixels, n_streams)
-        return self._final(h), refs
-
-    @torch.no_grad()
     def encode_cached(self, pixels: torch.Tensor, cacher, update_ratio,
                       n_streams: int = 1, sim_source: str = "key",
                       k_proxy_rank: int = 0):
         if k_proxy_rank:
             raise ValueError("MoonViT's cacher gates on the rotated keys: "
                              "k_proxy_rank is not supported")
-        h, sel = super().encode_cached(pixels, cacher, update_ratio,
-                                       n_streams, sim_source, 0)
-        return self._final(h), sel
+        return super().encode_cached(pixels, cacher, update_ratio, n_streams,
+                                     sim_source, 0)

@@ -28,6 +28,11 @@ the unrotated ones.
 The port gathers rows by index (the JAX package's one-hot gather exists
 only for TPU costs and gives the same numbers).
 
+On a CUDA card each path replays one CUDA graph where
+runtime/vision_graph.py finds the call eligible: the references a full
+chunk returns are then the graph's, rewritten by its next replay, and the
+features and selections are copies.
+
 Under tp (``parallel.sharding.shard_module``) each rank holds num_heads/tp
 heads of q/k/v and a 1/tp share of the MLP hidden, with one all_reduce
 after ``wo`` and one after ``fc2``; the cacher's K and V references are
@@ -50,6 +55,7 @@ import torch.nn.functional as F
 
 from stc_tpu_torch.device import resolve_device
 from stc_tpu_torch.ops.topk import topk_lowest
+from stc_tpu_torch.runtime import vision_graph
 
 
 @dataclasses.dataclass(frozen=True)
@@ -370,20 +376,31 @@ class Siglip(nn.Module):
         x = x.permute(0, 2, 4, 1, 3, 5).reshape(B, g * g, 3 * P * P)
         return x @ self.patch_w + self.patch_b + self.pos_embed
 
+    def _final(self, h):
+        """The features from the last layer's output (SigLIP's as they
+        are; MoonViT applies its final LayerNorm)."""
+        return h
+
     @torch.no_grad()
     def encode_full(self, pixels: torch.Tensor, n_streams: int = 1):
         """Full chunk of (B * F) stream-major frames: returns (features
         (B * F, T, C) of the last layer, the refreshed CacherState (L, B,
         T, C) from each stream's last frame)."""
-        h = self.patch_embed(pixels)
-        T, C = self.cfg.num_tokens, self.cfg.hidden_size
-        refs = []
-        for lp in self.layers:
-            h, saved = lp.full(h, self.cfg)
-            refs.append([x.reshape(n_streams, -1, T, x.shape[-1])[:, -1]
-                         for x in saved])
-        return h, CacherState(*(torch.stack([r[j] for r in refs])
-                                for j in range(4)))
+        T = self.cfg.num_tokens
+
+        def run(px):
+            h = self.patch_embed(px)
+            refs = []
+            for lp in self.layers:
+                h, saved = lp.full(h, self.cfg)
+                refs.append([x.reshape(n_streams, -1, T, x.shape[-1])[:, -1]
+                             for x in saved])
+            return (self._final(h),) + tuple(
+                torch.stack([r[j] for r in refs]) for j in range(4))
+
+        h, *refs = vision_graph.run("full", run, pixels, (n_streams,),
+                                    keep=(1, 2, 3, 4))
+        return h, CacherState(*refs)
 
     @torch.no_grad()
     def encode_cached(self, pixels: torch.Tensor, cacher: CacherState,
@@ -395,18 +412,24 @@ class Siglip(nn.Module):
         (L, B * F, U)); the cacher state is unchanged."""
         T = self.cfg.num_tokens
         num_update = max(1, min(int(T * update_ratio), T))
-        h = self.patch_embed(pixels)
-        F_ = h.shape[0] // n_streams
-        sel = []
-        for i, lp in enumerate(self.layers):
-            hs, ups = [], []
-            for b in range(n_streams):
-                hb, upd = lp.cached(h[b * F_:(b + 1) * F_],
-                                    tuple(x[i, b:b + 1] for x in cacher),
-                                    num_update, self.cfg, sim_source,
-                                    k_proxy_rank)
-                hs.append(hb)
-                ups.append(upd)
-            h = hs[0] if n_streams == 1 else torch.cat(hs)
-            sel.append(ups[0] if n_streams == 1 else torch.cat(ups))
-        return h, torch.stack(sel)
+
+        def run(px):
+            h = self.patch_embed(px)
+            F_ = h.shape[0] // n_streams
+            sel = []
+            for i, lp in enumerate(self.layers):
+                hs, ups = [], []
+                for b in range(n_streams):
+                    hb, upd = lp.cached(h[b * F_:(b + 1) * F_],
+                                        tuple(x[i, b:b + 1] for x in cacher),
+                                        num_update, self.cfg, sim_source,
+                                        k_proxy_rank)
+                    hs.append(hb)
+                    ups.append(upd)
+                h = hs[0] if n_streams == 1 else torch.cat(hs)
+                sel.append(ups[0] if n_streams == 1 else torch.cat(ups))
+            return self._final(h), torch.stack(sel)
+
+        return vision_graph.run(
+            "cached", run, pixels,
+            (update_ratio, n_streams, sim_source, k_proxy_rank), cacher)

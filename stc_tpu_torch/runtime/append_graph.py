@@ -76,10 +76,11 @@ def graph_key(kvs, x: torch.Tensor, rekv) -> tuple:
 _streams: dict = {}
 
 
-def _on_side_stream(dev, fn):
+def on_side_stream(dev, fn):
     """fn() on the card's side stream, ordered after and before the current
     stream's work: a warm-up there readies the stream (cuBLAS's workspace
-    for it) before a capture, which cannot run on the default stream."""
+    for it) before a capture, which cannot run on the default stream.  The
+    vision tower's graphs (runtime/vision_graph.py) share it."""
     side = _streams.get(dev)
     if side is None:
         side = _streams[dev] = torch.cuda.Stream(dev)
@@ -123,7 +124,7 @@ class AppendGraph:
                 how = "replay"
         metrics.count_append(how)
         if how == "warmup":
-            return _on_side_stream(
+            return on_side_stream(
                 x.device, lambda: pipeline.pp_encode_step(
                     lm, rekv, kvs, x.to(lm.dtype)))
         if how not in ("capture", "replay"):
@@ -151,7 +152,7 @@ class AppendGraph:
                 graph.capture_end()
 
         try:
-            self._static_out = _on_side_stream(dev, capture)
+            self._static_out = on_side_stream(dev, capture)
         finally:  # the wrapper calls of the capture launched nothing
             recorded = ({k: n - by_kind[k] for k, n in sa.launches.items()},
                         sa.masked_launches - masked, la.launches - latent)

@@ -24,7 +24,9 @@ and leaves the state as it was.  A chunk records the spans ``chunk``,
 ``vision.full`` / ``vision.cached`` and ``append`` while
 ``utils.metrics.tracing`` is on (LLaVA-OV's pipeline adds ``pruner``).
 On a CUDA card a chunk's LM append replays one CUDA graph where it can
-(runtime/append_graph.py).
+(runtime/append_graph.py), and so does each of the tower's two paths
+(runtime/vision_graph.py: the session owns those graphs and tells the
+tower what it cannot see of a tick).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch.nn.functional as F
 
 from stc_tpu_torch import native
 from stc_tpu_torch.kvcache import engine
+from stc_tpu_torch.runtime import vision_graph
 from stc_tpu_torch.runtime.append_graph import AppendGraph
 from stc_tpu_torch.runtime.session import StreamingSession
 from stc_tpu_torch.utils import metrics
@@ -209,15 +212,18 @@ class VLMSession(StreamingSession):
     def __init__(self, lm, scfg, vision: VisionPipeline,
                  state_dtype=torch.bfloat16, batch: int = 1, mesh=None):
         self.vision = vision
-        # the streaming append as a CUDA graph (_append_flat)
+        # the streaming append and the tower's paths as CUDA graphs
         self.append_graph = AppendGraph()
+        self.vision_graph = vision_graph.VisionGraph()
         super().__init__(lm, scfg, batch=batch, state_dtype=state_dtype,
                          mesh=mesh)
 
     def clear_cache(self):
-        # the graph's pool goes before the new store is made: it would
-        # otherwise sit on top of the two stores alive
+        # the graphs' pools (and the vision graphs' references) go before
+        # the new store and state are made: they would otherwise sit on top
+        # of the two stores alive
         self.append_graph.release()
+        self.vision_graph.release()
         super().clear_cache()
         self.chunk_idx = 0
         # each slot's chunk count (of all B): its cacher parity is its own
@@ -309,24 +315,28 @@ class VLMSession(StreamingSession):
             vis, vstate, pstate = self.vision, self._vstate, self._pstate
             px = vis.device_preprocess(
                 torch.as_tensor(pixels).to(self.device, non_blocking=True))
-            if ticking.any() and not ticking.all():
-                # the ticking slots disagree: both paths, each slot its own
-                with metrics.span("vision.full"):
-                    flat_f, v_f, p_f = vis.full(px, vstate, pstate)
-                with metrics.span("vision.cached"):
-                    flat_c, v_c, p_c = vis.cached(px, vstate, pstate)
-                need_full = torch.as_tensor(~self._mine(cached),
-                                            device=self.device)
-                flat = torch.where(need_full[:, None, None], flat_f,
-                                   flat_c)
-                new_v, new_p = vis.select_streams(v_f, p_f, v_c, p_c,
-                                                  need_full)
-            else:
-                on_cache = bool(ticking.size and ticking.all())
-                path = vis.cached if on_cache else vis.full
-                with metrics.span("vision.cached" if on_cache
-                                  else "vision.full"):
-                    flat, new_v, new_p = path(px, vstate, pstate)
+            mixed = bool(ticking.any() and not ticking.all())
+            held = vision_graph.held_reason(self.lm, act_dev, mixed)
+            with vision_graph.calls(self.vision_graph, held):
+                if mixed:
+                    # the ticking slots disagree: both paths, each slot its
+                    # own
+                    with metrics.span("vision.full"):
+                        flat_f, v_f, p_f = vis.full(px, vstate, pstate)
+                    with metrics.span("vision.cached"):
+                        flat_c, v_c, p_c = vis.cached(px, vstate, pstate)
+                    need_full = torch.as_tensor(~self._mine(cached),
+                                                device=self.device)
+                    flat = torch.where(need_full[:, None, None], flat_f,
+                                       flat_c)
+                    new_v, new_p = vis.select_streams(v_f, p_f, v_c, p_c,
+                                                      need_full)
+                else:
+                    on_cache = bool(ticking.size and ticking.all())
+                    path = vis.cached if on_cache else vis.full
+                    with metrics.span("vision.cached" if on_cache
+                                      else "vision.full"):
+                        flat, new_v, new_p = path(px, vstate, pstate)
             if act_dev is not None:
                 new_v, new_p = vis.select_streams(new_v, new_p, vstate,
                                                   pstate, act_dev)

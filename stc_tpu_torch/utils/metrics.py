@@ -3,7 +3,8 @@
 Per-frame latency percentiles, throughput and KV memory (``Timer``,
 ``StreamingStats``), the FLOPs of one call (``estimate_flops``), spans of
 the ingest path on the host clock (``tracing``, ``span``, ``take_spans``)
-and how each streaming append ran (``count_append``, ``append_counts``).
+and how each streaming append and vision tower call ran (``count_append``,
+``append_counts``; ``count_vision``, ``vision_counts``).
 
 ``Timer`` reads the host clock; on a CUDA device the caller passes a
 ``sync`` (``device_sync`` gives ``torch.cuda.synchronize`` for one), since
@@ -33,6 +34,9 @@ The append counts say how each streaming append of a pixel session ran
 (runtime/append_graph.py): replayed from a CUDA graph captured earlier,
 captured (and then replayed once), or eager, by the reason that sent it
 eager.  ``append_hit_share`` is the share of appends that were replays.
+The vision counts say the same of the tower calls (``full`` and
+``cached`` paths, runtime/vision_graph.py), ``vision_hit_share`` their
+share of replays.
 
 An MoE language model (models/deepseek_v3.py) keeps its routing counters
 on the device, added to inside every video append (a CUDA graph's replays
@@ -59,9 +63,10 @@ _tracing = False
 _spans: List[list] = []
 _open_spans: List[int] = []
 
-# how the streaming appends ran: replays and captures of the append's
-# CUDA graph, and eager appends by reason
-_appends = {"replays": 0, "captures": 0, "eager": {}}
+# how the streaming appends and the vision tower calls ran: replays and
+# captures of their CUDA graphs, and eager calls by reason
+_graph_runs = {kind: {"replays": 0, "captures": 0, "eager": {}}
+               for kind in ("append", "vision")}
 
 
 def device_sync(device) -> Optional[Callable[[], None]]:
@@ -217,31 +222,69 @@ def take_spans() -> List[Tuple[str, int, int, int, int]]:
     return out
 
 
+def _count(kind: str, how: str) -> None:
+    runs = _graph_runs[kind]
+    if how in ("replay", "capture"):
+        runs[how + "s"] += 1
+    else:
+        runs["eager"][how] = runs["eager"].get(how, 0) + 1
+
+
+def _counts(kind: str) -> dict:
+    runs = _graph_runs[kind]
+    return dict(runs, eager=dict(runs["eager"]))
+
+
+def _reset(kind: str) -> None:
+    _graph_runs[kind].update(replays=0, captures=0, eager={})
+
+
+def _hit_share(kind: str) -> Optional[float]:
+    runs = _graph_runs[kind]
+    n = runs["replays"] + runs["captures"] + sum(runs["eager"].values())
+    return runs["replays"] / n if n else None
+
+
 def count_append(how: str) -> None:
     """One streaming append: 'replay', 'capture', or the reason it ran
     eager (runtime/append_graph.py)."""
-    if how in ("replay", "capture"):
-        _appends[how + "s"] += 1
-    else:
-        eager = _appends["eager"]
-        eager[how] = eager.get(how, 0) + 1
+    _count("append", how)
 
 
 def append_counts() -> dict:
     """{'replays': n, 'captures': n, 'eager': {reason: n}} since the last
     reset_append_counts."""
-    return dict(_appends, eager=dict(_appends["eager"]))
+    return _counts("append")
 
 
 def reset_append_counts() -> None:
-    _appends.update(replays=0, captures=0, eager={})
+    _reset("append")
 
 
 def append_hit_share() -> Optional[float]:
     """Replays over all appends counted (None before any)."""
-    n = _appends["replays"] + _appends["captures"] + sum(
-        _appends["eager"].values())
-    return _appends["replays"] / n if n else None
+    return _hit_share("append")
+
+
+def count_vision(how: str) -> None:
+    """One call of a vision tower's full or cached path: 'replay',
+    'capture', or the reason it ran eager (runtime/vision_graph.py)."""
+    _count("vision", how)
+
+
+def vision_counts() -> dict:
+    """{'replays': n, 'captures': n, 'eager': {reason: n}} of the tower
+    calls since the last reset_vision_counts."""
+    return _counts("vision")
+
+
+def reset_vision_counts() -> None:
+    _reset("vision")
+
+
+def vision_hit_share() -> Optional[float]:
+    """Replays over all tower calls counted (None before any)."""
+    return _hit_share("vision")
 
 
 def moe_counts(lm) -> Dict[str, object]:

@@ -1291,6 +1291,218 @@ def test_append_graph_recaptures_after_clear_cache_on_card(cuda_device):
     metrics.reset_append_counts()
 
 
+# the vision towers' CUDA graphs (runtime/vision_graph.py): SigLIP and
+# CLIP in float32, MoonViT in bf16, as the cells run them; three layers at
+# 128 wide on 8 x 8 (MoonViT 4 x 6) patches
+VISION_GRAPH_TOWERS = ("siglip", "clip", "moonvit")
+# a path sequence that meets every rule: each path warms up, captures and
+# replays, and the cached path warms up and captures again once the full
+# path's references are the graph's (call 4)
+VISION_GRAPH_PATHS = ["full", "cached", "cached"] * 4
+
+
+def _graph_tower(name, dev):
+    from stc_tpu_torch.models import clip as cl
+    from stc_tpu_torch.models import moonvit as mv
+    from stc_tpu_torch.models import siglip as sg
+    widths = dict(hidden_size=128, num_layers=3, num_heads=4,
+                  intermediate_size=256, patch_size=14)
+    gen = torch.Generator().manual_seed(11)
+    if name == "siglip":
+        tower = sg.Siglip(sg.SiglipConfig(image_size=112, **widths),
+                          device="cpu")
+    elif name == "clip":
+        tower = cl.CLIP(cl.CLIPConfig(image_size=112, **widths),
+                        device="cpu")
+    else:
+        tower = mv.MoonViT(mv.MoonViTConfig(image_hw=(56, 84),
+                                            pos_grid=(8, 8), **widths),
+                           dtype=torch.bfloat16, device="cpu")
+        tower.pos_embed.copy_(torch.randn(tower.pos_embed.shape,
+                                          generator=gen) * 0.02)
+    return tower.init_random_params(gen).to(dev)
+
+
+def _tower_call(name, tower, path, px, state):
+    """One call of `path`: (the tensors it hands out, the new state)."""
+    if name == "clip":
+        if path == "full":
+            out, state = tower.encode_full(px, state)
+        else:
+            out, state = tower.encode_cached(px, state, 0.5)
+        rows = [] if path == "full" else tower.last_rows
+        return [out] + [r for r in rows if r is not None], state
+    if path == "full":
+        out, state = tower.encode_full(px)
+        return [out], state
+    out, sel = tower.encode_cached(px, state, 0.25)
+    return [out, sel], state
+
+
+def _tower_state(name, tower, dev):
+    from stc_tpu_torch.models import clip as cl
+    from stc_tpu_torch.models import siglip as sg
+    if name == "clip":
+        return cl.init_clip_cacher(tower.cfg, device=dev)
+    return sg.init_cacher_state(tower.cfg, 1, tower.patch_w.dtype,
+                                device=dev)
+
+
+def kernels_run(fn, path) -> dict:
+    """{kernel name: launches} of everything fn runs on the card, read
+    from a torch.profiler trace (written to path), but copies: a graph may
+    run a captured device-to-device copy as one of CUDA's own `memcpy*`
+    kernels where the eager call used the copy engine."""
+    import json
+    from collections import Counter
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return Counter(e["name"] for e in events if e.get("cat") == "kernel"
+                   and not e["name"].startswith("memcpy"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", VISION_GRAPH_TOWERS)
+def test_vision_graph_equals_eager_on_card(cuda_device, tmp_path, name):
+    """Twelve calls of each tower path, full / cached / cached, through an
+    owner's graphs and eagerly (no owner), side by side on the same
+    pixels: the features, the selections (CLIP's last_rows), the
+    references and CLIP's counters agree bit for bit after every call;
+    the counts follow the rule; what a call handed out is not touched by
+    the later replays.  Then one more call of each path, profiled: the
+    replay runs the eager call's kernels, as many of each (copies
+    aside)."""
+    from stc_tpu_torch.runtime import vision_graph as vg
+    from stc_tpu_torch.utils import metrics
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tower = _graph_tower(name, cuda_device)
+    owner = vg.VisionGraph()
+    eager_state = graphed_state = _tower_state(name, tower, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(12)
+    hw = getattr(tower.cfg, "image_hw", (112, 112))
+    dtype = tower.patch_w.dtype
+    metrics.reset_vision_counts()
+    handed = []
+    for step, path in enumerate(VISION_GRAPH_PATHS):
+        px = torch.randn((1, 3) + hw, generator=gen,
+                         device=cuda_device).to(dtype)
+        want, eager_state = _tower_call(name, tower, path, px, eager_state)
+        with vg.calls(owner):
+            got, graphed_state = _tower_call(name, tower, path, px,
+                                             graphed_state)
+        handed.append([t.clone() for t in got] + got)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), (step, path)
+        for a, b in zip(graphed_state, eager_state):
+            assert torch.equal(a, b), (step, path)
+    counts = metrics.vision_counts()
+    assert counts == dict(replays=6, captures=3,
+                          eager={"warmup": 3, "bare": 12})
+    assert all(owner.pool_bytes[p] > 0 for p in ("full", "cached"))
+    for snap in handed:
+        n = len(snap) // 2
+        for a, b in zip(snap[:n], snap[n:]):
+            assert torch.equal(a, b)
+    for path in ("full", "cached"):
+        px = torch.randn((1, 3) + hw, generator=gen,
+                         device=cuda_device).to(dtype)
+        eager = kernels_run(lambda: _tower_call(
+            name, tower, path, px, eager_state), tmp_path / "eager.json")
+
+        def replay():
+            with vg.calls(owner):
+                _tower_call(name, tower, path, px, graphed_state)
+
+        assert kernels_run(replay, tmp_path / "replay.json") == eager, path
+    assert metrics.vision_counts()["replays"] == 8
+    metrics.reset_vision_counts()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("family", ["llava_ov", "longva"])
+def test_vision_graph_session_on_card(cuda_device, family, batch,
+                                      monkeypatch):
+    """A tiny session of one or two streams streams two 12-frame videos
+    with clear_cache between them, once with the tower graphs and once with
+    the towers' eager body (vision_graph.run patched): the stores, the
+    cacher state and the cached chunks' selections (kept by a hook on
+    encode_cached, as the benchmark keeps them) agree bit for bit; each
+    video's tower calls warm up three times, capture twice and replay the
+    rest."""
+    from stc_tpu_torch.models import llava_onevision as lo
+    from stc_tpu_torch.models import longva as lv
+    from stc_tpu_torch.runtime import vision_graph as vg
+    from stc_tpu_torch.utils import metrics
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(4)
+    videos = [rng.integers(0, 256, (batch, 12, 56, 56, 3), dtype=np.uint8)
+              for _ in range(2)]
+    runs = []
+    for eager in (False, True):
+        gen = torch.Generator().manual_seed(4)
+        if family == "llava_ov":
+            model = lo.LlavaOV(lo.LlavaOVConfig.tiny(), dtype=torch.float32,
+                               device="cpu").init_random_params(gen)
+            sess = lo.build_session(model, _tiny_pixel_cfg(),
+                                    state_dtype=torch.float32,
+                                    device=cuda_device, batch=batch)
+        else:
+            cfg = lv.LongVAConfig.tiny()
+            model = lv.ClipVLM(cfg, dtype=torch.float32,
+                               device="cpu").init_random_params(gen)
+            sess = lv.build_session(model, SessionConfig(
+                rekv=ReKVConfig(n_init=4, n_local=128, block_size=4,
+                                exc_block_size=4, topk=4, max_blocks=64,
+                                max_prompt_tokens=32, max_new_tokens=8),
+                cacher=CacherConfig(update_token_ratio=0.5),
+                pruner=PrunerConfig(strategy="none", token_per_frame=4)),
+                state_dtype=torch.float32, device=cuda_device, batch=batch)
+        tower, kept = sess.model.vision, []
+        encode_cached = tower.encode_cached
+
+        def hook(*a, **k):
+            out = encode_cached(*a, **k)
+            kept.append(list(tower.last_rows) if family == "longva"
+                        else [out[1]])
+            return out
+
+        tower.encode_cached = hook
+        if eager:
+            monkeypatch.setattr(vg, "run",
+                                lambda path, fn, x, *a, **k: fn(x))
+        metrics.reset_vision_counts()
+        for v in videos:
+            sess.encode_init_prompt([1, 2, 3, 4])
+            for f in range(12):
+                sess.encode_video(v[:, f:f + 1] if batch > 1
+                                  else v[0, f:f + 1])
+            if v is videos[0]:
+                sess.clear_cache()
+                assert sess.vision_graph._held == {}
+        if not eager:
+            assert metrics.vision_counts() == dict(
+                replays=14, captures=4, eager={"warmup": 6})
+        runs.append(([x.clone() for x in sess.kvs]
+                     + [x.clone() for x in sess._vstate],
+                     [t for sel in kept for t in sel if t is not None]))
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(a, b)
+    assert len(runs[0][1]) == len(runs[1][1]) > 0
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+    ptrs = [t.data_ptr() for t in runs[0][1]]
+    assert len(set(ptrs)) == len(ptrs)
+    metrics.reset_vision_counts()
+
+
 # ---------------------------------------------------------------------------
 # Kimi-VL: latent attention and the expert LM on the card
 # ---------------------------------------------------------------------------

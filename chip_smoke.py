@@ -48,14 +48,13 @@ each of which makes the script exit non-zero when it fails:
      layers in bf16, random weights from a seeded torch.Generator): init
      prompt, 16 one-frame chunks, two 8-frame chunks, two questions, four
      more frames, one more question; its kernel launch counts against the
-     appends and LM forwards it ran, and its appends' CUDA graph
-     (runtime/append_graph.py) and its tower paths' graphs
-     (runtime/vision_graph.py) warmed up, captured and replayed as each
-     run of one chunk shape should; then the tower graphs over a stream
-     shaped like the ov7b-ingest cell (600 one-frame chunks of 360 x 640
-     frames): every call after a key's warm-up and capture a replay (hit
-     share at least 0.99), and the vision time a frame against the same
-     chunks with the towers eager;
+     appends and LM forwards it ran, and its appends' CUDA graph and its
+     tower paths' graphs (runtime/graphs.py) warmed up, captured and
+     replayed as each run of one chunk shape should; then the tower graphs
+     over a stream shaped like the ov7b-ingest cell (600 one-frame chunks
+     of 360 x 640 frames): every call after a key's warm-up and capture a
+     replay (hit share at least 0.99), and the vision time a frame against
+     the same chunks with the towers eager;
   4. a second session (n_local 1200) that crosses the init-fill trigger,
      with its own launch counts;
   5. where the time goes: device time per part of a chunk (the append
@@ -701,6 +700,7 @@ def score_parts(args, n_local, paths) -> dict:
     """Device ms of the bf16 decode_score on args, built with each part of
     its tile switched off in turn: what its time is made of.  The variants'
     outputs are wrong by design and not kept."""
+    from stc_tpu_torch.kernels import _build
     q, k, m, st, cu = args
     B, Hq, T, D = q.shape
     Hkv, C = k.shape[1], k.shape[2]
@@ -709,10 +709,7 @@ def score_parts(args, n_local, paths) -> dict:
     ptrs = [t.data_ptr() for t in (q, k, m, st, cu, out)]
     res = {}
     for part, path in paths.items():
-        fn = ctypes.CDLL(str(path)).stc_decode_score
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        fn = _build.entry("decode_score", lib=ctypes.CDLL(str(path)))
 
         def call(fn=fn, part=part):
             rc = fn(*ptrs, B, Hq, Hkv, T, D, C, n_local, 1, stream)
@@ -2887,7 +2884,7 @@ def segments(fn, targets) -> dict:
 
 
 # On a card a pixel session's streaming append replays one CUDA graph
-# (runtime/append_graph.py): a replay calls nothing inside the LM, so a
+# (runtime/graphs.py): a replay calls nothing inside the LM, so a
 # patch there sees no call.  The appends are timed whole at the session's
 # _append_flat; what happens inside them is timed on appends run eager.
 
@@ -2912,9 +2909,9 @@ def eager_appends(sess):
 def eager_vision():
     """While the block runs, the towers' paths run their eager body (what
     the vision graphs replay): patches inside a tower see every call."""
-    from stc_tpu_torch.runtime import vision_graph
+    from stc_tpu_torch.runtime import graphs
 
-    with patched([(vision_graph, "run",
+    with patched([(graphs, "run",
                    lambda f: lambda path, fn, x, *a, **k: fn(x))]):
         yield
 
@@ -2924,19 +2921,19 @@ def replays_into(box, key):
     replay of an append graph stands for (one a exc_block_size
     microbatch): a count of encode_step calls (is_init False) plus these
     counts every streaming append."""
-    from stc_tpu_torch.runtime.append_graph import AppendGraph
+    from stc_tpu_torch.runtime.graphs import Graphs
     from stc_tpu_torch.utils import metrics
 
     def wrap(f):
         def g(self, lm, rekv, kvs, x, active=None):
-            n = metrics.append_counts()["replays"]
+            n = metrics.graph_counts("append")["replays"]
             out = f(self, lm, rekv, kvs, x, active)
-            if metrics.append_counts()["replays"] > n:
+            if metrics.graph_counts("append")["replays"] > n:
                 box[key] += -(-x.shape[1] // rekv.exc_block_size)
             return out
         return g
 
-    return (AppendGraph, "append", wrap)
+    return (Graphs, "append", wrap)
 
 
 def vision_graph_phase(model, card, dev, n_chunks: int = 600,
@@ -2961,7 +2958,7 @@ def vision_graph_phase(model, card, dev, n_chunks: int = 600,
     targets = [(sess.vision, "full", "vision"),
                (sess.vision, "cached", "vision")]
     sess.encode_init_prompt(list(range(100, 114)))
-    metrics.reset_vision_counts()
+    metrics.reset_graph_counts("vision")
     nxt = iter(range(10 ** 6))
 
     def chunks(n):
@@ -2975,8 +2972,8 @@ def vision_graph_phase(model, card, dev, n_chunks: int = 600,
         return out
 
     graphed = chunks(n_chunks)
-    counts = metrics.vision_counts()
-    share = metrics.vision_hit_share()
+    counts = metrics.graph_counts("vision")
+    share = metrics.graph_hit_share("vision")
     with eager_vision():
         eager = chunks(n_eager)
 
@@ -2991,7 +2988,7 @@ def vision_graph_phase(model, card, dev, n_chunks: int = 600,
     rec = {"phase": "vision graphs, cell-shaped stream", "card": card,
            "chunks": n_chunks, "frames_hw": list(EVAL_HW),
            "vision_graphs": counts, "hit_share": share,
-           "pool_bytes": dict(sess.vision_graph.pool_bytes),
+           "pool_bytes": dict(sess.graphs.pool_bytes),
            "graphed": per_frame(graphed, 5),
            "eager_chunks": n_eager, "eager": per_frame(eager, 0),
            "ok": bool(share is not None and share >= 0.99
@@ -3152,7 +3149,7 @@ def clip_backbone_run(case, mod_name, n_frames, chunk, stop, card,
         0, 256, size=(n_frames, vc.image_size, vc.image_size, 3),
         dtype=np.uint8)
     reset_counts()
-    metrics.reset_vision_counts()
+    metrics.reset_graph_counts("vision")
     sess.encode_init_prompt(list(range(100, 100 + rekv.n_init)))
     chunks, init_active = [], []
     rows_skipped = rows_processed = 0
@@ -3175,7 +3172,7 @@ def clip_backbone_run(case, mod_name, n_frames, chunk, stop, card,
     # the tower graphs: one chunk shape; with the cacher the full path warms
     # up and captures, the cached one warms up twice (the second time on the
     # full graph's references) and captures; the rest replay
-    vision = metrics.vision_counts()
+    vision = metrics.graph_counts("vision")
     n_chunks = -(-n_frames // chunk)
     vision_want = ({"replays": n_chunks - 5, "captures": 2,
                     "eager": {"warmup": 3}} if scfg.cacher.enabled else
@@ -5080,8 +5077,8 @@ def kimi_session_launches(dev, n_frames: int = 8) -> dict:
     frames = np.random.default_rng(0).integers(0, 256, (n_frames, 50, 80, 3),
                                                dtype=np.uint8)
     sess.encode_init_prompt([1, 2, 3, 4])
-    metrics.reset_append_counts()
-    metrics.reset_vision_counts()
+    metrics.reset_graph_counts("append")
+    metrics.reset_graph_counts("vision")
     metrics.reset_moe_counts(sess.lm)
     n0 = la.launches
     for f in frames:
@@ -5090,12 +5087,13 @@ def kimi_session_launches(dev, n_frames: int = 8) -> dict:
     n = la.launches - n0
     layers = sess.lm.cfg.num_layers
     moe = metrics.moe_counts(sess.lm)
-    vision = metrics.vision_counts()
+    vision = metrics.graph_counts("vision")
     vision_want = {"replays": n_frames - 5, "captures": 2,
                    "eager": {"warmup": 3}}
     return {"frames": n_frames, "latent_attention": n,
             "appends_x_layers": n_frames * layers,
-            "appends": metrics.append_counts(), "vision_graphs": vision,
+            "appends": metrics.graph_counts("append"),
+            "vision_graphs": vision,
             "routing_appends": moe["appends"],
             "experts_hit": moe["hits"].tolist(),
             "ok": n == n_frames * layers and moe["appends"] == n_frames
@@ -5353,8 +5351,8 @@ def main() -> int:
     n_append = 0
     lm_forwards = 0
     reset_counts()
-    metrics.reset_append_counts()
-    metrics.reset_vision_counts()
+    metrics.reset_graph_counts("append")
+    metrics.reset_graph_counts("vision")
     sess.encode_init_prompt(list(range(100, 114)))
     chunk_s = []
     for i in range(16):
@@ -5392,7 +5390,7 @@ def main() -> int:
                            f"expected {want}")
     # the append graph: each run of one chunk shape (16 one-frame, 2
     # eight-frame, 4 one-frame) warms up, captures, then replays
-    graph = metrics.append_counts()
+    graph = metrics.graph_counts("append")
     graph_want = {"replays": 16, "captures": 3, "eager": {"warmup": 3}}
     if graph != graph_want:
         raise RuntimeError(f"main path append graph {graph} != expected "
@@ -5403,7 +5401,7 @@ def main() -> int:
     # 2), captures, replays 5; each 8-frame path warms up once; the last
     # four one-frame chunks warm up both paths, capture the full one and
     # warm up the cached one again
-    vision = metrics.vision_counts()
+    vision = metrics.graph_counts("vision")
     vision_want = {"replays": 11, "captures": 3, "eager": {"warmup": 8}}
     if vision != vision_want:
         raise RuntimeError(f"main path vision graphs {vision} != expected "

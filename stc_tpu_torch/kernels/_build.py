@@ -2,7 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
-loaded with ``ctypes``.  Builds happen at first use, into
+loaded with ``ctypes``; ``entry`` binds a function with the argument
+types of its ``extern "C"`` prototype in the source, so the C signature is
+written once.  Builds happen at first use, into
 ``build/stc_tpu_torch/`` at the root of the checkout, keyed by a hash of the
 sources and flags; all sources compile in parallel, one ``nvcc`` each.
 The host library ``csrc/frameproc.cpp`` (frame preprocessing and YUV
@@ -16,10 +18,13 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
+
+import torch
 
 PKG = Path(__file__).resolve().parents[1]
 CSRC = PKG / "csrc"
@@ -28,6 +33,9 @@ SOURCES = ("stream_attention", "decode_attention", "decode_score",
            "latent_attention")
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the dtype codes the kernels read (0 = float32, 1 = bfloat16)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -121,7 +129,6 @@ def n_splits(name: str, codes: tuple, rows: int, heads: int, n_keys: int,
 
 @functools.lru_cache(maxsize=None)
 def _sm_count(index) -> int:
-    import torch
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
@@ -134,13 +141,57 @@ def tile(name: str, codes: tuple) -> tuple:
     (stream_attention: dtype, page kind, D; decode_attention: dtype, D)."""
     key = (name, codes)
     if key not in _tiles:
-        fn = getattr(load(name), f"stc_{name}_tile")
         out = (ctypes.c_int * 3)()
-        fn.argtypes = [ctypes.c_int] * len(codes) + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        check_launch(fn(*codes, out), f"{name} tile query")
+        check_launch(entry(name, f"{name}_tile")(*codes, out),
+                     f"{name} tile query")
         _tiles[key] = tuple(out)
     return _tiles[key]
+
+
+_C_TYPES = {"int": ctypes.c_int, "float": ctypes.c_float}
+_PROTOTYPE = re.compile(r'extern\s+"C"\s+(\w+)\s+(stc_\w+)\s*\(([^)]*)\)')
+
+
+def _ctype(symbol: str, words: list):
+    """The ctypes type of one C type, given as words: any pointer is
+    c_void_p, int c_int, float c_float."""
+    if "*" in words:
+        return ctypes.c_void_p
+    ctype = _C_TYPES.get(" ".join(w for w in words if w != "const"))
+    if ctype is None:
+        raise RuntimeError(f"{symbol}: no ctypes binding for the C type "
+                           f"{' '.join(words)!r}")
+    return ctype
+
+
+@functools.lru_cache(maxsize=None)
+def prototypes(name: str) -> dict:
+    """{symbol: (restype, argtypes)} of every extern "C" function that
+    csrc/<name>.cu declares, as ctypes types.  Raises on a C type that has
+    no binding, naming the symbol and the type."""
+    src = re.sub(r"//[^\n]*|/\*.*?\*/", "", (CSRC / f"{name}.cu").read_text(),
+                 flags=re.S)
+    out = {}
+    for ret, symbol, params in _PROTOTYPE.findall(src):
+        args = []
+        for p in params.split(","):
+            words = p.replace("*", " * ").split()
+            if words and words != ["void"]:  # without the parameter's name
+                args.append(_ctype(symbol, words[:-1] if len(words) > 1
+                                   and words[-1] != "*" else words))
+        out[symbol] = (_ctype(symbol, [ret]), args)
+    return out
+
+
+def entry(name: str, symbol: str | None = None, lib=None):
+    """stc_<symbol or name> of kernel `name`'s library (or of `lib`, a
+    variant's), its argtypes and restype those of its prototype in
+    csrc/<name>.cu."""
+    symbol = f"stc_{symbol or name}"
+    fn = getattr(load(name) if lib is None else lib, symbol)
+    if fn.argtypes is None:
+        fn.restype, fn.argtypes = prototypes(name)[symbol]
+    return fn
 
 
 def check_launch(rc: int, name: str) -> None:

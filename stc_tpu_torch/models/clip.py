@@ -28,7 +28,7 @@ the probabilities round to the input dtype before P @ V
 (siglip._attn_full).
 
 On a CUDA card each path replays one CUDA graph where
-runtime/vision_graph.py finds the call eligible; the counters advance
+runtime/graphs.py finds the call eligible; the counters advance
 outside it, as eager, and the features and last_rows are copies.
 """
 
@@ -43,7 +43,7 @@ from torch import nn
 from stc_tpu_torch.device import resolve_device
 from stc_tpu_torch.models.siglip import _attn_full, layer_norm
 from stc_tpu_torch.ops.topk import topk_lowest
-from stc_tpu_torch.runtime import vision_graph
+from stc_tpu_torch.runtime import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -329,7 +329,7 @@ class CLIP(nn.Module):
                 post.append(mlp.reshape(B, F_ // B, T, C)[:, -1])
             return out, torch.stack(pre), torch.stack(post)
 
-        out, pre, post = vision_graph.run(
+        out, pre, post = graphs.run(
             "full", run, pixels, (feature_layer, n_streams), keep=(1, 2))
         return out, cacher._replace(
             ref_pre_ln2=pre, ref_mlp_post=post,
@@ -382,7 +382,7 @@ class CLIP(nn.Module):
                     out = h
             return (out, *rows)
 
-        out, *rows = vision_graph.run(
+        out, *rows = graphs.run(
             "cached", run, pixels,
             (skip_ratio, ratio_strategy, feature_layer, n_streams),
             (cacher.ref_pre_ln2, cacher.ref_mlp_post))

@@ -24,7 +24,7 @@ correction bias added for the choice only; one group), top-k through
 (``norm_topk_prob``) and scaled by ``routed_scaling_factor``, plus the
 shared experts (one SwiGLU of n_shared_experts x moe_intermediate_size).
 The routed experts run with static shapes and no host read, so a CUDA
-graph captures the whole append (runtime/append_graph.py): an expert sees
+graph captures the whole append (runtime/graphs.py): an expert sees
 at most the append's T tokens, so each expert's index list at capacity T
 is every token of the append in order, the experts run as two batched
 GEMMs over (n_experts, T) rows, and the gate's zeros drop the tokens an

@@ -37,7 +37,7 @@ from stc_tpu_torch.models import qwen2 as qw
 from stc_tpu_torch.models import register_model
 from stc_tpu_torch.models import siglip as sg
 from stc_tpu_torch.parallel import sharding
-from stc_tpu_torch.runtime import vision_graph
+from stc_tpu_torch.runtime import graphs
 from stc_tpu_torch.runtime.vlm import PixelPipeline, Preprocessor, VLMSession
 from stc_tpu_torch.utils import metrics
 
@@ -240,18 +240,18 @@ class FrameEncoder:
     pipeline that a VLMSession drives, on the full path every
     cache_interval-th call and on the cacher path between, and owns the
     cacher and pruner state (reset per video) and the tower's CUDA graphs
-    (runtime/vision_graph.py).  ``last_kept_idx`` holds the pruner's kept
+    (runtime/graphs.py).  ``last_kept_idx`` holds the pruner's kept
     indices (1, F, keep) of the last call (None without the pruner)."""
 
     def __init__(self, model: LlavaOV, scfg: SessionConfig, device="cuda"):
         self.model = model.to(resolve_device(device))
         self.scfg = scfg
         self.vision = LlavaOVVision(self.model, scfg)
-        self.graph = vision_graph.VisionGraph()
+        self.graphs = graphs.Graphs()
         self.reset()
 
     def reset(self):
-        self.graph.release()
+        self.graphs.release()
         self.chunk_idx = 0
         self.vstate, self.pstate = self.vision.init_state()
         self.last_kept_idx = None
@@ -270,8 +270,7 @@ class FrameEncoder:
             px = torch.as_tensor(frames).to(vis.device, vis.dtype)
         c = self.scfg.cacher
         cached = c.enabled and self.chunk_idx % c.cache_interval != 0
-        with vision_graph.calls(self.graph, vision_graph.held_reason(
-                self.model.text)):
+        with graphs.calls(self.graphs, self.model.text):
             out, idx, self.vstate, self.pstate = vis.encode(
                 px, self.vstate, self.pstate, cached)
         self.chunk_idx += 1

@@ -29,7 +29,7 @@ The port gathers rows by index (the JAX package's one-hot gather exists
 only for TPU costs and gives the same numbers).
 
 On a CUDA card each path replays one CUDA graph where
-runtime/vision_graph.py finds the call eligible: the references a full
+runtime/graphs.py finds the call eligible: the references a full
 chunk returns are then the graph's, rewritten by its next replay, and the
 features and selections are copies.
 
@@ -55,7 +55,7 @@ import torch.nn.functional as F
 
 from stc_tpu_torch.device import resolve_device
 from stc_tpu_torch.ops.topk import topk_lowest
-from stc_tpu_torch.runtime import vision_graph
+from stc_tpu_torch.runtime import graphs
 
 
 @dataclasses.dataclass(frozen=True)
@@ -398,8 +398,8 @@ class Siglip(nn.Module):
             return (self._final(h),) + tuple(
                 torch.stack([r[j] for r in refs]) for j in range(4))
 
-        h, *refs = vision_graph.run("full", run, pixels, (n_streams,),
-                                    keep=(1, 2, 3, 4))
+        h, *refs = graphs.run("full", run, pixels, (n_streams,),
+                              keep=(1, 2, 3, 4))
         return h, CacherState(*refs)
 
     @torch.no_grad()
@@ -430,6 +430,6 @@ class Siglip(nn.Module):
                 sel.append(ups[0] if n_streams == 1 else torch.cat(ups))
             return self._final(h), torch.stack(sel)
 
-        return vision_graph.run(
+        return graphs.run(
             "cached", run, pixels,
             (update_ratio, n_streams, sim_source, k_proxy_rank), cacher)

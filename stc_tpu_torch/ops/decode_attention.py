@@ -42,8 +42,6 @@ open (utils/metrics.py), the products the plain version computes.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from stc_tpu_torch.kernels import _build
@@ -51,8 +49,6 @@ from stc_tpu_torch.utils import metrics
 
 launches = 0
 score_launches = 0
-
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def decode_attention_flops(B: int, Hq: int, T: int, D: int, C: int) -> int:
@@ -69,7 +65,7 @@ def decode_score_flops(B: int, Hq: int, T: int, D: int, C: int) -> int:
 
 
 def _check(q_rot, k, v, start, cursor):
-    if q_rot.dtype not in _DTYPES or k.dtype != q_rot.dtype \
+    if q_rot.dtype not in _build.DTYPES or k.dtype != q_rot.dtype \
             or v.dtype != q_rot.dtype:
         raise ValueError("decode_attention wants q, k and v in one dtype "
                          "(bfloat16 or float32)")
@@ -101,16 +97,11 @@ def decode_attention(q_rot, k, v, start, cursor, *, n_local: int,
 
 def _launch(q_rot, k, v, start, cursor, n_local, return_m):
     global launches
-    lib = _build.load("decode_attention")
-    fn = lib.stc_decode_attention
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = _build.entry("decode_attention")
     B, Hq, T, D = q_rot.shape
     Hkv, C = k.shape[1], k.shape[2]
-    dev = q_rot.device
-    n_split = _build.n_splits("decode_attention", (_DTYPES[q_rot.dtype], D),
+    dev, dtype = q_rot.device, _build.DTYPES[q_rot.dtype]
+    n_split = _build.n_splits("decode_attention", (dtype, D),
                               (Hq // Hkv) * T, Hkv * B, C, dev)
     rows = B * Hq * T
     part_acc = torch.empty((n_split, rows, D), dtype=torch.float32,
@@ -123,7 +114,7 @@ def _launch(q_rot, k, v, start, cursor, n_local, return_m):
     rc = fn(q_rot.data_ptr(), k.data_ptr(), v.data_ptr(), start.data_ptr(),
             cursor.data_ptr(), part_acc.data_ptr(), part_ml.data_ptr(),
             out.data_ptr(), None if m is None else m.data_ptr(), B, Hq, Hkv,
-            T, D, C, n_local, n_split, _DTYPES[q_rot.dtype], stream)
+            T, D, C, n_local, n_split, dtype, stream)
     _build.check_launch(rc, "decode_attention")
     launches += 1
     metrics.add_kernel_flops(decode_attention_flops(B, Hq, T, D, C))
@@ -157,7 +148,7 @@ def decode_attention_ref(q_rot, k, v, start, cursor, *, n_local: int,
 
 
 def _check_score(q_rot, k, m, start, cursor):
-    if q_rot.dtype not in _DTYPES or k.dtype != q_rot.dtype:
+    if q_rot.dtype not in _build.DTYPES or k.dtype != q_rot.dtype:
         raise ValueError("decode_score wants q and k in one dtype "
                          "(bfloat16 or float32)")
     B, Hq, T, _ = q_rot.shape
@@ -189,19 +180,14 @@ def decode_score(q_rot, k, m, start, cursor, *, n_local: int):
 
 def _launch_score(q_rot, k, m, start, cursor, n_local):
     global score_launches
-    lib = _build.load("decode_score")
-    fn = lib.stc_decode_score
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = _build.entry("decode_score")
     B, Hq, T, D = q_rot.shape
     Hkv, C = k.shape[1], k.shape[2]
     out = torch.empty((B, Hq, C), dtype=torch.float32, device=q_rot.device)
     stream = torch.cuda.current_stream(q_rot.device).cuda_stream
     rc = fn(q_rot.data_ptr(), k.data_ptr(), m.data_ptr(), start.data_ptr(),
             cursor.data_ptr(), out.data_ptr(), B, Hq, Hkv, T, D, C, n_local,
-            _DTYPES[q_rot.dtype], stream)
+            _build.DTYPES[q_rot.dtype], stream)
     _build.check_launch(rc, "decode_score")
     score_launches += 1
     metrics.add_kernel_flops(decode_score_flops(B, Hq, T, D, C))

@@ -26,12 +26,10 @@ kernel.  On a CPU tensor the wrapper runs ``latent_attention_ref``; on a
 CUDA tensor it launches the kernel or raises.  ``launches`` counts
 kernel launches; a launch adds ``latent_attention_flops`` to the FLOPs
 counts open (utils/metrics.py).  Launches a CUDA graph replays are
-counted with ``add_launches`` (runtime/append_graph.py).
+counted with ``add_launches`` (runtime/graphs.py).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -127,12 +125,7 @@ def _launch(q_rot, q_one, block_c, cos_cover, sin_cover, k_init_rot,
         raise ValueError(f"the latent_attention kernel is built for "
                          f"bfloat16 rows of {WIDTH} dims, {ROPE} of them "
                          f"rotated; got {q_rot.dtype} rows of {W} ({P})")
-    lib = _build.load("latent_attention")
-    fn = lib.stc_latent_attention
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 10 + [
-            ctypes.c_float, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = _build.entry("latent_attention")
     dev = q_rot.device
     R = W - P
     rows = Hq * T

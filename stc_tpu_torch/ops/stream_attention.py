@@ -50,12 +50,10 @@ page kind; ``masked_launches`` counts those of them that read a page_keep
 mask.  A launch adds ``stream_attention_flops`` to the FLOPs counts open
 (utils/metrics.py), the products the plain version computes.  Launches
 that do not pass the wrapper, a CUDA graph's replay of those it recorded,
-are counted with ``add_launches`` (runtime/append_graph.py).
+are counted with ``add_launches`` (runtime/graphs.py).
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -66,7 +64,6 @@ from stc_tpu_torch.utils import metrics
 launches = {"float": 0, "int8": 0, "int4": 0}
 masked_launches = 0
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PAGE_KINDS = {torch.int8: "int8", torch.uint8: "int4"}
 _PAGE_CODES = {"float": 0, "int8": 1, "int4": 2}
 
@@ -130,8 +127,8 @@ def _check(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
         raise ValueError(f"append of T={T} tokens is not a whole number of "
                          f"{S}-token pages")
     tensors = (q_rot, q_one, k_init_rot, v_init, k_init_raw)
-    if q_rot.dtype not in _DTYPES or any(t.dtype != q_rot.dtype
-                                         for t in tensors):
+    if q_rot.dtype not in _build.DTYPES or any(t.dtype != q_rot.dtype
+                                               for t in tensors):
         raise ValueError("stream_attention wants q and the init keys in one "
                          "dtype (bfloat16 or float32)")
     kind = page_kind(block_k)
@@ -208,17 +205,13 @@ def stream_attention(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
 def _launch(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
             k_init_rot, v_init, k_init_raw, scalars, *, n_local, k_scales,
             v_scales, page_keep):
-    lib = _build.load("stream_attention")
-    fn = lib.stc_stream_attention
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 14 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    fn = _build.entry("stream_attention")
     B, Hq, T, D = q_rot.shape
     Hkv, Nb, S = block_k.shape[1], block_k.shape[2], block_k.shape[3]
     Lc, n_init = cos_cover.shape[1], k_init_rot.shape[2]
     kind = page_kind(block_k)
-    codes = (_DTYPES[q_rot.dtype], _PAGE_CODES[kind], D)
+    dtype = _build.DTYPES[q_rot.dtype]
+    codes = (dtype, _PAGE_CODES[kind], D)
     n_split = _build.n_splits("stream_attention", codes, (Hq // Hkv) * T,
                               Hkv * B, Lc, q_rot.device)
     rows = B * Hq * T
@@ -244,8 +237,7 @@ def _launch(q_rot, q_one, block_k, block_v, cos_cover, sin_cover,
             None if cover is None else cover[0].data_ptr(),
             None if cover is None else cover[1].data_ptr(),
             out.data_ptr(), B, Hq, Hkv, T, D, Nb, S, Lc, pages_per_tile(S),
-            n_init, n_local, n_split, _DTYPES[q_rot.dtype],
-            _PAGE_CODES[kind], stream)
+            n_init, n_local, n_split, dtype, _PAGE_CODES[kind], stream)
     _build.check_launch(rc, "stream_attention")
     launches[kind] += 1
     metrics.add_kernel_flops(stream_attention_flops(B, Hq, T, D, Lc, n_init))

@@ -23,10 +23,10 @@ a staged tensor as one chunk (runtime/pipeline.py's ``stream_encode``).
 and leaves the state as it was.  A chunk records the spans ``chunk``,
 ``vision.full`` / ``vision.cached`` and ``append`` while
 ``utils.metrics.tracing`` is on (LLaVA-OV's pipeline adds ``pruner``).
-On a CUDA card a chunk's LM append replays one CUDA graph where it can
-(runtime/append_graph.py), and so does each of the tower's two paths
-(runtime/vision_graph.py: the session owns those graphs and tells the
-tower what it cannot see of a tick).
+On a CUDA card a chunk's LM append replays one CUDA graph where it can,
+and so does each of the tower's two paths (runtime/graphs.py: the
+session owns those graphs and tells the tower what it cannot see of a
+tick).
 """
 
 from __future__ import annotations
@@ -37,8 +37,7 @@ import torch.nn.functional as F
 
 from stc_tpu_torch import native
 from stc_tpu_torch.kvcache import engine
-from stc_tpu_torch.runtime import vision_graph
-from stc_tpu_torch.runtime.append_graph import AppendGraph
+from stc_tpu_torch.runtime import graphs
 from stc_tpu_torch.runtime.session import StreamingSession
 from stc_tpu_torch.utils import metrics
 
@@ -213,17 +212,15 @@ class VLMSession(StreamingSession):
                  state_dtype=torch.bfloat16, batch: int = 1, mesh=None):
         self.vision = vision
         # the streaming append and the tower's paths as CUDA graphs
-        self.append_graph = AppendGraph()
-        self.vision_graph = vision_graph.VisionGraph()
+        self.graphs = graphs.Graphs()
         super().__init__(lm, scfg, batch=batch, state_dtype=state_dtype,
                          mesh=mesh)
 
     def clear_cache(self):
-        # the graphs' pools (and the vision graphs' references) go before
-        # the new store and state are made: they would otherwise sit on top
-        # of the two stores alive
-        self.append_graph.release()
-        self.vision_graph.release()
+        # the graphs' pools (and the full path's references) go before the
+        # new store and state are made: they would otherwise sit on top of
+        # the two stores alive
+        self.graphs.release()
         super().clear_cache()
         self.chunk_idx = 0
         # each slot's chunk count (of all B): its cacher parity is its own
@@ -316,8 +313,7 @@ class VLMSession(StreamingSession):
             px = vis.device_preprocess(
                 torch.as_tensor(pixels).to(self.device, non_blocking=True))
             mixed = bool(ticking.any() and not ticking.all())
-            held = vision_graph.held_reason(self.lm, act_dev, mixed)
-            with vision_graph.calls(self.vision_graph, held):
+            with graphs.calls(self.graphs, self.lm, act_dev, mixed):
                 if mixed:
                     # the ticking slots disagree: both paths, each slot its
                     # own
@@ -351,10 +347,9 @@ class VLMSession(StreamingSession):
         """Pruned features (B, n * block_size, E) into the LM, one append
         a exc_block_size tokens (parallel.pipeline.pp_encode_step: under
         pp each is relayed over the stages), replayed as one CUDA graph
-        where runtime/append_graph.py finds the call eligible."""
+        where runtime/graphs.py finds the call eligible."""
         with metrics.span("append", self.chunk_idx):
-            self.append_graph.append(self.lm, self.rekv, self.kvs, flat,
-                                     active)
+            self.graphs.append(self.lm, self.rekv, self.kvs, flat, active)
 
     @torch.no_grad()
     def estimate_chunk_flops(self, cached: bool = False) -> int:

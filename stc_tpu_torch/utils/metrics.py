@@ -3,8 +3,8 @@
 Per-frame latency percentiles, throughput and KV memory (``Timer``,
 ``StreamingStats``), the FLOPs of one call (``estimate_flops``), spans of
 the ingest path on the host clock (``tracing``, ``span``, ``take_spans``)
-and how each streaming append and vision tower call ran (``count_append``,
-``append_counts``; ``count_vision``, ``vision_counts``).
+and how each streaming append and vision tower call ran (``count_graph``,
+``graph_counts``).
 
 ``Timer`` reads the host clock; on a CUDA device the caller passes a
 ``sync`` (``device_sync`` gives ``torch.cuda.synchronize`` for one), since
@@ -30,13 +30,12 @@ as they were; a reader lines the spans up with a device trace on its own
 clock.  ``take_spans`` hands the spans over and starts a new list.  The
 recorder serves one thread.
 
-The append counts say how each streaming append of a pixel session ran
-(runtime/append_graph.py): replayed from a CUDA graph captured earlier,
-captured (and then replayed once), or eager, by the reason that sent it
-eager.  ``append_hit_share`` is the share of appends that were replays.
-The vision counts say the same of the tower calls (``full`` and
-``cached`` paths, runtime/vision_graph.py), ``vision_hit_share`` their
-share of replays.
+The graph counts say how each call of a CUDA graph's path ran
+(runtime/graphs.py), by kind: 'append', a pixel session's streaming
+appends, and 'vision', the tower calls (``full`` and ``cached`` paths).
+A call was replayed from a graph captured earlier, captured (and then
+replayed once), or eager, by the reason that sent it eager.
+``graph_hit_share`` is the share of a kind's calls that were replays.
 
 An MoE language model (models/deepseek_v3.py) keeps its routing counters
 on the device, added to inside every video append (a CUDA graph's replays
@@ -222,7 +221,9 @@ def take_spans() -> List[Tuple[str, int, int, int, int]]:
     return out
 
 
-def _count(kind: str, how: str) -> None:
+def count_graph(kind: str, how: str) -> None:
+    """One call of kind `kind` ('append' or 'vision'): 'replay',
+    'capture', or the reason it ran eager (runtime/graphs.py)."""
     runs = _graph_runs[kind]
     if how in ("replay", "capture"):
         runs[how + "s"] += 1
@@ -230,61 +231,23 @@ def _count(kind: str, how: str) -> None:
         runs["eager"][how] = runs["eager"].get(how, 0) + 1
 
 
-def _counts(kind: str) -> dict:
+def graph_counts(kind: str) -> dict:
+    """{'replays': n, 'captures': n, 'eager': {reason: n}} of kind `kind`
+    since the last reset_graph_counts(kind)."""
     runs = _graph_runs[kind]
     return dict(runs, eager=dict(runs["eager"]))
 
 
-def _reset(kind: str) -> None:
+def reset_graph_counts(kind: str) -> None:
     _graph_runs[kind].update(replays=0, captures=0, eager={})
 
 
-def _hit_share(kind: str) -> Optional[float]:
+def graph_hit_share(kind: str) -> Optional[float]:
+    """Replays over all calls of kind `kind` counted (None before
+    any)."""
     runs = _graph_runs[kind]
     n = runs["replays"] + runs["captures"] + sum(runs["eager"].values())
     return runs["replays"] / n if n else None
-
-
-def count_append(how: str) -> None:
-    """One streaming append: 'replay', 'capture', or the reason it ran
-    eager (runtime/append_graph.py)."""
-    _count("append", how)
-
-
-def append_counts() -> dict:
-    """{'replays': n, 'captures': n, 'eager': {reason: n}} since the last
-    reset_append_counts."""
-    return _counts("append")
-
-
-def reset_append_counts() -> None:
-    _reset("append")
-
-
-def append_hit_share() -> Optional[float]:
-    """Replays over all appends counted (None before any)."""
-    return _hit_share("append")
-
-
-def count_vision(how: str) -> None:
-    """One call of a vision tower's full or cached path: 'replay',
-    'capture', or the reason it ran eager (runtime/vision_graph.py)."""
-    _count("vision", how)
-
-
-def vision_counts() -> dict:
-    """{'replays': n, 'captures': n, 'eager': {reason: n}} of the tower
-    calls since the last reset_vision_counts."""
-    return _counts("vision")
-
-
-def reset_vision_counts() -> None:
-    _reset("vision")
-
-
-def vision_hit_share() -> Optional[float]:
-    """Replays over all tower calls counted (None before any)."""
-    return _hit_share("vision")
 
 
 def moe_counts(lm) -> Dict[str, object]:

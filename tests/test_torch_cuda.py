@@ -249,6 +249,65 @@ def test_decode_attention_kernel_on_card(cuda_device, T, C, n_local,
         assert_agrees(m[fin], m_ref[fin])
 
 
+def decode_off_the_default_stream(where: str, dev) -> None:
+    """decode_attention in float32 and bf16, launched on a side
+    torch.cuda.Stream (a handle past 32 bits) or under torch.profiler,
+    held to its plain version."""
+    from torch.profiler import ProfilerActivity, profile
+    gen = torch.Generator(device=dev).manual_seed(21)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn(s, generator=gen, device=dev).to(dtype)
+                   for s in ((2, 28, 5, 128), (2, 4, 700, 128),
+                             (2, 4, 700, 128)))
+        cursor = torch.tensor([700, 611], dtype=torch.int32, device=dev)
+        start = (cursor - 5).to(torch.int32)
+        before = da.launches
+        torch.cuda.synchronize()
+        if where == "side_stream":
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                assert side.cuda_stream == torch.cuda.current_stream(
+                    dev).cuda_stream != 0
+                got = da.decode_attention(q, k, v, start, cursor,
+                                          n_local=512)
+            side.synchronize()
+        else:
+            with profile(activities=[ProfilerActivity.CUDA]):
+                got = da.decode_attention(q, k, v, start, cursor,
+                                          n_local=512)
+                torch.cuda.synchronize()
+        assert da.launches == before + 1
+        assert_agrees(got, da.decode_attention_ref(q, k, v, start, cursor,
+                                                   n_local=512))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["side_stream", "profiler"])
+def test_decode_attention_off_the_default_stream_on_card(cuda_device,
+                                                         where):
+    """decode_attention off the default stream agrees with its plain
+    version: the binding passes the stream whole (its nine ints, then the
+    stream, as csrc/decode_attention.cu declares).  The profiler's case
+    runs in a process of its own: a profiler session opened this early in
+    the suite's process left the later traces of kernels_run a few
+    kernels short or long (test_vision_graph_equals_eager_on_card, on an
+    H100)."""
+    if where == "side_stream":
+        decode_off_the_default_stream(where, cuda_device)
+        return
+    import subprocess
+    import sys
+    from pathlib import Path
+    here = Path(__file__).resolve().parent
+    code = (f"import sys; sys.path.insert(0, {str(here)!r}); "
+            "import test_torch_cuda as t; t.decode_off_the_default_stream("
+            f"'profiler', {str(cuda_device)!r})")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=here.parent,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
+
+
 @pytest.mark.cuda
 def test_tiny_session_on_card_goes_through_the_kernels(cuda_device):
     """A tiny pixel session on the card: every append and every LM forward
@@ -1141,7 +1200,7 @@ def test_tp2_session_on_card_answers_as_unsharded(cuda_device):
         assert n_stream > 0 and n_decode > 0
 
 
-# the streaming append's CUDA graph (runtime/append_graph.py): kv_quant
+# the streaming append's CUDA graph (runtime/graphs.py): kv_quant
 # none / int8 / int4 and window compression, at B = 1 and 2
 GRAPH_CASES = [("none", False, 1), ("none", False, 2), ("int8", False, 1),
                ("int4", False, 2), ("none", True, 2), ("int8", True, 1),
@@ -1185,7 +1244,7 @@ def test_append_graph_equals_eager_on_card(cuda_device, tmp_path, quant,
     from stc_tpu_torch.kvcache import host_tier
     from stc_tpu_torch.models.qwen2 import Qwen2, Qwen2Config
     from stc_tpu_torch.parallel import pipeline
-    from stc_tpu_torch.runtime.append_graph import AppendGraph
+    from stc_tpu_torch.runtime.graphs import Graphs
     from stc_tpu_torch.utils import metrics
     cfg = ReKVConfig(**dict(
         BASE, max_blocks=24, kv_quant=quant,
@@ -1204,8 +1263,8 @@ def test_append_graph_equals_eager_on_card(cuda_device, tmp_path, quant,
         lm.encode_step(cfg, kvs, lm.embed_tokens(ids), is_init=True)
         stores.append(kvs)
     eager, graphed = stores
-    graph = AppendGraph()
-    metrics.reset_append_counts()
+    graph = Graphs()
+    metrics.reset_graph_counts("append")
     resident = 0
 
     def counters():
@@ -1232,9 +1291,9 @@ def test_append_graph_equals_eager_on_card(cuda_device, tmp_path, quant,
         assert c2[0][kind] - c1[0][kind] == 3, step
         assert c2[1] - c1[1] == c1[1] - c0[1] == (3 if compress else 0)
     assert int(eager.page_offset.max()) == 24
-    assert metrics.append_counts() == dict(replays=42, captures=1,
-                                           eager={"warmup": 1})
-    assert graph.pool_bytes > 0
+    assert metrics.graph_counts("append") == dict(replays=42, captures=1,
+                                                  eager={"warmup": 1})
+    assert graph.pool_bytes["append"] > 0
     x = torch.randn((batch, cfg.block_size, 128), generator=gen,
                     device=cuda_device)
     want = hand_kernels_run(lambda: pipeline.pp_encode_step(
@@ -1251,7 +1310,7 @@ def test_append_graph_equals_eager_on_card(cuda_device, tmp_path, quant,
     assert sum(n for k, n in got.items() if "stream_cover" in k) == added
     for a, b in zip(graphed, eager):
         assert torch.equal(a, b)
-    metrics.reset_append_counts()
+    metrics.reset_graph_counts("append")
 
 
 @pytest.mark.cuda
@@ -1269,7 +1328,7 @@ def test_append_graph_recaptures_after_clear_cache_on_card(cuda_device):
     rng = np.random.default_rng(3)
     videos = [rng.integers(0, 256, (6, 56, 56, 3), dtype=np.uint8)
               for _ in range(2)]
-    metrics.reset_append_counts()
+    metrics.reset_graph_counts("append")
     stores = []
     for first in (videos[0], None):
         sess = lo.build_session(model, _tiny_pixel_cfg(),
@@ -1280,18 +1339,18 @@ def test_append_graph_recaptures_after_clear_cache_on_card(cuda_device):
             sess.encode_video(first)
             sess.estimate_chunk_flops()
             sess.clear_cache()
-            assert sess.append_graph._graph is None
+            assert sess.graphs._held == {}
         sess.encode_init_prompt([1, 2, 3, 4])
         sess.encode_video(videos[1])
         stores.append(sess.kvs)
     for a, b in zip(*stores):
         assert torch.equal(a, b)
-    assert metrics.append_counts() == dict(
+    assert metrics.graph_counts("append") == dict(
         replays=12, captures=3, eager={"warmup": 3, "flops": 1})
-    metrics.reset_append_counts()
+    metrics.reset_graph_counts("append")
 
 
-# the vision towers' CUDA graphs (runtime/vision_graph.py): SigLIP and
+# the vision towers' CUDA graphs (runtime/graphs.py): SigLIP and
 # CLIP in float32, MoonViT in bf16, as the cells run them; three layers at
 # 128 wide on 8 x 8 (MoonViT 4 x 6) patches
 VISION_GRAPH_TOWERS = ("siglip", "clip", "moonvit")
@@ -1378,22 +1437,22 @@ def test_vision_graph_equals_eager_on_card(cuda_device, tmp_path, name):
     the later replays.  Then one more call of each path, profiled: the
     replay runs the eager call's kernels, as many of each (copies
     aside)."""
-    from stc_tpu_torch.runtime import vision_graph as vg
+    from stc_tpu_torch.runtime import graphs
     from stc_tpu_torch.utils import metrics
     torch.backends.cuda.matmul.allow_tf32 = False
     tower = _graph_tower(name, cuda_device)
-    owner = vg.VisionGraph()
+    owner = graphs.Graphs()
     eager_state = graphed_state = _tower_state(name, tower, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(12)
     hw = getattr(tower.cfg, "image_hw", (112, 112))
     dtype = tower.patch_w.dtype
-    metrics.reset_vision_counts()
+    metrics.reset_graph_counts("vision")
     handed = []
     for step, path in enumerate(VISION_GRAPH_PATHS):
         px = torch.randn((1, 3) + hw, generator=gen,
                          device=cuda_device).to(dtype)
         want, eager_state = _tower_call(name, tower, path, px, eager_state)
-        with vg.calls(owner):
+        with graphs.calls(owner):
             got, graphed_state = _tower_call(name, tower, path, px,
                                              graphed_state)
         handed.append([t.clone() for t in got] + got)
@@ -1402,7 +1461,7 @@ def test_vision_graph_equals_eager_on_card(cuda_device, tmp_path, name):
             assert torch.equal(a, b), (step, path)
         for a, b in zip(graphed_state, eager_state):
             assert torch.equal(a, b), (step, path)
-    counts = metrics.vision_counts()
+    counts = metrics.graph_counts("vision")
     assert counts == dict(replays=6, captures=3,
                           eager={"warmup": 3, "bare": 12})
     assert all(owner.pool_bytes[p] > 0 for p in ("full", "cached"))
@@ -1417,12 +1476,12 @@ def test_vision_graph_equals_eager_on_card(cuda_device, tmp_path, name):
             name, tower, path, px, eager_state), tmp_path / "eager.json")
 
         def replay():
-            with vg.calls(owner):
+            with graphs.calls(owner):
                 _tower_call(name, tower, path, px, graphed_state)
 
         assert kernels_run(replay, tmp_path / "replay.json") == eager, path
-    assert metrics.vision_counts()["replays"] == 8
-    metrics.reset_vision_counts()
+    assert metrics.graph_counts("vision")["replays"] == 8
+    metrics.reset_graph_counts("vision")
 
 
 @pytest.mark.cuda
@@ -1432,14 +1491,14 @@ def test_vision_graph_session_on_card(cuda_device, family, batch,
                                       monkeypatch):
     """A tiny session of one or two streams streams two 12-frame videos
     with clear_cache between them, once with the tower graphs and once with
-    the towers' eager body (vision_graph.run patched): the stores, the
+    the towers' eager body (graphs.run patched): the stores, the
     cacher state and the cached chunks' selections (kept by a hook on
     encode_cached, as the benchmark keeps them) agree bit for bit; each
     video's tower calls warm up three times, capture twice and replay the
     rest."""
     from stc_tpu_torch.models import llava_onevision as lo
     from stc_tpu_torch.models import longva as lv
-    from stc_tpu_torch.runtime import vision_graph as vg
+    from stc_tpu_torch.runtime import graphs
     from stc_tpu_torch.utils import metrics
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(4)
@@ -1476,9 +1535,9 @@ def test_vision_graph_session_on_card(cuda_device, family, batch,
 
         tower.encode_cached = hook
         if eager:
-            monkeypatch.setattr(vg, "run",
+            monkeypatch.setattr(graphs, "run",
                                 lambda path, fn, x, *a, **k: fn(x))
-        metrics.reset_vision_counts()
+        metrics.reset_graph_counts("vision")
         for v in videos:
             sess.encode_init_prompt([1, 2, 3, 4])
             for f in range(12):
@@ -1486,9 +1545,9 @@ def test_vision_graph_session_on_card(cuda_device, family, batch,
                                   else v[0, f:f + 1])
             if v is videos[0]:
                 sess.clear_cache()
-                assert sess.vision_graph._held == {}
+                assert sess.graphs._held == {}
         if not eager:
-            assert metrics.vision_counts() == dict(
+            assert metrics.graph_counts("vision") == dict(
                 replays=14, captures=4, eager={"warmup": 6})
         runs.append(([x.clone() for x in sess.kvs]
                      + [x.clone() for x in sess._vstate],
@@ -1500,7 +1559,7 @@ def test_vision_graph_session_on_card(cuda_device, family, batch,
         assert torch.equal(a, b)
     ptrs = [t.data_ptr() for t in runs[0][1]]
     assert len(set(ptrs)) == len(ptrs)
-    metrics.reset_vision_counts()
+    metrics.reset_graph_counts("vision")
 
 
 # ---------------------------------------------------------------------------
@@ -1558,7 +1617,7 @@ def test_kimi_append_graph_equals_eager_on_card(cuda_device):
     and an eager one make no host sync."""
     from stc_tpu_torch.ops import latent_attention as la
     from stc_tpu_torch.parallel import pipeline
-    from stc_tpu_torch.runtime.append_graph import AppendGraph
+    from stc_tpu_torch.runtime.graphs import Graphs
     from stc_tpu_torch.utils import metrics
     lm = _kimi_card_model(cuda_device).text
     cfg = _kimi_card_cfg().rekv
@@ -1571,10 +1630,10 @@ def test_kimi_append_graph_equals_eager_on_card(cuda_device):
         lm.encode_step(cfg, kvs, lm.embed_tokens(ids), is_init=True)
         stores.append(kvs)
     eager, graphed = stores
-    graph = AppendGraph()
+    graph = Graphs()
     for step in range(66):
         if step == 2:
-            metrics.reset_append_counts()
+            metrics.reset_graph_counts("append")
         x = torch.randn((1, cfg.block_size, 256), generator=gen,
                         device=cuda_device)
         c0 = la.launches
@@ -1598,8 +1657,9 @@ def test_kimi_append_graph_equals_eager_on_card(cuda_device):
             assert torch.equal(counts[name], counts_eager[name]), step
         for a, b in zip(graphed, eager):
             assert torch.equal(a, b), step
-    assert metrics.append_counts() == dict(replays=64, captures=0, eager={})
-    assert metrics.append_hit_share() >= 0.99
+    assert metrics.graph_counts("append") == dict(replays=64, captures=0,
+                                                  eager={})
+    assert metrics.graph_hit_share("append") >= 0.99
     # an eager routing pass makes no host sync either
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -1620,13 +1680,13 @@ def test_kimi_question_answering_raises_on_card(cuda_device):
                             device=cuda_device)
     frames = np.random.default_rng(0).integers(0, 256, (6, 50, 80, 3),
                                                dtype=np.uint8)
-    metrics.reset_append_counts()
+    metrics.reset_graph_counts("append")
     sess.encode_init_prompt([1, 2, 3, 4])
     sess.encode_video(frames)
     with pytest.raises(NotImplementedError) as err:
         sess.question_answering([5, 6], [7], [0], max_new_tokens=2)
     assert str(err.value) == LATENT_DECODE_ON_CARD
     sess.encode_video(frames[:2])
-    assert metrics.append_counts() == dict(replays=6, captures=1,
-                                           eager={"warmup": 1})
+    assert metrics.graph_counts("append") == dict(replays=6, captures=1,
+                                                  eager={"warmup": 1})
     assert int(sess.kvs.num_blocks[0, 0]) == 8
